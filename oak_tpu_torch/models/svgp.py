@@ -1,0 +1,150 @@
+"""Sparse variational GP, whitened or not, q_diag or full q_sqrt
+(``oak_tpu.models.svgp.SVGP``), with the Gaussian likelihood.
+
+On CUDA, the OAK gram runs through the fused kernel, which has no backward
+yet (ROADMAP K2): call the predict methods under ``torch.no_grad()`` there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.oak_kernel import OAKKernel
+from ..ops.psd import cholesky, safe_cholesky, solve_lower, solve_upper
+from ..params import Param, fixed, log_prior_density, param, positive
+
+
+class SVGP(nn.Module):
+    _fields = ("kernel", "likelihood", "Z", "q_mu", "q_sqrt")
+
+    def __init__(self, kernel: OAKKernel, likelihood: nn.Module, Z: Param,
+                 q_mu: Param, q_sqrt: Param, q_diag: bool = True,
+                 whiten: bool = True, num_data: Optional[int] = None):
+        super().__init__()
+        self.kernel = kernel
+        self.likelihood = likelihood
+        self.Z = Z  # [M, D]
+        self.q_mu = q_mu  # [M, R]
+        self.q_sqrt = q_sqrt  # diag: [M, R] positive; full: [R, M, M] lower
+        self.q_diag = q_diag
+        self.whiten = whiten
+        self.num_data = num_data
+
+    @classmethod
+    def create(cls, kernel: OAKKernel, likelihood: nn.Module, Z,
+               num_latent: int = 1, q_diag: bool = True, whiten: bool = True,
+               trainable_Z: bool = False, num_data: Optional[int] = None,
+               dtype: torch.dtype = torch.float64, device=None) -> "SVGP":
+        kw = dict(dtype=dtype, device=device)
+        Z = torch.as_tensor(Z, **kw)
+        M = Z.shape[0]
+        Zp = param(Z, **kw) if trainable_Z else fixed(Z, **kw)
+        q_mu = param(torch.zeros((M, num_latent), **kw), **kw)
+        if q_diag:
+            q_sqrt = positive(torch.ones((M, num_latent), **kw), **kw)
+        else:
+            eye = torch.eye(M, **kw)
+            q_sqrt = param(eye[None].repeat(num_latent, 1, 1), **kw)
+        return cls(kernel, likelihood, Zp, q_mu, q_sqrt, q_diag=q_diag,
+                   whiten=whiten, num_data=num_data)
+
+    # ------------------------------------------------------------------ #
+    def _q_sqrt_mats(self) -> torch.Tensor:
+        """[R, M, M] lower-triangular scale of q(u)."""
+        q = self.q_sqrt.value
+        if self.q_diag:
+            return torch.diag_embed(q.T)
+        return torch.tril(q)
+
+    def prior_kl(self) -> torch.Tensor:
+        """KL(q(u) || p(u)); whitened p(u) = N(0, I), else through Luu."""
+        q_mu = self.q_mu.value
+        M, R = q_mu.shape
+        if self.q_diag:
+            q = self.q_sqrt.value  # [M, R] standard deviations
+            logdet = 2.0 * torch.sum(torch.log(q))
+            trace = torch.sum(q * q)
+        else:
+            Lq = torch.tril(self.q_sqrt.value)
+            diag = torch.diagonal(Lq, dim1=-2, dim2=-1)
+            logdet = 2.0 * torch.sum(torch.log(torch.abs(diag)))
+            trace = torch.sum(Lq * Lq)
+        if self.whiten:
+            mahal = torch.sum(q_mu * q_mu)
+            return 0.5 * (trace + mahal - M * R - logdet)
+        Luu = cholesky(self.kernel.K(self.Z.value))
+        alpha = solve_lower(Luu, q_mu)
+        mahal = torch.sum(alpha * alpha)
+        LinvLq = solve_lower(Luu, self._q_sqrt_mats())
+        trace_w = torch.sum(LinvLq * LinvLq)
+        logdet_p = 2.0 * R * torch.sum(torch.log(torch.diagonal(Luu)))
+        return 0.5 * (trace_w + mahal - M * R - logdet + logdet_p)
+
+    # ------------------------------------------------------------------ #
+    def _safe_Luu(self) -> torch.Tensor:
+        """Jitter-escalated Cholesky of Kuu for the prediction paths: a
+        trained OAK can sit at near-constant per-dim kernels where Kuu is on
+        the edge of f32 conditioning; escalation keeps predictions finite."""
+        L, _ = safe_cholesky(self.kernel.K(self.Z.value))
+        return L
+
+    def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False,
+                  safe: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Predictive mean [S, R] and variance [S, R] (or covariance
+        [R, S, S] with ``full_cov``). ``safe=False`` (the ELBO's call) uses
+        the single-jitter Cholesky. Both solves are triangular solves
+        against Kus, whatever its width."""
+        Z = self.Z.value
+        Luu = self._safe_Luu() if safe else cholesky(self.kernel.K(Z))
+        Kus = self.kernel.K(Z, Xnew)  # [M, S]
+        q_mu = self.q_mu.value
+        R = q_mu.shape[1]
+        A = solve_lower(Luu, Kus)  # Luu⁻¹ Kus
+        W = A if self.whiten else solve_upper(Luu, A)  # Kuu⁻¹ Kus unwhitened
+
+        mean = W.T @ q_mu  # [S, R]
+        if self.q_diag:
+            q = self.q_sqrt.value  # [M, R]
+            SW2 = (W * W).T @ (q * q)  # [S, R]
+        else:
+            LqTW = torch.tril(self.q_sqrt.value).mT @ W  # [R, M, S]
+            SW2 = torch.sum(LqTW * LqTW, dim=1).T  # [S, R]
+
+        if full_cov:
+            base = self.kernel.K(Xnew) - A.T @ A
+            if self.q_diag:
+                q = self.q_sqrt.value
+                covs = torch.stack([
+                    base + (W * (q[:, r] ** 2)[:, None]).T @ W for r in range(R)])
+            else:
+                Lq = torch.tril(self.q_sqrt.value)
+                covs = torch.stack([
+                    base + (Lq[r].T @ W).T @ (Lq[r].T @ W) for r in range(R)])
+            return mean, covs
+        var = (self.kernel.K_diag(Xnew) - torch.sum(A * A, dim=0))[:, None] + SW2
+        return mean, var
+
+    def predict_y(self, Xnew: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        mu, var = self.predict_f(Xnew)
+        return self.likelihood.predict_mean_and_var(mu, var)
+
+    def predict_log_density(self, Xnew: torch.Tensor, Ynew: torch.Tensor) -> torch.Tensor:
+        mu, var = self.predict_f(Xnew)
+        if Ynew.dim() == 1:
+            Ynew = Ynew[:, None]
+        return torch.sum(self.likelihood.predict_log_density(mu, var, Ynew), dim=-1)
+
+    # ------------------------------------------------------------------ #
+    def elbo(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        if Y.dim() == 1:
+            Y = Y[:, None]
+        fmu, fvar = self.predict_f(X, safe=False)
+        ve = self.likelihood.variational_expectations(fmu, fvar, Y)
+        scale = 1.0 if self.num_data is None else self.num_data / X.shape[0]
+        return torch.sum(ve) * scale - self.prior_kl()
+
+    def training_loss(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        return -(self.elbo(X, Y) + log_prior_density(self))
