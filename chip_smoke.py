@@ -22,10 +22,16 @@ non-zero before the result line:
 
 Then one JSON line about the kernels, and as the last line
 {"ok": true, "device": {...}}. Imports no JAX.
+
+    python3 chip_smoke.py --profile
+
+runs phases 0-1 and then, in place of the checks, the breakdown of a warm
+predict_y request (PERF.md "Where the time goes"); it prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import re
@@ -97,24 +103,6 @@ def rel_err(a, ref):
     return float(np.abs(np.asarray(a, np.float64) - ref).max() / np.abs(ref).max())
 
 
-def _prescaled(seed, D, N, M, E, depth, device):
-    """Kernel inputs shaped like _prep's for lengthscales in U(1, 3) under
-    the N(0, 1) measure, with order variances 1, 0.5, 0.2, 0.05, ..."""
-    rng = np.random.default_rng(seed)
-    l = rng.uniform(1.0, 3.0, size=(D, 1))
-    x1, x2 = rng.normal(size=(D, N)), rng.normal(size=(D, M))
-    t = l * l + 1.0
-    rs = 1.0 / np.sqrt(l / np.sqrt(l * l + 2.0))
-    sig2 = [1.0, 0.5, 0.2, 0.05] + [0.05 * 0.25 ** k for k in range(1, depth)]
-    arrays = (x1 / (l * np.sqrt(2.0)), x2 / (l * np.sqrt(2.0)),
-              l / np.sqrt(t) * np.exp(-0.5 * x1 ** 2 / t) * rs,
-              l / np.sqrt(t) * np.exp(-0.5 * x2 ** 2 / t) * rs,
-              rng.uniform(-0.3, 0.3, size=(E, N, M)),
-              np.zeros(D), np.array(sig2[:depth + 1]))
-    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
-            for a in arrays]
-
-
 def _cuda_ms(fn, iters):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -160,18 +148,15 @@ def phase_build():
 
 def phase_kernel(model, X, device):
     from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.testing import KERNEL_CASES, prescaled_inputs
 
     with torch.no_grad():
         Z = model.Z.value
         Xd = torch.from_numpy(X).to(device)
         cases = [("Kus", og._prep(model.kernel, Z, Xd) + (DEPTH,)),
-                 ("Kuu", og._prep(model.kernel, Z, Z) + (DEPTH,)),
-                 ("ragged 1000x77", tuple(_prescaled(3, D, 1000, 77, 0, DEPTH, device))
-                  + (DEPTH,)),
-                 ("mixed E=2", tuple(_prescaled(4, D - 2, 300, 200, 2, DEPTH, device))
-                  + (DEPTH,))]
-        cases += [(f"P={p}", tuple(_prescaled(10 + p, D, 300, 200, 0, p, device)) + (p,))
-                  for p in range(1, 9)]
+                 ("Kuu", og._prep(model.kernel, Z, Z) + (DEPTH,))]
+        cases += [(name, tuple(prescaled_inputs(seed, d, n, m, e, p, device)) + (p,))
+                  for seed, (name, d, n, m, e, p) in enumerate(KERNEL_CASES, start=3)]
         findings = []
         for name, args in cases:
             out = og.oak_gram_fused(*args)
@@ -239,11 +224,82 @@ def phase_main_path(model, X, device):
     return launches
 
 
+def _host_ms(fn, repeats):
+    """Median host-clock ms of fn() with the card synchronized on both ends."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def profile(model, X, device, rows=(1, 8192), repeats=7):
+    """Where a warm predict_y request's time goes, rows already on the card:
+    the host clock (median of ``repeats``) over the request and its parts,
+    then torch.profiler over one request for its kernel launches and the
+    device time. The profiler's tables go to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.ops.psd import safe_cholesky, solve_lower
+
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    kern = model.kernel
+    with torch.no_grad():
+        Z = model.Z.value
+        Kuu = kern.K(Z)
+        Luu, jitter = safe_cholesky(Kuu)
+        print(f"profile: safe_cholesky(Kuu) settles at jitter {jitter:g}; linalg "
+              f"library {torch.backends.cuda.preferred_linalg_library()}")
+        for b in rows:
+            Xb = torch.from_numpy(X[:b]).to(device)
+            Kus = kern.K(Z, Xb)
+            parts = {"predict_y": lambda: model.predict_y(Xb),
+                     "K(Z) (Kuu, fused)": lambda: kern.K(Z),
+                     "K(Z, X) (Kus, fused)": lambda: kern.K(Z, Xb),
+                     "_prep(Z, X)": lambda: og._prep(kern, Z, Xb),
+                     "K_diag(X) (per-dim)": lambda: kern.K_diag(Xb),
+                     "safe_cholesky(Kuu)": lambda: safe_cholesky(Kuu),
+                     "solve_lower(Luu, Kus)": lambda: solve_lower(Luu, Kus)}
+            for fn in parts.values():  # warm-up
+                fn()
+            ms = {name: _host_ms(fn, repeats) for name, fn in parts.items()}
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                model.predict_y(Xb)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            launches = sum(e.count for e in events
+                           if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+            device_ms = sum(e.self_device_time_total for e in events
+                            if e.device_type == DeviceType.CUDA) / 1e3
+            table = events.table(sort_by="count", row_limit=60)
+            (out_dir / f"profile_predict_{b}.txt").write_text(table)
+            print(f"profile {b} rows (host ms, median of {repeats}): "
+                  + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
+                  + f"; profiled request: {launches} kernel launches, device time "
+                  f"{device_ms:.3f} ms; table in chiprun_out/profile_predict_{b}.txt")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="instead of phases 2-3, print where a warm predict_y "
+                             "request's time goes (host clock and torch.profiler)")
+    args = parser.parse_args()
     phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     model, X = build_model(device)
+    if args.profile:
+        profile(model, X, device)
+        return
     kernel = phase_kernel(model, X, device)
     launches = phase_main_path(model, X, device)
     print(json.dumps({"kernels": [{

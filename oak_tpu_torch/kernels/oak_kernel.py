@@ -226,7 +226,8 @@ class OAKKernel(nn.Module):
            one RBF-form dim, every other dim binary or categorical).
 
         Otherwise the per-dim Newton–Girard route in plain torch. So the CPU,
-        and float64 anywhere, never reach the kernel.
+        and float64 anywhere, never reach the kernel. A qualifying CUDA
+        float32 model deeper than the kernel's 8 raises there (ROADMAP K1-P8).
         """
         check_matrix_input(X, self._max_active_dim(), "X")
         if X2 is not None:

@@ -121,8 +121,9 @@ def oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
 
 def supports_fused(oak) -> bool:
     """Structure check: at least one RBF-form dim (any measure, or the
-    unconstrained variant), every other dim binary or categorical (through
-    ``extra``), and a depth the kernel is instantiated for."""
+    unconstrained variant), and every other dim binary or categorical
+    (through ``extra``). Depth is not part of it: a CUDA model deeper than
+    MAX_DEPTH reaches ``oak_gram_fused``, which raises (ROADMAP K1-P8)."""
     from ..kernels.oak_kernel import UnconstrainedRBF
     from ..kernels.ortho_binary import OrthogonalBinary
     from ..kernels.ortho_categorical import OrthogonalCategorical
@@ -132,7 +133,7 @@ def supports_fused(oak) -> bool:
     known = all(isinstance(k, rbf_types + (OrthogonalBinary, OrthogonalCategorical))
                 for k in oak.kernels)
     n_rbf = sum(isinstance(k, rbf_types) for k in oak.kernels)
-    return known and n_rbf > 0 and oak.max_interaction_depth <= MAX_DEPTH
+    return known and n_rbf > 0
 
 
 def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> None:
@@ -150,7 +151,7 @@ def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> None:
         raise ValueError("oak_gram_fused: inputs lie on different devices")
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"oak_gram_fused: depth {depth} is outside 1..{MAX_DEPTH}, "
-                         f"the depths the CUDA kernel is built for")
+                         f"the depths the CUDA kernel is built for (ROADMAP K1-P8)")
     if u1.dim() != 2 or u2.dim() != 2:
         raise ValueError("oak_gram_fused: u1 and u2 must be 2-D [D, N], [D, M]")
     D, N = u1.shape

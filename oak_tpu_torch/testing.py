@@ -1,0 +1,36 @@
+"""Inputs for checking the fused gram kernel against its plain version on
+the card: one generator and one list of cases, shared by ``chip_smoke.py``
+and ``tests/test_torch_gpu.py``."""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+# (name, D, N, M, E, depth): a ragged shape, a mixed case with two extra
+# grams, and every depth the kernel is instantiated for
+KERNEL_CASES = [("ragged 1000x77", 32, 1000, 77, 0, 3),
+                ("mixed E=2", 30, 300, 200, 2, 3)] + \
+    [(f"P={p}", 32, 300, 200, 0, p) for p in range(1, 9)]
+
+
+def prescaled_inputs(seed: int, D: int, N: int, M: int, E: int, depth: int,
+                     device) -> List[torch.Tensor]:
+    """[u1, u2, c1, c2, extra, logb, sig2] in float32, shaped like
+    ``ops.oak_gram._prep``'s, for lengthscales in U(1, 3) under the N(0, 1)
+    measure, with order variances 1, 0.5, 0.2, 0.05, ..."""
+    rng = np.random.default_rng(seed)
+    l = rng.uniform(1.0, 3.0, size=(D, 1))
+    x1, x2 = rng.normal(size=(D, N)), rng.normal(size=(D, M))
+    t = l * l + 1.0
+    rs = 1.0 / np.sqrt(l / np.sqrt(l * l + 2.0))
+    sig2 = [1.0, 0.5, 0.2, 0.05] + [0.05 * 0.25 ** k for k in range(1, depth)]
+    arrays = (x1 / (l * np.sqrt(2.0)), x2 / (l * np.sqrt(2.0)),
+              l / np.sqrt(t) * np.exp(-0.5 * x1 ** 2 / t) * rs,
+              l / np.sqrt(t) * np.exp(-0.5 * x2 ** 2 / t) * rs,
+              rng.uniform(-0.3, 0.3, size=(E, N, M)),
+              np.zeros(D), np.array(sig2[:depth + 1]))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+            for a in arrays]

@@ -118,8 +118,6 @@ def pytest_configure(config):
         "markers", "quick: fast iteration tier (pytest -m quick, ~3.5 min)")
     config.addinivalue_line(
         "markers", "slow: excluded from the quick tier")
-    config.addinivalue_line(
-        "markers", "gpu: needs a CUDA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

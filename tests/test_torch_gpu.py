@@ -13,6 +13,7 @@ import torch
 
 from oak_tpu_torch.kernels import OAKKernel
 from oak_tpu_torch.ops import oak_gram as og
+from oak_tpu_torch.testing import KERNEL_CASES, prescaled_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -27,32 +28,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _prescaled(seed, D, N, M, E, depth, device):
-    """Inputs shaped like _prep's for lengthscales in U(1, 3) under the
-    N(0, 1) measure, with order variances 1, 0.5, 0.2, 0.05, ..."""
-    rng = np.random.default_rng(seed)
-    l = rng.uniform(1.0, 3.0, size=(D, 1))
-    x1, x2 = rng.normal(size=(D, N)), rng.normal(size=(D, M))
-    t = l * l + 1.0
-    rs = 1.0 / np.sqrt(l / np.sqrt(l * l + 2.0))
-    sig2 = [1.0, 0.5, 0.2, 0.05] + [0.05 * 0.25 ** k for k in range(1, depth)]
-    arrays = (x1 / (l * np.sqrt(2.0)), x2 / (l * np.sqrt(2.0)),
-              l / np.sqrt(t) * np.exp(-0.5 * x1 ** 2 / t) * rs,
-              l / np.sqrt(t) * np.exp(-0.5 * x2 ** 2 / t) * rs,
-              rng.uniform(-0.3, 0.3, size=(E, N, M)),
-              np.zeros(D), np.array(sig2[:depth + 1]))
-    return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
-            for a in arrays]
-
-
-CASES = [("kus", 32, 512, 8192, 0, 3), ("kuu", 32, 512, 512, 0, 3),
-         ("ragged", 32, 1000, 77, 0, 3), ("mixed", 30, 300, 200, 2, 3)] + \
-    [(f"depth{p}", 32, 300, 200, 0, p) for p in range(1, 9)]
+# the predict path's Kus and Kuu at the bench width, then the shared cases
+CASES = [("Kus 512x8192", 32, 512, 8192, 0, 3),
+         ("Kuu 512x512", 32, 512, 512, 0, 3)] + KERNEL_CASES
 
 
 @pytest.mark.parametrize("name,D,N,M,E,depth", CASES, ids=[c[0] for c in CASES])
 def test_kernel_matches_plain(cuda, name, D, N, M, E, depth):
-    args = _prescaled(61, D, N, M, E, depth, cuda)
+    args = prescaled_inputs(61, D, N, M, E, depth, cuda)
     before = og.LAUNCHES
     out = og.oak_gram_fused(*args, depth)
     torch.cuda.synchronize()
@@ -64,7 +47,7 @@ def test_kernel_matches_plain(cuda, name, D, N, M, E, depth):
 
 
 def test_kernel_refuses_what_it_cannot_run(cuda):
-    args = _prescaled(62, 4, 16, 8, 0, 3, cuda)
+    args = prescaled_inputs(62, 4, 16, 8, 0, 3, cuda)
     with pytest.raises(NotImplementedError, match="K2"):
         og.oak_gram_fused(*[a.clone().requires_grad_(True) for a in args], 3)
     with pytest.raises(TypeError, match="float32"):
@@ -95,3 +78,15 @@ def test_oak_kernel_K_routes_through_kernel(cuda):
         assert og.LAUNCHES == before + 1
     err = float((K.double() - K64).abs().max() / K64.abs().max())
     assert err < TOL, err
+
+
+def test_oak_kernel_K_deeper_than_kernel_raises(cuda):
+    """Depth 9 qualifies for the fused route, as in oak_tpu, and the wrapper
+    refuses it instead of running the per-dim route on the card."""
+    k = OAKKernel.create(num_dims=10, max_interaction_depth=9, dtype=torch.float32,
+                         device=cuda)
+    X = torch.as_tensor(np.random.default_rng(64).normal(size=(20, 10)),
+                        dtype=torch.float32, device=cuda)
+    assert og.supports_fused(k)
+    with torch.no_grad(), pytest.raises(ValueError, match="K1-P8"):
+        k.K(X)
