@@ -35,6 +35,10 @@ SIGNATURES = {
     # u1, u2, c1, c2, extra, logb, sig2, out; D, N, M, E, P; stream
     "oak_gram_fwd_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                          + [ctypes.c_void_p], ctypes.c_int),
+    # u1, u2, c1, c2, extra, logb, sig2, gbar, du1p, dc1p, du2p, dc2p, dlogbp,
+    # dsig2p, dextra; D, N, M, E, P; stream
+    "oak_gram_bwd_f32": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p], ctypes.c_int),
 }
 
 

@@ -1,4 +1,4 @@
-from .likelihoods import Gaussian
+from .likelihoods import Bernoulli, Gaussian
 from .svgp import SVGP
 
-__all__ = ["Gaussian", "SVGP"]
+__all__ = ["Bernoulli", "Gaussian", "SVGP"]

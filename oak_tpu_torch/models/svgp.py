@@ -1,8 +1,9 @@
 """Sparse variational GP, whitened or not, q_diag or full q_sqrt
-(``oak_tpu.models.svgp.SVGP``), with the Gaussian likelihood.
+(``oak_tpu.models.svgp.SVGP``), with a Gaussian or Bernoulli likelihood.
 
-On CUDA, the OAK gram runs through the fused kernel, which has no backward
-yet (ROADMAP K2): call the predict methods under ``torch.no_grad()`` there.
+On a float32 CUDA input the OAK gram runs through the fused CUDA kernels,
+forward and backward, so ``elbo`` and ``training_loss`` differentiate on the
+card (``ops.oak_gram.FusedGram``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""The fused OAK gram: prescaled inputs, the plain torch version, and the
-wrapper that launches the CUDA kernel ``csrc/oak_gram_fwd.cu``.
+"""The fused OAK gram: prescaled inputs, the plain torch versions of the
+gram and of its backward, and the wrappers that launch the CUDA kernels
+``csrc/oak_gram_fwd.cu`` and ``csrc/oak_gram_bwd.cu``.
 
 For inputs X [N, D], X2 [M, D] the OAK gram is
 
@@ -15,9 +16,13 @@ that each (element, dim) costs one exp and a few FMAs:
 Dims that are not RBF-form (binary, categorical) are evaluated here as
 ``extra`` grams [E, N, M] that join the power sums.
 
-``oak_gram_fused`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors, or raises; it never falls back. It has no backward
-kernel yet, so on CUDA it refuses inputs that require grad.
+``oak_gram_fused`` takes the plain version, with autograd, for CPU tensors.
+For CUDA tensors it runs ``FusedGram``, a ``torch.autograd.Function`` whose
+forward launches ``csrc/oak_gram_fwd.cu`` and whose backward launches
+``csrc/oak_gram_bwd.cu``, or raises; it never falls back. The forward saves
+only the prescaled inputs, and the backward recomputes the per-dim grams
+(``oak_tpu`` measured that storing the [D, N, M] grams loses,
+oak_gram_pallas.py:523-535).
 """
 
 from __future__ import annotations
@@ -25,16 +30,24 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 from .newton_girard import newton_girard
 
-# Launches of the CUDA kernel in this process; a run resets it to 0 and reads
-# it afterwards to show that its path went through the kernel.
+# Launches of the forward and the backward CUDA kernel in this process; a run
+# resets them to 0 and reads them afterwards to show that its path went
+# through the kernels.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 # Deepest interaction order the kernel is instantiated for (csrc dispatch).
 MAX_DEPTH = 8
+
+# The backward kernel's tile (csrc/oak_gram_bwd.cu kTileN, kTileM): one
+# partial row per tile sizes the partial sums.
+BWD_TILE_N = 32
+BWD_TILE_M = 64
 
 _SQRT2 = 1.4142135623730951
 _RSQRT_FLOOR = 1.0842022e-19  # sqrt of the smallest f32 normal
@@ -119,6 +132,58 @@ def oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
     return out
 
 
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+              torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def oak_gram_bwd_plain(u1, u2, c1, c2, extra, logb, sig2, gbar,
+                       depth: int) -> Grads:
+    """The cotangents (du1, du2, dc1, dc2, dextra, dlogb, dsig2) of
+    ``oak_gram_plain`` for the output cotangent ``gbar`` [N, M], written out
+    in plain torch: the version the backward kernel is checked against.
+
+    It recomputes g_d and e_n, and for each gram runs the downdate
+    h_k = e_k − g·h_{k−1} (h_k is e_k of the other grams) to form
+    W = Σ_{n≥1} σ²_n h_{n−1} = ∂out/∂g and T = gbar·W; with bE = g + c1·c2
+    (the exp factor) and Δu = u1 − u2 the RBF-form dims give
+    du1 = −2 Σ_j T·bE·Δu, du2 = 2 Σ_i T·bE·Δu, dc1 = −Σ_j T·c2,
+    dc2 = −Σ_i T·c1, dlogb = Σ T·bE, the extra grams dextra = T, and
+    dsig2_n = Σ gbar·e_n (oak_gram_pallas.py:158-237 and ``_res_bwd``).
+    Needs at least one RBF-form dim, as the fused route does."""
+    D = u1.shape[0]
+    bEs, grams = [], []
+    for d in range(D):
+        du = u1[d, :, None] - u2[d, None, :]
+        bEs.append(torch.exp(logb[d] - du * du))
+        grams.append(bEs[d] - c1[d, :, None] * c2[d, None, :])
+    grams.extend(extra)
+    e = newton_girard(grams, depth)
+    dsig2 = torch.stack([torch.sum(gbar * e[n]) for n in range(depth + 1)])
+
+    def T_of(g):
+        h = e[0]
+        W = sig2[1] * e[0]
+        for k in range(1, depth):
+            h = e[k] - g * h
+            W = W + sig2[k + 1] * h
+        return gbar * W
+
+    du1, du2, dc1, dc2, dlogb = [], [], [], [], []
+    for d in range(D):
+        T = T_of(grams[d])
+        TbE = T * bEs[d]
+        TbEdu = TbE * (u1[d, :, None] - u2[d, None, :])
+        du1.append(-2.0 * TbEdu.sum(1))
+        du2.append(2.0 * TbEdu.sum(0))
+        dc1.append(-(T * c2[d, None, :]).sum(1))
+        dc2.append(-(T * c1[d, :, None]).sum(0))
+        dlogb.append(TbE.sum())
+    dextra = (torch.stack([T_of(g) for g in grams[D:]]) if extra.shape[0]
+              else torch.zeros_like(extra))
+    return (torch.stack(du1), torch.stack(du2), torch.stack(dc1), torch.stack(dc2),
+            dextra, torch.stack(dlogb), dsig2)
+
+
 def supports_fused(oak) -> bool:
     """Structure check: at least one RBF-form dim (any measure, or the
     unconstrained variant), and every other dim binary or categorical
@@ -136,8 +201,11 @@ def supports_fused(oak) -> bool:
     return known and n_rbf > 0
 
 
-def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> None:
+def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int,
+                       gbar: Optional[torch.Tensor] = None) -> None:
     named = dict(u1=u1, u2=u2, c1=c1, c2=c2, extra=extra, logb=logb, sig2=sig2)
+    if gbar is not None:
+        named["gbar"] = gbar
     for name, t in named.items():
         if not t.is_cuda:
             raise ValueError(f"oak_gram_fused: {name} is on {t.device}, the "
@@ -158,30 +226,20 @@ def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> None:
     M = u2.shape[1]
     E = extra.shape[0] if extra.dim() == 3 else -1
     expected = dict(u2=(D, M), c1=(D, N), c2=(D, M), extra=(E, N, M),
-                    logb=(D,), sig2=(depth + 1,))
-    for name, shape in expected.items():
-        if tuple(named[name].shape) != shape:
+                    logb=(D,), sig2=(depth + 1,), gbar=(N, M))
+    for name, t in named.items():
+        if name in expected and tuple(t.shape) != expected[name]:
             raise ValueError(f"oak_gram_fused: {name} has shape "
-                             f"{tuple(named[name].shape)}, expected {shape}")
+                             f"{tuple(t.shape)}, expected {expected[name]}")
 
 
-def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
-    """The OAK gram [N, M] from prescaled inputs (see ``_prep``).
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    CPU tensors go to ``oak_gram_plain`` (with autograd). CUDA tensors launch
-    ``oak_gram_fwd_f32`` from ``csrc/oak_gram_fwd.cu``, or raise: they must be
-    float32, contiguous, on one device, of consistent shapes, with
-    1 <= depth <= MAX_DEPTH, and must not require grad (the backward kernel is
-    ROADMAP item K2; call under ``torch.no_grad()``)."""
+
+def _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
+    """``oak_gram_fwd_f32`` on inputs ``_check_cuda_inputs`` accepted."""
     global LAUNCHES
-    inputs = (u1, u2, c1, c2, extra, logb, sig2)
-    if not any(t.is_cuda for t in inputs):
-        return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "oak_gram_fused has no backward on CUDA yet (ROADMAP item K2, the "
-            "gram backward kernel); run the CUDA gram under torch.no_grad()")
-    _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth)
     D, N = u1.shape
     M, E = u2.shape[1], extra.shape[0]
     out = torch.empty((N, M), dtype=torch.float32, device=u1.device)
@@ -189,15 +247,105 @@ def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
         return out
     lib = _build.library()
     with torch.cuda.device(u1.device):
-        stream = torch.cuda.current_stream(u1.device).cuda_stream
         rc = lib.oak_gram_fwd_f32(
             u1.data_ptr(), u2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             extra.data_ptr(), logb.data_ptr(), sig2.data_ptr(), out.data_ptr(),
-            D, N, M, E, depth, stream)
+            D, N, M, E, depth, _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_fwd_f32 launch failed with cudaError {rc}")
     LAUNCHES += 1
     return out
+
+
+def _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
+                with_dextra: bool) -> Grads:
+    """``oak_gram_bwd_f32`` on inputs ``_check_cuda_inputs`` accepted; the
+    per-tile partials it writes are summed here, in a fixed order."""
+    global BWD_LAUNCHES
+    D, N = u1.shape
+    M, E = u2.shape[1], extra.shape[0]
+    dextra = torch.empty_like(extra) if with_dextra else None
+    if N == 0 or M == 0:
+        return (torch.zeros_like(u1), torch.zeros_like(u2), torch.zeros_like(c1),
+                torch.zeros_like(c2), None if dextra is None else dextra.zero_(),
+                torch.zeros_like(logb), torch.zeros_like(sig2))
+    blocks_n = -(-N // BWD_TILE_N)
+    blocks_m = -(-M // BWD_TILE_M)
+    kw = dict(dtype=torch.float32, device=u1.device)
+    du1p, dc1p = (torch.empty((blocks_m, D, N), **kw) for _ in range(2))
+    du2p, dc2p = (torch.empty((blocks_n, D, M), **kw) for _ in range(2))
+    dlogbp = torch.empty((blocks_n * blocks_m, D), **kw)
+    dsig2p = torch.empty((blocks_n * blocks_m, depth + 1), **kw)
+    lib = _build.library()
+    with torch.cuda.device(u1.device):
+        rc = lib.oak_gram_bwd_f32(
+            u1.data_ptr(), u2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+            extra.data_ptr(), logb.data_ptr(), sig2.data_ptr(), gbar.data_ptr(),
+            du1p.data_ptr(), dc1p.data_ptr(), du2p.data_ptr(), dc2p.data_ptr(),
+            dlogbp.data_ptr(), dsig2p.data_ptr(),
+            None if dextra is None else dextra.data_ptr(),
+            D, N, M, E, depth, _stream(u1))
+    if rc != 0:
+        raise RuntimeError(f"oak_gram_bwd_f32 launch failed with cudaError {rc}")
+    BWD_LAUNCHES += 1
+    return (du1p.sum(0), du2p.sum(0), dc1p.sum(0), dc2p.sum(0), dextra,
+            dlogbp.sum(0), dsig2p.sum(0))
+
+
+def oak_gram_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
+                 with_dextra: bool = True) -> Grads:
+    """The cotangents (du1, du2, dc1, dc2, dextra, dlogb, dsig2) of the gram
+    for the output cotangent ``gbar`` [N, M]; dextra is None when
+    ``with_dextra`` is False (it is [E, N, M]).
+
+    CPU tensors go to ``oak_gram_bwd_plain``. CUDA tensors launch
+    ``oak_gram_bwd_f32`` from ``csrc/oak_gram_bwd.cu``, or raise, under the
+    forward's conditions; gbar is made contiguous first."""
+    inputs = (u1, u2, c1, c2, extra, logb, sig2, gbar)
+    if not any(t.is_cuda for t in inputs):
+        grads = oak_gram_bwd_plain(*inputs, depth)
+        return grads if with_dextra else grads[:4] + (None,) + grads[5:]
+    gbar = gbar.contiguous()
+    _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth, gbar)
+    return _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth, with_dextra)
+
+
+class FusedGram(torch.autograd.Function):
+    """The gram with a recompute backward: the forward saves only the
+    prescaled inputs, never the [D, N, M] grams, and the backward
+    recomputes them (``oak_tpu``'s ``_gram_op``, oak_gram_pallas.py:497-569).
+    On CUDA the forward launches the forward kernel and the backward the
+    backward kernel; on the CPU they are the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, u1, u2, c1, c2, extra, logb, sig2, depth):
+        ctx.depth = depth
+        ctx.save_for_backward(u1, u2, c1, c2, extra, logb, sig2)
+        if not any(t.is_cuda for t in (u1, u2, c1, c2, extra, logb, sig2)):
+            return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
+        _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth)
+        return _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar):
+        need = ctx.needs_input_grad[:7]
+        grads = oak_gram_bwd(*ctx.saved_tensors, gbar, ctx.depth,
+                             with_dextra=need[4])
+        return tuple(g if n else None for g, n in zip(grads, need)) + (None,)
+
+
+def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
+    """The OAK gram [N, M] from prescaled inputs (see ``_prep``).
+
+    CPU tensors go to ``oak_gram_plain`` (with autograd). CUDA tensors go
+    through ``FusedGram``: the forward kernel ``oak_gram_fwd_f32`` and, when
+    a gradient is taken, the backward kernel ``oak_gram_bwd_f32``, or raise.
+    They must be float32, contiguous, on one device, of consistent shapes,
+    with 1 <= depth <= MAX_DEPTH."""
+    if not any(t.is_cuda for t in (u1, u2, c1, c2, extra, logb, sig2)):
+        return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
+    return FusedGram.apply(u1, u2, c1, c2, extra, logb, sig2, depth)
 
 
 def oak_gram(oak, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:

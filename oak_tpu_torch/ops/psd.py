@@ -1,9 +1,14 @@
-"""PSD linear algebra: jittered Cholesky and triangular solves
-(``oak_tpu.ops.psd``, the part the predict path uses).
+"""PSD linear algebra: jittered Cholesky, triangular solves and inverses
+(``oak_tpu.ops.psd``, the part the SVGP paths use).
 
 The TPU package's blocked Cholesky and triangular inverse, its custom VJPs
 and its refined solves were written around XLA:TPU's serial, bf16-internal
 solvers; here ``torch.linalg`` runs in full precision with plain autograd.
+
+A Cholesky that fails returns NaN, as ``jnp.linalg.cholesky`` does, instead
+of raising: a training step at the edge of the feasible region then
+gives a non-finite loss, which the optimizers skip, and the card is not
+synchronised to read the factorisation's status.
 """
 
 from __future__ import annotations
@@ -32,8 +37,15 @@ def add_jitter(K: torch.Tensor, jitter: Optional[float] = None) -> torch.Tensor:
     return K + jitter * _eye_like(K)
 
 
+def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of A (batched over leading dims); NaN in the
+    lower triangle of a matrix that does not factorise, as JAX gives."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.nan).tril()
+
+
 def cholesky(K: torch.Tensor, jitter: Optional[float] = None) -> torch.Tensor:
-    return torch.linalg.cholesky(add_jitter(K, jitter))
+    return cholesky_lower(add_jitter(K, jitter))
 
 
 def safe_cholesky(K: torch.Tensor, jitter: Optional[float] = None,
@@ -63,6 +75,23 @@ def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def solve_upper(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """L⁻ᵀ B for lower-triangular L."""
     return torch.linalg.solve_triangular(L.mT, B, upper=True)
+
+
+def tri_inv_lower(L: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ for lower-triangular L (batched), by a triangular solve."""
+    eye = _eye_like(L).expand(L.shape)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def chol_of_inv(P: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Lower-triangular T with T Tᵀ = (P + jitter·I)⁻¹, batched, in one
+    Cholesky and one triangular inverse by the reversal identity: with J the
+    exchange matrix and Lr = chol(J P J), P⁻¹ = (J Lr⁻ᵀ J)(J Lr⁻¹ J), and
+    J U J of an upper-triangular U is lower-triangular. The natural-gradient
+    step turns a precision into a covariance factor with it."""
+    Pr = torch.flip(P + jitter * _eye_like(P), dims=(-2, -1))
+    Lr = cholesky_lower(Pr)
+    return torch.flip(tri_inv_lower(Lr).mT, dims=(-2, -1))
 
 
 def cholesky_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

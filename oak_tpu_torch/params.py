@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -157,3 +157,55 @@ def flatten_trainable(module: nn.Module) -> torch.Tensor:
     """The trainable raw values as one vector, in the order of
     ``oak_tpu.params.flatten_trainable``."""
     return torch.cat([p.raw.reshape(-1) for p in trainable_params(module)])
+
+
+def trainable_names(module: nn.Module) -> List[str]:
+    """The attribute path of every trainable raw (``kernel.kernels.0.
+    lengthscale.raw``), in ``flatten_trainable``'s order."""
+    names = {id(m): name for name, m in module.named_modules()}
+    return [f"{names[id(p)]}.raw" if names[id(p)] else "raw"
+            for p in trainable_params(module)]
+
+
+def unflatten_trainable(module: nn.Module, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``flatten_trainable``'s inverse as a mapping from each trainable raw's
+    attribute path to a view of ``vec`` shaped like it, for ``call_with``;
+    the views keep ``vec``'s autograd graph."""
+    params = trainable_params(module)
+    pieces = torch.split(vec, [p.raw.numel() for p in params])
+    return {name: piece.view(p.raw.shape)
+            for name, piece, p in zip(trainable_names(module), pieces, params)}
+
+
+@torch.no_grad()
+def assign_trainable(module: nn.Module, vec: torch.Tensor) -> nn.Module:
+    """Write ``vec`` into the trainable raws in place, in
+    ``flatten_trainable``'s order (``oak_tpu``'s ``unflatten(vec)``)."""
+    params = trainable_params(module)
+    sizes = [p.raw.numel() for p in params]
+    if vec.shape != (sum(sizes),):
+        raise ValueError(f"vector of shape {tuple(vec.shape)} for "
+                         f"{sum(sizes)} trainable values")
+    for p, piece in zip(params, torch.split(vec, sizes)):
+        p.raw.copy_(piece.view(p.raw.shape))
+    return module
+
+
+class _Bound(nn.Module):
+    def __init__(self, model: nn.Module, fn: Callable):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def call_with(module: nn.Module, raws: Dict[str, torch.Tensor], fn: Callable, *args):
+    """``fn(module, *args)`` with the raws named in ``raws`` (attribute paths,
+    as ``trainable_names`` gives them) replaced by the given tensors for the
+    call, through ``torch.func.functional_call``: the gradient reaches those
+    tensors, and ``module`` is left as it was. The counterpart of calling a
+    loss on ``oak_tpu``'s ``unflatten(vec)``."""
+    return torch.func.functional_call(
+        _Bound(module, fn), {f"model.{k}": v for k, v in raws.items()}, args)

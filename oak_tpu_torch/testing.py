@@ -1,6 +1,6 @@
-"""Inputs for checking the fused gram kernel against its plain version on
-the card: one generator and one list of cases, shared by ``chip_smoke.py``
-and ``tests/test_torch_gpu.py``."""
+"""Inputs for checking the fused gram kernels, forward and backward, against
+their plain versions on the card: one generator and one list of cases,
+shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``."""
 
 from __future__ import annotations
 

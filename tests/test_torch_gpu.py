@@ -1,8 +1,8 @@
-"""The CUDA kernel csrc/oak_gram_fwd.cu against its plain torch version, on
-the card, at the shapes chip_smoke.py drives. Marked ``gpu``; each test asks
-the ``cuda`` fixture, which skips when no card is present. This file imports
-no JAX, so on a machine with a card and no JAX it runs without the suite's
-conftest:
+"""The CUDA kernels csrc/oak_gram_fwd.cu and csrc/oak_gram_bwd.cu against
+their plain torch versions, on the card, at the shapes chip_smoke.py drives.
+Marked ``gpu``; each test asks the ``cuda`` fixture, which skips when no
+card is present. This file imports no JAX, so on a machine with a card and
+no JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -17,8 +17,11 @@ from oak_tpu_torch.testing import KERNEL_CASES, prescaled_inputs
 
 pytestmark = pytest.mark.gpu
 
-# the Pallas gate's bound on the forward, relative to max |plain|
+# the Pallas gate's bounds on the forward and on the gradient, relative to
+# max |plain| (bench.py:1326-1327)
 TOL = 1e-4
+GRAD_TOL = 1e-3
+NAMES = ("du1", "du2", "dc1", "dc2", "dextra", "dlogb", "dsig2")
 
 
 @pytest.fixture
@@ -46,10 +49,34 @@ def test_kernel_matches_plain(cuda, name, D, N, M, E, depth):
     assert err < TOL, err
 
 
+@pytest.mark.parametrize("name,D,N,M,E,depth", CASES, ids=[c[0] for c in CASES])
+def test_bwd_kernel_matches_plain(cuda, name, D, N, M, E, depth):
+    """Every cotangent of the backward kernel against autograd of the plain
+    gram and against the written-out plain backward, for a seeded gbar."""
+    args = prescaled_inputs(65, D, N, M, E, depth, cuda)
+    gbar = torch.as_tensor(np.random.default_rng(66).normal(size=(N, M)),
+                           dtype=torch.float32, device=cuda)
+    before = og.BWD_LAUNCHES
+    ours = og.oak_gram_bwd(*args, gbar, depth)
+    torch.cuda.synchronize()
+    assert og.BWD_LAUNCHES == before + 1
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    auto = torch.autograd.grad(og.oak_gram_plain(*leaves, depth), leaves, gbar,
+                               allow_unused=True, materialize_grads=True)
+    plain = og.oak_gram_bwd_plain(*args, gbar, depth)
+    for n, o, a, p in zip(NAMES, ours, auto, plain):
+        assert o.shape == a.shape and torch.isfinite(o).all(), n
+        if a.numel():
+            for ref in (a, p):
+                err = float((o - ref).abs().max() / ref.abs().max())
+                assert err < GRAD_TOL, (n, err)
+
+
 def test_kernel_refuses_what_it_cannot_run(cuda):
     args = prescaled_inputs(62, 4, 16, 8, 0, 3, cuda)
-    with pytest.raises(NotImplementedError, match="K2"):
-        og.oak_gram_fused(*[a.clone().requires_grad_(True) for a in args], 3)
+    # inputs that require grad are taken now, through the backward kernel
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    torch.autograd.grad(og.oak_gram_fused(*leaves, 3).sum(), leaves[:4])
     with pytest.raises(TypeError, match="float32"):
         og.oak_gram_fused(*[a.double() for a in args], 3)
     with pytest.raises(ValueError, match="1..8"):
@@ -90,3 +117,34 @@ def test_oak_kernel_K_deeper_than_kernel_raises(cuda):
     assert og.supports_fused(k)
     with torch.no_grad(), pytest.raises(ValueError, match="K1-P8"):
         k.K(X)
+
+
+def test_oak_kernel_K_gradient_through_kernels(cuda):
+    """torch.autograd.grad of a float32 CUDA OAK gram goes through both
+    kernels and agrees with the float64 per-dim route on the same card, for
+    a mixed model (one binary dim, whose extra gram carries its trainable
+    base variance's gradient) and X that requires grad."""
+    k = OAKKernel.create(num_dims=6, max_interaction_depth=3, p0=[0.4] + [None] * 5,
+                         share_var_across_orders=False, dtype=torch.float32,
+                         device=cuda)
+    rng = np.random.default_rng(67)
+    X = rng.normal(size=(300, 6))
+    X[:, 0] = rng.integers(0, 2, 300)
+    G = torch.as_tensor(rng.normal(size=(100, 300)), device=cuda)
+
+    def grads(kern, dtype):
+        Xt = torch.as_tensor(X, dtype=dtype, device=cuda).requires_grad_(True)
+        K = kern.K(Xt[:100], Xt)
+        raws = [p for p in kern.parameters() if p.requires_grad]
+        return K, torch.autograd.grad((K * G.to(dtype)).sum(), [Xt] + raws)
+
+    before, bwd_before = og.LAUNCHES, og.BWD_LAUNCHES
+    K, g32 = grads(k, torch.float32)
+    torch.cuda.synchronize()
+    assert og.LAUNCHES == before + 1 and og.BWD_LAUNCHES == bwd_before + 1
+    K64, g64 = grads(k.double(), torch.float64)
+    assert og.LAUNCHES == before + 1 and og.BWD_LAUNCHES == bwd_before + 1
+    for a, b in zip((K,) + g32, (K64,) + g64):
+        a, b = a.detach().double(), b.detach()
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err < GRAD_TOL, err

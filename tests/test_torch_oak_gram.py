@@ -2,7 +2,10 @@
 plain version against the XLA reference at float64 (rel 1e-10), the
 prescaling against ``_prep`` in float32, and the plain version against the
 Pallas kernel itself, run in interpret mode as tests/test_pallas_gram.py runs
-it. The CUDA kernel runs only on the card (tests/test_torch_gpu.py)."""
+it. The same for the backward: ``oak_gram_bwd_plain`` against autograd at
+float64, against the Pallas backward in interpret mode, and its extra-gram
+cotangent against ``_res_bwd``; and ``FusedGram`` on the CPU against plain
+autograd. The CUDA kernels run only on the card (tests/test_torch_gpu.py)."""
 
 import ctypes
 import re
@@ -191,15 +194,126 @@ def test_supports_fused():
 
 
 def test_ctypes_signature_matches_kernel_source():
-    """The C entry point's parameter list, read from the .cu source, against
-    the argtypes the loader sets (nvcc cannot be asked here)."""
-    assert [p.name for p in _build._sources()] == ["oak_gram_fwd.cu"]
-    src = (_build.CSRC_DIR / "oak_gram_fwd.cu").read_text()
+    """Each C entry point's parameter list, read from its .cu source, against
+    the argtypes the loader sets (nvcc cannot be asked here); and the
+    backward kernel's tile, which sizes its partial sums in the wrapper."""
+    assert [p.name for p in _build._sources()] == ["oak_gram_bwd.cu", "oak_gram_fwd.cu"]
+    src = "".join(p.read_text() for p in _build._sources())
     for name, (argtypes, restype) in _build.SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m is not None, name
         params = [p.strip() for p in m.group(1).split(",")]
         want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-        assert argtypes == want
+        assert argtypes == want, name
         assert restype is ctypes.c_int
+    assert set(_build.SIGNATURES) == set(re.findall(r'extern "C" int (\w+)\(', src))
+    bwd = (_build.CSRC_DIR / "oak_gram_bwd.cu").read_text()
+    assert f"constexpr int kTileN = {og.BWD_TILE_N};" in bwd
+    assert f"constexpr int kTileM = {og.BWD_TILE_M};" in bwd
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------- #
+# The backward
+# --------------------------------------------------------------------------- #
+_NAMES = ("u1", "u2", "c1", "c2", "extra", "logb", "sig2")
+
+
+@pytest.mark.parametrize("E", [0, 2], ids=["rbf", "mixed"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_bwd_plain_matches_autograd(E, depth):
+    """The written-out backward against torch.autograd.grad of the plain
+    gram, at float64, for a gbar drawn N(0, 1): rel 1e-10."""
+    rng = np.random.default_rng(70 + depth)
+    a = _prescaled(rng, D=5, N=11, M=9, E=E, depth=depth)
+    args = [t.requires_grad_(True) for t in _torch_args(a)]
+    gbar = torch.as_tensor(rng.normal(size=(11, 9)))
+    ref = torch.autograd.grad(og.oak_gram_plain(*args, depth), args, gbar,
+                              allow_unused=True, materialize_grads=True)
+    ours = og.oak_gram_bwd_plain(*[t.detach() for t in args], gbar, depth)
+    for name, o, r in zip(_NAMES, ours, ref):
+        assert o.shape == r.shape, name
+        if r.numel():
+            _close(o, r.numpy())
+
+
+def test_bwd_plain_matches_pallas_interpret():
+    """oak_gram_bwd_plain in f32 against the Pallas backward kernel
+    (_pallas_gram_bwd) on the same prescaled arrays in interpret mode: one
+    128 x 256 shape, all-RBF, D = 5, depth 3. rtol 5e-4 of each output's
+    largest magnitude (tests/test_pallas_gram.py's gradient bound): the f32
+    sums run in a different order."""
+    rng = np.random.default_rng(72)
+    a = _prescaled(rng, D=5, N=128, M=256, E=0, depth=3)
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    gbar = rng.normal(size=(128, 256)).astype(np.float32)
+    j = _jax_args(a)
+    with pltpu.force_tpu_interpret_mode():
+        ref = ogp._pallas_gram_bwd(j[0], j[1], j[2], j[3], j[5], j[6],
+                                   jnp.asarray(gbar), 3)
+    du1, du2, dc1, dc2, _, dlogb, dsig2 = og.oak_gram_bwd_plain(
+        *_torch_args(a, torch.float32), torch.as_tensor(gbar), 3)
+    for name, o, r in zip(("du1", "du2", "dc1", "dc2", "dlogb", "dsig2"),
+                          (du1, du2, dc1, dc2, dlogb[None], dsig2[None]), ref):
+        assert o.dtype == torch.float32, name
+        r = np.asarray(r)
+        np.testing.assert_allclose(o.numpy(), r, rtol=5e-4,
+                                   atol=5e-4 * np.abs(r).max(), err_msg=name)
+
+
+def test_bwd_plain_dextra_matches_res_bwd():
+    """All seven cotangents against oak_tpu's stored-gram backward
+    ``_res_bwd``, which covers the extra grams. Inputs are float64, but
+    ``_res_bwd`` rounds the stored grams to float32 before it uses them, so
+    the bound is 1e-5 of the largest magnitude, not 1e-10."""
+    rng = np.random.default_rng(73)
+    a = _prescaled(rng, D=4, N=10, M=8, E=2, depth=3)
+    gbar = rng.normal(size=(10, 8))
+    j = _jax_args(a)
+    _, gs = ogp._xla_gram_and_gs(*j, 3, res_dtype=jnp.float64)
+    ref = ogp._res_bwd(3, (*j, gs), jnp.asarray(gbar))
+    ours = og.oak_gram_bwd_plain(*_torch_args(a), torch.as_tensor(gbar), 3)
+    for name, o, r in zip(_NAMES, ours, ref):
+        _close(o.reshape(np.shape(r)), r, rel=1e-5)
+
+
+def test_fused_function_on_cpu_matches_plain_autograd():
+    """FusedGram on CPU tensors (plain forward, written-out backward) gives
+    plain autograd's gradients, and None for the inputs that need none."""
+    a = _prescaled(np.random.default_rng(74), D=4, N=9, M=7, E=2, depth=3)
+    args = _torch_args(a)
+    wants = [True, True, True, True, False, True, True]
+    leaves = [t.clone().requires_grad_(w) for t, w in zip(args, wants)]
+    out = og.FusedGram.apply(*leaves, 3)
+    gbar = torch.as_tensor(np.random.default_rng(75).normal(size=(9, 7)))
+    grads = og.FusedGram.backward(_Ctx(leaves, wants), gbar)
+    assert grads[4] is None and grads[7] is None
+    refs = [t.clone().requires_grad_(w) for t, w in zip(args, wants)]
+    ref = og.oak_gram_plain(*refs, 3)
+    _close(out, ref.detach().numpy())
+    got = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], gbar)
+    want = torch.autograd.grad(ref, [t for t in refs if t.requires_grad], gbar)
+    for g, r in zip(got, want):
+        _close(g, r.numpy())
+
+
+class _Ctx:
+    """A stand-in for autograd's ctx, to read FusedGram.backward's outputs
+    for inputs that need no gradient."""
+
+    def __init__(self, saved, needs):
+        self.saved_tensors = tuple(t.detach() for t in saved)
+        self.needs_input_grad = tuple(needs) + (False,)
+        self.depth = 3
+
+
+def test_bwd_wrapper_takes_plain_route_on_cpu():
+    a = _prescaled(np.random.default_rng(76), D=3, N=6, M=5, E=1, depth=2)
+    gbar = torch.as_tensor(np.random.default_rng(77).normal(size=(6, 5)))
+    launches = og.BWD_LAUNCHES
+    full = og.oak_gram_bwd(*_torch_args(a), gbar, 2)
+    without = og.oak_gram_bwd(*_torch_args(a), gbar, 2, with_dextra=False)
+    assert og.BWD_LAUNCHES == launches
+    assert without[4] is None and full[4].shape == (1, 6, 5)
+    for f, w in zip(full[:4] + full[5:], without[:4] + without[5:]):
+        _close(w, f.numpy())

@@ -205,7 +205,9 @@ def test_port_imports_no_jax():
     code = ("import sys, oak_tpu_torch, oak_tpu_torch.checkpoint, oak_tpu_torch._build, "
             "oak_tpu_torch.ops.oak_gram, oak_tpu_torch.ops.psd, "
             "oak_tpu_torch.ops.newton_girard, oak_tpu_torch.models.svgp, "
-            "oak_tpu_torch.utils.diagnostics\n"
+            "oak_tpu_torch.utils.diagnostics, oak_tpu_torch.optim, "
+            "oak_tpu_torch.optim.natgrad, oak_tpu_torch.ops.quadrature, "
+            "oak_tpu_torch.models.likelihoods, oak_tpu_torch.testing\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'oak_tpu')]\n"
             "assert not bad, bad")
