@@ -11,15 +11,17 @@ non-zero before the result line:
 1. build: compiles csrc/*.cu with nvcc into .kernel_build/ (ptxas registers
    and spills of both kernels);
 2. kernel: the fused OAK gram forward kernel against its plain torch version
-   on the card, at the predict path's Kus and Kuu (from the model below), a
-   ragged shape, every depth 1..8 and a mixed case with 2 extra grams; max
-   error relative to max |plain| under 1e-4; both timed with CUDA events at
-   Kus;
+   on the card, at the predict path's Kus and Kuu (from the model below), the
+   GPR's square gram K(X) (8192 x 8192, D = 8, depth 2, X2 = None; exactly
+   symmetric), a ragged shape, every depth 1..8 and a mixed case with 2 extra
+   grams; max error relative to max |plain| under 1e-4; both timed with CUDA
+   events at Kus and at the square gram;
 2b. backward kernel: every cotangent of the gram backward kernel against
    autograd of the plain gram and against the written-out plain backward,
-   for a seeded gbar, at the training path's Kuf and Kuu and the same shared
-   cases; max error relative to max |reference| under 1e-3; forward plus
-   backward timed at Kuf in turns plain, kernel, kernel, plain;
+   for a seeded gbar, at the training path's Kuf and Kuu, the square gram and
+   the same shared cases; max error relative to max |reference| under 1e-3;
+   forward plus backward timed at Kuf and at the square gram in turns plain,
+   kernel, kernel, plain;
 3. predict path: the bench's SVGP (N = 8192, D = 32, M = 512, depth 3,
    q_diag, whitened, float32) on the card answers predict_y requests of 1,
    100, 2048 and 8192 rows; the outputs are finite, the kernel was launched,
@@ -31,16 +33,31 @@ non-zero before the result line:
    gradient within 1e-2 of max |g|); 50 fit_adam steps;
    20 Adam steps of the bench's Bernoulli variant; 20 fit_natgrad_adam steps
    (γ 0.1) on a q_diag=False copy. Every loss is finite, each best loss is
-   below its first, and both kernels were launched.
+   below its first, and both kernels were launched;
+5. Sobol: the full decomposition (5,488 components) of phase 4's trained
+   SVGP in float32 against the same parameters in float64 on the card
+   (normalised values within 1e-3), and its time; the
+   per-order totals against the components' sums (1e-3 relative); the
+   per-component predictions of 1024 rows plus the constant against
+   predict_f's mean (1e-3 of max |mean|);
+6. SGPR at the bench's width (N = 8192, D = 32, M = 512, depth 3, noise
+   0.01): loss and gradient against float64 on the card under phase 4's
+   gates, 20 fit_adam steps, predict_y of 8192 rows against float64 (1e-3),
+   Sobol and the sum-to-mean identity as in phase 5; both kernels launched;
+7. GPR as bench.py's --gpr-scale rows build it (N = 8192, D = 8, depth 2,
+   noise 0.1): loss and gradient against float64 under phase 4's gates, 10
+   fit_adam steps, predict_y of 1024 rows against float64 (1e-3), Sobol as
+   in phase 5, 16 posterior draws at 256 rows; K1 launched at the square
+   gram K(X) and K2 in training.
 
-Then one JSON line about the kernels, and as the last line
-{"ok": true, "device": {...}}. Imports no JAX.
+Each phase prints its seconds. Then one JSON line about the kernels, and as
+the last line {"ok": true, "device": {...}}. Imports no JAX.
 
     python3 chip_smoke.py --profile
 
 runs phases 0-1 and then, in place of the checks, the breakdown of a warm
-predict_y request and of a warm training step (PERF.md "Where the time
-goes"); it prints no result line.
+predict_y request, of a warm training step and of a full Sobol decomposition
+(PERF.md "Where the time goes"); it prints no result line.
 """
 
 from __future__ import annotations
@@ -66,6 +83,10 @@ BATCHES = (1, 100, 2048, 8192)
 TIMING_ITERS = 20
 ADAM_STEPS, BERNOULLI_STEPS, NATGRAD_STEPS = 50, 20, 20  # bench.py's --steps default
 GRAD_NAMES = ("du1", "du2", "dc1", "dc2", "dextra", "dlogb", "dsig2")
+GPR_N, GPR_D, GPR_DEPTH = 8192, 8, 2  # bench.py --gpr-scale (its second row)
+SOBOL_TOL = 1e-3  # the B1 gate: normalised Sobol values, f32 against f64
+SGPR_STEPS, GPR_STEPS = 20, 10
+COMPONENT_ROWS, SAMPLE_ROWS, SAMPLE_DRAWS = 1024, 256, 16
 
 
 def synth_pumadyn(n=8192, d=32, seed=0):
@@ -77,18 +98,25 @@ def synth_pumadyn(n=8192, d=32, seed=0):
     return X.astype(np.float32), y.reshape(-1, 1).astype(np.float32)
 
 
+def bench_kernel(device, dtype, d, depth):
+    """The bench's OAK kernel: create defaults, sparsity prior, lengthscale
+    bounds [1e-3, 1e3]."""
+    from oak_tpu_torch.kernels import OAKKernel
+
+    return OAKKernel.create(num_dims=d, max_interaction_depth=depth,
+                            use_sparsity_prior=True, lengthscale_bounds=[1e-3, 1e3],
+                            dtype=dtype, device=device)
+
+
 def build_model(device, dtype=torch.float32):
     """The bench's SVGP with parameters drawn from a seed (an untrained model
     predicts 0): lengthscales U(1, 3), order variances (1, 0.5, 0.2, 0.05),
     q_mu N(0, 1), q_sqrt U(0.1, 0.5)."""
-    from oak_tpu_torch.kernels import OAKKernel
     from oak_tpu_torch.models import SVGP, Gaussian
 
     X, _ = synth_pumadyn(N, D)
     Z = X[np.random.default_rng(1).choice(N, M, replace=False)]
-    kernel = OAKKernel.create(num_dims=D, max_interaction_depth=DEPTH,
-                              use_sparsity_prior=True, lengthscale_bounds=[1e-3, 1e3],
-                              dtype=dtype, device=device)
+    kernel = bench_kernel(device, dtype, D, DEPTH)
     model = SVGP.create(kernel, Gaussian.create(0.01, dtype=dtype, device=device), Z,
                         num_data=N, q_diag=True, whiten=True, dtype=dtype, device=device)
     rng = np.random.default_rng(2)
@@ -106,7 +134,6 @@ def build_bench_model(device, likelihood="gaussian", q_diag=True, dtype=torch.fl
     defaults, sparsity prior, lengthscale bounds [1e-3, 1e3], Gaussian 0.01
     or the Bernoulli variant (labels drawn through a logistic link, seed 2).
     Returns (model, X, Y) with X, Y on the card."""
-    from oak_tpu_torch.kernels import OAKKernel
     from oak_tpu_torch.models import SVGP, Bernoulli, Gaussian
 
     X, Y = synth_pumadyn(N, D)
@@ -118,13 +145,34 @@ def build_bench_model(device, likelihood="gaussian", q_diag=True, dtype=torch.fl
     else:
         lik = Gaussian.create(0.01, dtype=dtype, device=device)
     Z = X[np.random.default_rng(1).choice(N, M, replace=False)]
-    kernel = OAKKernel.create(num_dims=D, max_interaction_depth=DEPTH,
-                              use_sparsity_prior=True, lengthscale_bounds=[1e-3, 1e3],
-                              dtype=dtype, device=device)
+    kernel = bench_kernel(device, dtype, D, DEPTH)
     model = SVGP.create(kernel, lik, Z, num_data=N, q_diag=q_diag, dtype=dtype,
                         device=device)
     return (model, torch.as_tensor(X, dtype=dtype, device=device),
             torch.as_tensor(Y, dtype=dtype, device=device))
+
+
+def build_sgpr_model(device, dtype=torch.float32):
+    """The bench's data and inducing points (seeds 0 and 1) in an SGPR:
+    create defaults, sparsity prior, lengthscale bounds [1e-3, 1e3], noise
+    0.01."""
+    from oak_tpu_torch.models import SGPR
+
+    X, Y = synth_pumadyn(N, D)
+    Z = X[np.random.default_rng(1).choice(N, M, replace=False)]
+    kernel = bench_kernel(device, dtype, D, DEPTH)
+    return SGPR.create(X, Y, kernel, Z, noise_variance=0.01, dtype=dtype, device=device)
+
+
+def build_gpr_model(device, n=None, dtype=torch.float32):
+    """The exact GP of bench.py::run_gpr_scale: synth_pumadyn(n, 8) (n
+    defaults to GPR_N), create defaults, sparsity prior, lengthscale bounds
+    [1e-3, 1e3], noise 0.1."""
+    from oak_tpu_torch.models import GPR
+
+    X, Y = synth_pumadyn(GPR_N if n is None else n, GPR_D)
+    kernel = bench_kernel(device, dtype, GPR_D, GPR_DEPTH)
+    return GPR.create(X, Y, kernel, noise_variance=0.1, dtype=dtype, device=device)
 
 
 def serve(model, X, device):
@@ -191,15 +239,30 @@ def phase_build():
     return b.seconds
 
 
-def phase_kernel(model, X, device):
+def _turns(fns, iters):
+    """CUDA-event ms of each of fns["plain"] and fns["kernel"], in turns
+    plain, kernel, kernel, plain, after one warm-up call each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    turns = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        turns[which].append(_cuda_ms(fns[which], iters))
+    return turns
+
+
+def phase_kernel(model, X, gpr, device):
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import KERNEL_CASES, prescaled_inputs
 
     with torch.no_grad():
         Z = model.Z.value
         Xd = torch.from_numpy(X).to(device)
+        # X2 = None: _prep scales X twice, as OAKKernel.K(X) does
+        square = og._prep(gpr.kernel, gpr.X, gpr.X) + (GPR_DEPTH,)
         cases = [("Kus", og._prep(model.kernel, Z, Xd) + (DEPTH,)),
-                 ("Kuu", og._prep(model.kernel, Z, Z) + (DEPTH,))]
+                 ("Kuu", og._prep(model.kernel, Z, Z) + (DEPTH,)),
+                 ("GPR K(X)", square)]
         cases += [(name, tuple(prescaled_inputs(seed, d, n, m, e, p, device)) + (p,))
                   for seed, (name, d, n, m, e, p) in enumerate(KERNEL_CASES, start=3)]
         findings = []
@@ -213,9 +276,12 @@ def phase_kernel(model, X, device):
             err = float((out - ref).abs().max() / ref.abs().max())
             if name == "Kus":
                 kus_abs_err = float((out - ref).abs().max())
+            if name == "GPR K(X)" and not torch.equal(out, out.T):
+                raise RuntimeError("kernel GPR K(X): the square gram is not symmetric")
             findings.append(f"{name} {err:.2e}")
             if not err < KERNEL_TOL:
                 raise RuntimeError(f"kernel {name}: error {err:.3e} >= {KERNEL_TOL}")
+            del out, ref
 
         kus = cases[0][1]
         for _ in range(3):  # warm-up
@@ -229,12 +295,16 @@ def phase_kernel(model, X, device):
         kuu = cases[1][1]
         kuu_ms = _cuda_ms(lambda: og.oak_gram_fused(*kuu), TIMING_ITERS)
         kuu_plain_ms = _cuda_ms(lambda: og.oak_gram_plain(*kuu), TIMING_ITERS)
+        sq = _turns({"plain": lambda: og.oak_gram_plain(*square),
+                     "kernel": lambda: og.oak_gram_fused(*square)}, TIMING_ITERS // 4)
     ms, plain_ms = float(np.mean(turns["kernel"])), float(np.mean(turns["plain"]))
     print(f"phase 2 kernel vs plain (max err / max |plain|, tol {KERNEL_TOL}): "
-          f"{', '.join(findings)}; Kus 512x8192 kernel {turns['kernel']} ms, "
-          f"plain {turns['plain']} ms (turns plain, kernel, kernel, plain; "
-          f"{TIMING_ITERS} launches each); Kuu 512x512 kernel {kuu_ms:.4f} ms, "
-          f"plain {kuu_plain_ms:.4f} ms")
+          f"{', '.join(findings)}; GPR K(X) exactly symmetric; Kus 512x8192 kernel "
+          f"{turns['kernel']} ms, plain {turns['plain']} ms (turns plain, kernel, "
+          f"kernel, plain; {TIMING_ITERS} launches each); Kuu 512x512 kernel "
+          f"{kuu_ms:.4f} ms, plain {kuu_plain_ms:.4f} ms; GPR K(X) 8192x8192 (D 8, "
+          f"depth 2) kernel {sq['kernel']} ms, plain {sq['plain']} ms "
+          f"({TIMING_ITERS // 4} launches each)")
     return dict(max_abs_err=kus_abs_err, ms=ms, plain_ms=plain_ms)
 
 
@@ -242,7 +312,7 @@ def _rel(a, ref):
     return float((a - ref).abs().max() / ref.abs().max())
 
 
-def phase_kernel_bwd(model, X, device):
+def phase_kernel_bwd(model, X, gpr, device):
     """The backward kernel against autograd of the plain gram and against
     the written-out plain backward, every cotangent; then forward plus
     backward at Kuf in turns, and the backward alone against its plain
@@ -254,7 +324,8 @@ def phase_kernel_bwd(model, X, device):
         Z = model.Z.value
         Xd = torch.from_numpy(X).to(device)
         cases = [("Kuf", og._prep(model.kernel, Z, Xd) + (DEPTH,)),
-                 ("Kuu", og._prep(model.kernel, Z, Z) + (DEPTH,))]
+                 ("Kuu", og._prep(model.kernel, Z, Z) + (DEPTH,)),
+                 ("GPR K(X)", og._prep(gpr.kernel, gpr.X, gpr.X) + (GPR_DEPTH,))]
     cases += [(name, tuple(prescaled_inputs(seed, d, n, m, e, p, device)) + (p,))
               for seed, (name, d, n, m, e, p) in enumerate(KERNEL_CASES, start=3)]
     findings, kuf_abs_err = [], 0.0
@@ -285,37 +356,36 @@ def phase_kernel_bwd(model, X, device):
             if name == "Kuf":
                 kuf_abs_err = max(kuf_abs_err, float((o - a).abs().max()))
         findings.append(f"{name} [{', '.join(errs)}]")
+        del ours, auto, plain
 
-    kuf, = [a for n, a in cases if n == "Kuf"]
-    *inputs, _ = kuf
-    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
-    gbar = torch.as_tensor(np.random.default_rng(99).normal(size=(M, N)),
-                           dtype=torch.float32, device=device)
+    timings = {}
+    for name in ("Kuf", "GPR K(X)"):
+        *inputs, depth = [a for n, a in cases if n == name][0]
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        gbar = torch.as_tensor(np.random.default_rng(99).normal(
+            size=(inputs[0].shape[1], inputs[1].shape[1])), dtype=torch.float32,
+            device=device)
 
-    def fwd_bwd(fn):
-        return lambda: torch.autograd.grad(fn(*leaves, DEPTH), leaves, gbar,
-                                           allow_unused=True)
+        def fwd_bwd(fn, leaves=leaves, gbar=gbar, depth=depth):
+            return lambda: torch.autograd.grad(fn(*leaves, depth), leaves, gbar,
+                                               allow_unused=True)
 
-    fns = {"plain": fwd_bwd(og.oak_gram_plain), "kernel": fwd_bwd(og.oak_gram_fused)}
-    for fn in fns.values():  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    turns = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        turns[which].append(_cuda_ms(fns[which], TIMING_ITERS // 4))
-    bwd = {"kernel": lambda: og.oak_gram_bwd(*inputs, gbar, DEPTH),
-           "plain": lambda: og.oak_gram_bwd_plain(*inputs, gbar, DEPTH)}
-    for fn in bwd.values():
-        fn()
-    bwd_turns = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        bwd_turns[which].append(_cuda_ms(bwd[which], TIMING_ITERS // 4))
+        both = _turns({"plain": fwd_bwd(og.oak_gram_plain),
+                       "kernel": fwd_bwd(og.oak_gram_fused)}, TIMING_ITERS // 4)
+        bwd = _turns({"kernel": lambda: og.oak_gram_bwd(*inputs, gbar, depth),
+                      "plain": lambda: og.oak_gram_bwd_plain(*inputs, gbar, depth)},
+                     TIMING_ITERS // 4)
+        timings[name] = (both, bwd)
+    text = "; ".join(
+        f"{name} forward+backward: kernels {both['kernel']} ms, plain autograd "
+        f"{both['plain']} ms; backward alone: kernel {bwd['kernel']} ms, "
+        f"oak_gram_bwd_plain {bwd['plain']} ms"
+        for name, (both, bwd) in zip(("Kuf 512x8192", "GPR K(X) 8192x8192"),
+                                     timings.values()))
     print(f"phase 2b backward kernel vs plain (max err / max |ref| against autograd "
           f"and the written-out backward, tol {GRAD_TOL}): {'; '.join(findings)}; "
-          f"Kuf 512x8192 forward+backward: kernels {turns['kernel']} ms, plain "
-          f"autograd {turns['plain']} ms; backward alone: kernel {bwd_turns['kernel']} "
-          f"ms, oak_gram_bwd_plain {bwd_turns['plain']} ms (turns plain, kernel, "
-          f"kernel, plain; {TIMING_ITERS // 4} calls each)")
+          f"{text} (turns plain, kernel, kernel, plain; {TIMING_ITERS // 4} calls each)")
+    bwd_turns = timings["Kuf"][1]
     return dict(max_abs_err=kuf_abs_err, ms=float(np.mean(bwd_turns["kernel"])),
                 plain_ms=float(np.mean(bwd_turns["plain"])))
 
@@ -351,12 +421,38 @@ def phase_main_path(model, X, device):
     return launches
 
 
-def _grad_at_start(model, X, Y):
+def _grad_at_start(model, loss_fn):
     from oak_tpu_torch.optim import fit
 
     vec = fit._leaf(model)
-    loss, g = fit.value_and_grad(model, lambda m: m.training_loss(X, Y), vec)
+    loss, g = fit.value_and_grad(model, loss_fn, vec)
     return float(loss), g.double().cpu()
+
+
+def _check_grad_against_f64(name, model, loss_fn, to64=None):
+    """The loss and its gradient at the start point, f32 through the kernels
+    against the same model in f64 on the card (the per-dim route, which must
+    launch neither kernel), each factoring at its dtype's default jitter.
+    ``to64`` maps the loss function's arguments to f64."""
+    from oak_tpu_torch.ops import oak_gram as og
+
+    before = (og.LAUNCHES, og.BWD_LAUNCHES)
+    loss32, g32 = _grad_at_start(model, loss_fn)
+    if og.LAUNCHES == before[0] or og.BWD_LAUNCHES == before[1]:
+        raise RuntimeError(f"{name}: the training gradient did not launch both kernels")
+    launches = (og.LAUNCHES, og.BWD_LAUNCHES)
+    loss64, g64 = _grad_at_start(copy.deepcopy(model).to(dtype=torch.float64),
+                                 to64 or loss_fn)
+    if (og.LAUNCHES, og.BWD_LAUNCHES) != launches:
+        raise RuntimeError(f"{name}: the float64 model reached the float32 kernels")
+    loss_err = abs(loss32 - loss64) / abs(loss64)
+    grad_err = float((g32 - g64).abs().max() / g64.abs().max())
+    if not (np.isfinite(loss32) and loss_err < LOSS_TOL and grad_err < TRAIN_GRAD_TOL):
+        raise RuntimeError(f"{name} gradient f32 vs f64: loss {loss_err:.3e} (tol "
+                           f"{LOSS_TOL}), gradient {grad_err:.3e} (tol {TRAIN_GRAD_TOL})")
+    return (f"loss {loss32:.8g} vs {loss64:.8g}, rel err {loss_err:.2e} (tol {LOSS_TOL}); "
+            f"gradient ({g32.numel()} entries) max err / max |g| {grad_err:.2e} "
+            f"(tol {TRAIN_GRAD_TOL})")
 
 
 def _check_losses(name, losses, first_launch, first_bwd):
@@ -385,23 +481,10 @@ def phase_training(device):
     # 4.1: f32 through the kernels against f64 through the per-dim route, on
     # the card, each factoring Kuu at its dtype's default jitter (1e-5 and
     # 1e-6 relative to the mean diagonal)
-    loss32, g32 = _grad_at_start(model, X, Y)
-    if og.LAUNCHES == 0 or og.BWD_LAUNCHES == 0:
-        raise RuntimeError("the training gradient did not launch both kernels")
-    launches = (og.LAUNCHES, og.BWD_LAUNCHES)
-    loss64, g64 = _grad_at_start(copy.deepcopy(model).to(dtype=torch.float64),
-                                 X.double(), Y.double())
-    if (og.LAUNCHES, og.BWD_LAUNCHES) != launches:
-        raise RuntimeError("the float64 model reached the float32 kernels")
-    loss_err = abs(loss32 - loss64) / abs(loss64)
-    grad_err = float((g32 - g64).abs().max() / g64.abs().max())
-    if not (np.isfinite(loss32) and loss_err < LOSS_TOL and grad_err < TRAIN_GRAD_TOL):
-        raise RuntimeError(f"training gradient f32 vs f64: loss {loss_err:.3e} (tol "
-                           f"{LOSS_TOL}), gradient {grad_err:.3e} (tol {TRAIN_GRAD_TOL})")
+    line = _check_grad_against_f64("SVGP", model, lambda m: m.training_loss(X, Y),
+                                   lambda m: m.training_loss(X.double(), Y.double()))
     print(f"phase 4.1 training gradient at the start point, f32 kernels vs f64 per-dim "
-          f"route on the card: loss {loss32:.8g} vs {loss64:.8g}, rel err {loss_err:.2e} "
-          f"(tol {LOSS_TOL}); gradient ({g32.numel()} entries) max err / max |g| "
-          f"{grad_err:.2e} (tol {TRAIN_GRAD_TOL})")
+          f"route on the card: {line}")
 
     # 4.2: fit_adam, with the host clock read at every loss call (fit_adam
     # does not synchronise between steps, so an interval is one step's issue
@@ -448,6 +531,133 @@ def phase_training(device):
     print(f"phase 4.3 {b_line} ({b_ms:.3f} ms per step incl. sync); {n_line} "
           f"({n_ms:.3f} ms per step incl. sync); training path launches: forward "
           f"{launches['fwd']}, backward {launches['bwd']}")
+    return launches, model, X
+
+
+def _check_sobol(name, model, model64, X=None, by_order=False):
+    """Full Sobol of ``model`` (f32) against ``model64`` (the same parameters
+    in f64); with ``by_order``, the per-order totals (Newton–Girard over the
+    L matrices, the Hadamard form's conditioning) against the components'
+    sums; with ``X``, the per-component predictions of its rows plus the
+    constant against predict_f's mean. Returns a findings line."""
+    from oak_tpu_torch import sobol as sb
+
+    tuples, v32 = sb.compute_sobol_oak(model)
+    tuples64, v64 = sb.compute_sobol_oak(model64)
+    if tuples != tuples64 or not np.isfinite(v32).all():
+        raise RuntimeError(f"{name} Sobol: components differ or values non-finite")
+    err = float(np.abs(sb.normalize_sobol(v32) - sb.normalize_sobol(v64)).max())
+    if not err < SOBOL_TOL:
+        raise RuntimeError(f"{name} Sobol f32 vs f64: normalised error {err:.3e} "
+                           f">= {SOBOL_TOL}")
+    line = (f"{len(tuples)} components, max |normalised f32 - f64| {err:.2e} (tol "
+            f"{SOBOL_TOL})")
+    if by_order:
+        totals = sb.compute_sobol_by_order(model)
+        sums = np.zeros(len(totals))
+        for t, v in zip(tuples, v32):
+            sums[len(t) - 1] += v
+        order_err = float(np.abs(totals - sums).max() / np.abs(sums).max())
+        if not order_err < SOBOL_TOL:
+            raise RuntimeError(f"{name} Sobol by order vs component sums: {order_err:.3e}")
+        line += f"; by order vs sums {order_err:.2e}"
+    if X is not None:
+        comps = sb.get_prediction_component(model, X=X)
+        with torch.no_grad():
+            const = float(model.posterior_alpha()[:, 0].sum()
+                          * model.kernel.variances[0].value)
+            mean = model.predict_f(X)[0][:, 0].cpu().numpy().astype(np.float64)
+        ident = float(np.abs(comps.sum(0) + const - mean).max() / np.abs(mean).max())
+        if not (comps.shape == (len(tuples), X.shape[0]) and ident < SOBOL_TOL):
+            raise RuntimeError(f"{name} per-component predictions: shape "
+                               f"{comps.shape}, sum-to-mean error {ident:.3e}")
+        line += f"; {X.shape[0]} rows' components + constant vs mean {ident:.2e}"
+    return line
+
+
+def phase_sobol(model, X):
+    """Phase 4's trained SVGP: the full decomposition against f64, and
+    timed."""
+    from oak_tpu_torch import sobol as sb
+    from oak_tpu_torch.ops import oak_gram as og
+
+    og.LAUNCHES = 0
+    model64 = copy.deepcopy(model).to(dtype=torch.float64)
+    line = _check_sobol("SVGP", model, model64, X[:COMPONENT_ROWS], by_order=True)
+    sobol_ms = _host_ms(lambda: sb.compute_sobol_oak(model), 3)
+    launches = og.LAUNCHES
+    if launches == 0:
+        raise RuntimeError("Sobol did not launch the forward kernel")
+    print(f"phase 5 Sobol of the trained bench SVGP: {line}; full Sobol host ms "
+          f"(sync, median of 3) {sobol_ms:.3f}; forward launches {launches}")
+    return launches
+
+
+def _fit_and_compare(name, model, steps, rows, Xnew):
+    """fit_adam for ``steps`` steps (best below first, both kernels
+    launched), then predict_y on ``rows`` rows and Sobol against the trained
+    parameters in f64."""
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.optim import fit_adam
+
+    first = (og.LAUNCHES, og.BWD_LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_adam(model, lambda m: m.training_loss(), steps=steps)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    fit_line = _check_losses(f"{name} fit_adam {steps} steps", res.losses, *first)
+    model64 = copy.deepcopy(model).to(dtype=torch.float64)
+    with torch.no_grad():
+        mean, var = (t.cpu().numpy() for t in model.predict_y(Xnew[:rows]))
+        mean64, var64 = (t.cpu().numpy() for t in model64.predict_y(Xnew[:rows].double()))
+    mean_err, var_err = rel_err(mean, mean64), rel_err(var, var64)
+    if not (np.isfinite(mean).all() and mean_err < E2E_TOL and var_err < E2E_TOL):
+        raise RuntimeError(f"{name} predict_y f32 vs f64: mean {mean_err:.3e}, var "
+                           f"{var_err:.3e} (tol {E2E_TOL})")
+    return (model64, f"{fit_line} ({step_ms:.3f} ms per step incl. sync); predict_y "
+            f"{rows} rows vs f64: mean {mean_err:.2e}, var {var_err:.2e} (tol {E2E_TOL})")
+
+
+def phase_sgpr(device):
+    from oak_tpu_torch.ops import oak_gram as og
+
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    model = build_sgpr_model(device)
+    grad_line = _check_grad_against_f64("SGPR", model, lambda m: m.training_loss())
+    model64, fit_line = _fit_and_compare("SGPR", model, SGPR_STEPS, N, model.X)
+    sobol_line = _check_sobol("SGPR", model, model64, model.X[:COMPONENT_ROWS])
+    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    print(f"phase 6 SGPR (N {N}, D {D}, M {M}, depth {DEPTH}, f32): gradient at the "
+          f"start vs f64 on the card: {grad_line}; {fit_line}; Sobol: {sobol_line}; "
+          f"launches: forward {launches['fwd']}, backward {launches['bwd']}")
+    return launches
+
+
+def phase_gpr(device):
+    from oak_tpu_torch.ops import oak_gram as og
+
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    model = build_gpr_model(device)
+    with torch.no_grad():
+        model.kernel.K(model.X)  # K(X), X2 = None
+    torch.cuda.synchronize()
+    if og.LAUNCHES != 1:
+        raise RuntimeError("GPR: the square gram K(X) did not launch the kernel once")
+    grad_line = _check_grad_against_f64("GPR", model, lambda m: m.training_loss())
+    Xnew = torch.as_tensor(synth_pumadyn(GPR_N, GPR_D, seed=3)[0], device=device)
+    model64, fit_line = _fit_and_compare("GPR", model, GPR_STEPS, COMPONENT_ROWS, Xnew)
+    sobol_line = _check_sobol("GPR", model, model64)
+    with torch.no_grad():
+        draws = model.predict_f_samples(Xnew[:SAMPLE_ROWS], SAMPLE_DRAWS, 0)
+    if draws.shape != (SAMPLE_DRAWS, SAMPLE_ROWS, 1) or not bool(torch.isfinite(draws).all()):
+        raise RuntimeError(f"GPR samples: shape {tuple(draws.shape)} or non-finite")
+    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    print(f"phase 7 GPR (N {GPR_N}, D {GPR_D}, depth {GPR_DEPTH}, noise 0.1, f32): "
+          f"gradient at the start vs f64 on the card: {grad_line}; {fit_line}; Sobol: "
+          f"{sobol_line}; {SAMPLE_DRAWS} draws at {SAMPLE_ROWS} rows finite; launches: "
+          f"forward {launches['fwd']} (the square K(X) among them), backward "
+          f"{launches['bwd']}")
     return launches
 
 
@@ -572,13 +782,69 @@ def profile_training(device, repeats=7):
           + "; table in chiprun_out/profile_train_step.txt")
 
 
+def profile_sobol(model, device, repeats=5):
+    """Where a full Sobol decomposition's time goes, on the predict phase's
+    model (all dims on the factor route, so orders 1-2 take the factor forms
+    and order 3 the ladder): the host clock (median of ``repeats``,
+    synchronised) over the whole and its parts, then torch.profiler over one
+    decomposition. The profiler's table goes to chiprun_out/profile_sobol.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from oak_tpu_torch import sobol as sb
+    from oak_tpu_torch.kernels import component_index_tuples
+
+    oak = model.kernel
+    with torch.no_grad():
+        Z = model.Z.value
+        a = model.posterior_alpha()[:, 0]
+        tuples = component_index_tuples(D, DEPTH)[1:]
+        pairs = [t for t in tuples if len(t) == 2]
+        Fs, Ws = sb._factor_stack(oak, Z)
+        Lstack = sb._dim_L_stack(oak, Z)
+        parts = sb._factor_quadforms(Fs, Ws, a, pairs)
+        parts["RH"] = sb._ladder_quadforms(Lstack, a, D, DEPTH)[3]
+        steps = {"compute_sobol_oak": lambda: sb.compute_sobol_oak(model),
+                 "posterior_alpha": lambda: model.posterior_alpha(),
+                 "routing (one host read)": lambda: sb._factor_routing(oak),
+                 "factor forms build (_factor_stack)": lambda: sb._factor_stack(oak, Z),
+                 "orders 1-2 factor quadratic forms": lambda: sb._factor_quadforms(
+                     Fs, Ws, a, pairs),
+                 "L stack build (_dim_L_stack)": lambda: sb._dim_L_stack(oak, Z),
+                 "order 3, prefix ladder": lambda: sb._ladder_quadforms(
+                     Lstack, a, D, DEPTH),
+                 "assembly (_assemble)": lambda: sb._assemble(parts, tuples, True, oak,
+                                                              device)}
+        for fn in steps.values():  # warm-up
+            fn()
+        ms = {name: _host_ms(fn, repeats) for name, fn in steps.items()}
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sb.compute_sobol_oak(model)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "profile_sobol.txt").write_text(events.table(sort_by="self_cuda_time_total",
+                                                            row_limit=60))
+    print(f"profile Sobol, {len(tuples)} components (host ms, median of {repeats}): "
+          + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
+          + f"; profiled decomposition: {launches} kernel launches, device time "
+          f"{device_ms:.3f} ms; table in chiprun_out/profile_sobol.txt")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-4, print where a warm predict_y "
-                             "request's and a warm training step's time goes (host "
-                             "clock and torch.profiler)")
+                        help="instead of phases 2-7, print where a warm predict_y "
+                             "request's, a warm training step's and a full Sobol "
+                             "decomposition's time goes (host clock and torch.profiler)")
     args = parser.parse_args()
+    t0 = time.perf_counter()
     phase_device()
     device = torch.device("cuda", 0)
     phase_build()
@@ -586,22 +852,41 @@ def main():
     if args.profile:
         profile(model, X, device)
         profile_training(device)
+        profile_sobol(model, device)
         return
-    kernel = phase_kernel(model, X, device)
-    kernel_bwd = phase_kernel_bwd(model, X, device)
-    predict_launches = phase_main_path(model, X, device)
-    train_launches = phase_training(device)
+    seconds = {"0-1": time.perf_counter() - t0}
+
+    def timed(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name} took {seconds[name]:.1f} s")
+        return out
+
+    gpr = build_gpr_model(device)
+    kernel = timed("2", phase_kernel, model, X, gpr, device)
+    kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device)
+    del gpr
+    predict_launches = timed("3", phase_main_path, model, X, device)
+    train_launches, trained, X_train = timed("4", phase_training, device)
+    sobol_launches = timed("5", phase_sobol, trained, X_train)
+    del trained, X_train
+    sgpr_launches = timed("6", phase_sgpr, device)
+    gpr_launches = timed("7", phase_gpr, device)
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
+          f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "oak_gram_fwd_f32", "route": "cuda",
          "source": "oak_tpu_torch/csrc/oak_gram_fwd.cu",
          "replaces": "oak_tpu/ops/oak_gram_pallas.py:63",
-         "launches": predict_launches + train_launches["fwd"],
+         "launches": (predict_launches + train_launches["fwd"] + sobol_launches
+                      + sgpr_launches["fwd"] + gpr_launches["fwd"]),
          "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
          "plain_ms": kernel["plain_ms"]},
         {"name": "oak_gram_bwd_f32", "route": "cuda",
          "source": "oak_tpu_torch/csrc/oak_gram_bwd.cu",
          "replaces": "oak_tpu/ops/oak_gram_pallas.py:158",
-         "launches": train_launches["bwd"],
+         "launches": train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"],
          "max_abs_err": kernel_bwd["max_abs_err"], "ms": kernel_bwd["ms"],
          "plain_ms": kernel_bwd["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {

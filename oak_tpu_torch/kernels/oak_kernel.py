@@ -11,7 +11,7 @@ with e_n the elementary symmetric polynomials from Newton–Girard.
 from __future__ import annotations
 
 import itertools
-from typing import Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -75,6 +75,15 @@ def kernel_K_diag(k, x: torch.Tensor) -> torch.Tensor:
     if isinstance(k, UnconstrainedRBF):
         return ortho_rbf.rbf_diag(k, x)
     raise NotImplementedError(type(k))
+
+
+def per_dim_batched(kernels: Sequence[nn.Module], X: torch.Tensor,
+                    fn: Callable) -> List:
+    """``fn(kernel, column)`` for every constituent kernel, in dim order.
+
+    A plain loop: ``oak_tpu`` vmaps each group of same-typed kernels to save
+    TPU launches; batching the per-dim forms is ROADMAP H1."""
+    return [fn(k, X[:, k.active_dim]) for k in kernels]
 
 
 class OAKKernel(nn.Module):
@@ -190,6 +199,10 @@ class OAKKernel(nn.Module):
                    share_var_across_orders)
 
     # ------------------------------------------------------------------ #
+    @property
+    def num_dims(self) -> int:
+        return len(self.kernels)
+
     def _max_active_dim(self) -> int:
         return max(k.active_dim for k in self.kernels) + 1
 
@@ -265,6 +278,20 @@ class OAKKernel(nn.Module):
             out = self.variances[len(dims)].value * out
         return out
 
+    def component_K_diag(self, dims: Sequence[int], X: torch.Tensor) -> torch.Tensor:
+        """diag of ``component_K(dims, X)``, [N]."""
+        if len(dims) == 0:
+            return self.variances[0].value * torch.ones(
+                (X.shape[0],), dtype=X.dtype, device=X.device)
+        out = None
+        for d in dims:
+            k = self.kernels[d]
+            g = kernel_K_diag(k, X[:, k.active_dim])
+            out = g if out is None else out * g
+        if self.share_var_across_orders:
+            out = self.variances[len(dims)].value * out
+        return out
+
 
 def component_index_tuples(num_dims: int, max_interaction_depth: int) -> List[List[int]]:
     """All C(D, 0..P) index tuples, the constant term first."""
@@ -272,3 +299,36 @@ def component_index_tuples(num_dims: int, max_interaction_depth: int) -> List[Li
     for order in range(1, max_interaction_depth + 1):
         out.extend([list(c) for c in itertools.combinations(range(num_dims), order)])
     return out
+
+
+class KernelComponent:
+    """One additive term of an OAKKernel as a kernel object, a view over
+    ``OAKKernel.component_K`` (``oak_tpu``'s ``KernelComponent``; the
+    reference spells it ``KernelComponenent``, kept as an alias)."""
+
+    def __init__(self, oak_kernel: OAKKernel, iComponent_list: Sequence[int],
+                 share_var_across_orders: bool = True):
+        self.oak_kernel = oak_kernel
+        self.iComponent_list = list(iComponent_list)
+        self.share_var_across_orders = share_var_across_orders
+        self.kernels = [k for i, k in enumerate(oak_kernel.kernels)
+                        if i in self.iComponent_list]
+
+    def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.oak_kernel.component_K(self.iComponent_list, X, X2)
+
+    def K_diag(self, X: torch.Tensor) -> torch.Tensor:
+        return self.oak_kernel.component_K_diag(self.iComponent_list, X)
+
+
+KernelComponenent = KernelComponent  # the reference's spelling
+
+
+def get_list_representation(kernel: OAKKernel, num_dims: int,
+                            share_var_across_orders: bool = True):
+    """(selected_dims, [KernelComponent]): every additive term, the constant
+    term first."""
+    selected_dims = component_index_tuples(num_dims, kernel.max_interaction_depth)
+    components = [KernelComponent(kernel, dims, share_var_across_orders)
+                  for dims in selected_dims]
+    return selected_dims, components

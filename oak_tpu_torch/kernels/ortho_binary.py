@@ -33,6 +33,12 @@ class OrthogonalBinary(nn.Module):
                    torch.tensor(p0, dtype=dtype, device=device), active_dim)
 
 
+def output_covariance(k: OrthogonalBinary) -> torch.Tensor:
+    """The 2x2 table B = σ² φ φᵀ, φ = (p1, -p0)."""
+    phi = torch.stack([1.0 - k.p0, -k.p0])
+    return k.variance.value * torch.outer(phi, phi)
+
+
 def _phi(k: OrthogonalBinary, x: torch.Tensor) -> torch.Tensor:
     """x = 0 -> p1; x = 1 -> -p0."""
     return (1.0 - k.p0) - x

@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 from ..kernels.oak_kernel import OAKKernel
-from ..ops.psd import cholesky, safe_cholesky, solve_lower, solve_upper
+from ..ops.psd import (cholesky, cholesky_solve, safe_cholesky, solve_lower,
+                       solve_upper, tri_inv_lower)
 from ..params import Param, fixed, log_prior_density, param, positive
 
 
@@ -149,3 +150,38 @@ class SVGP(nn.Module):
 
     def training_loss(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return -(self.elbo(X, Y) + log_prior_density(self))
+
+    def predict_f_samples(self, Xnew: torch.Tensor, num_samples: int = 1,
+                          generator_or_seed=0) -> torch.Tensor:
+        """Joint posterior draws at Xnew, [num_samples, S, R]
+        (``models.sampling``)."""
+        from .sampling import predict_f_samples
+
+        return predict_f_samples(self, Xnew, num_samples, generator_or_seed)
+
+    # ------------------------------------------------------------------ #
+    def posterior_alpha(self) -> torch.Tensor:
+        """alpha [M, R] with predictive mean = K(Xnew, Z) alpha, through the
+        same escalated factor as ``predict_f``."""
+        Luu = self._safe_Luu()
+        if self.whiten:
+            return solve_upper(Luu, self.q_mu.value)
+        return cholesky_solve(Luu, self.q_mu.value)
+
+    def posterior_stats(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(alpha, Qinv): predictive mean = Kxu alpha, covariance = Kxx -
+        Kxu Qinv Kux, for the first latent. Whitened: alpha = Luu⁻ᵀ q_mu,
+        Qinv = Luu⁻ᵀ (I - S) Luu⁻¹ with S = Lq Lqᵀ."""
+        Luu = self._safe_Luu()
+        Lq = self._q_sqrt_mats()[0]
+        S = Lq @ Lq.T
+        Linv = tri_inv_lower(Luu)
+        if self.whiten:
+            eye = torch.eye(Luu.shape[0], dtype=Luu.dtype, device=Luu.device)
+            return solve_upper(Luu, self.q_mu.value), Linv.T @ (eye - S) @ Linv
+        Kuu_inv = Linv.T @ Linv
+        return Kuu_inv @ self.q_mu.value, Kuu_inv - Kuu_inv @ S @ Kuu_inv
+
+    @property
+    def inducing_points(self) -> torch.Tensor:
+        return self.Z.value

@@ -16,6 +16,18 @@ KERNEL_CASES = [("ragged 1000x77", 32, 1000, 77, 0, 3),
     [(f"P={p}", 32, 300, 200, 0, p) for p in range(1, 9)]
 
 
+# (name, D, N, depth): the exact GP's square gram K(X), X2 = None, at the width
+# of bench.py's --gpr-scale rows (N = 8192, D = 8, depth 2)
+SQUARE_CASE = ("square 8192x8192", 8, 8192, 2)
+
+
+def square_inputs(seed: int, D: int, N: int, depth: int, device) -> List[torch.Tensor]:
+    """``prescaled_inputs`` of a square gram K(X, X): u2 and c2 are copies of
+    u1 and c1, as ``ops.oak_gram._prep`` gives them for X2 = None."""
+    u1, _, c1, _, extra, logb, sig2 = prescaled_inputs(seed, D, N, N, 0, depth, device)
+    return [u1, u1.clone(), c1, c1.clone(), extra, logb, sig2]
+
+
 def prescaled_inputs(seed: int, D: int, N: int, M: int, E: int, depth: int,
                      device) -> List[torch.Tensor]:
     """[u1, u2, c1, c2, extra, logb, sig2] in float32, shaped like

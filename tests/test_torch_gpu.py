@@ -1,5 +1,6 @@
 """The CUDA kernels csrc/oak_gram_fwd.cu and csrc/oak_gram_bwd.cu against
-their plain torch versions, on the card, at the shapes chip_smoke.py drives.
+their plain torch versions, on the card, at the shapes chip_smoke.py drives,
+and the Sobol layer in float32 on the card against float64 on the CPU.
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips when no
 card is present. This file imports no JAX, so on a machine with a card and
 no JAX it runs without the suite's conftest:
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from oak_tpu_torch import sobol as sb
 from oak_tpu_torch.kernels import OAKKernel
+from oak_tpu_torch.models import SVGP, Gaussian
 from oak_tpu_torch.ops import oak_gram as og
-from oak_tpu_torch.testing import KERNEL_CASES, prescaled_inputs
+from oak_tpu_torch.testing import KERNEL_CASES, SQUARE_CASE, prescaled_inputs, square_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -148,3 +151,74 @@ def test_oak_kernel_K_gradient_through_kernels(cuda):
         a, b = a.detach().double(), b.detach()
         err = float((a - b).abs().max() / b.abs().max())
         assert err < GRAD_TOL, err
+
+
+def test_square_gram_kernels_match_plain(cuda):
+    """K1 and K2 at the exact GP's square gram (X2 = None, u2 = u1): the
+    forward is exactly symmetric and within TOL of plain, every cotangent
+    within GRAD_TOL of autograd of the plain gram."""
+    _, D, N, depth = SQUARE_CASE
+    args = square_inputs(68, D, N, depth, cuda)
+    out = og.oak_gram_fused(*args, depth)
+    ref = og.oak_gram_plain(*args, depth)
+    assert torch.equal(out, out.T)
+    assert float((out - ref).abs().max() / ref.abs().max()) < TOL
+    del out, ref
+    gbar = torch.as_tensor(np.random.default_rng(69).normal(size=(N, N)),
+                           dtype=torch.float32, device=cuda)
+    before = og.BWD_LAUNCHES
+    ours = og.oak_gram_bwd(*args, gbar, depth)
+    torch.cuda.synchronize()
+    assert og.BWD_LAUNCHES == before + 1
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    auto = torch.autograd.grad(og.oak_gram_plain(*leaves, depth), leaves, gbar,
+                               allow_unused=True, materialize_grads=True)
+    for n, o, a in zip(NAMES, ours, auto):
+        if a.numel():
+            err = float((o - a).abs().max() / a.abs().max())
+            assert err < GRAD_TOL, (n, err)
+
+
+def test_oak_kernel_square_K_through_kernel(cuda):
+    """K(X) with X2 = None launches K1 once, is exactly symmetric and
+    agrees with the float64 per-dim route."""
+    k = OAKKernel.create(num_dims=8, max_interaction_depth=2, dtype=torch.float32,
+                         device=cuda)
+    X = torch.as_tensor(np.random.default_rng(70).normal(size=(1000, 8)),
+                        dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        before = og.LAUNCHES
+        K = k.K(X)
+        torch.cuda.synchronize()
+        assert og.LAUNCHES == before + 1
+        K64 = k.double().K(X.double())
+    assert torch.equal(K, K.T)
+    err = float((K.double() - K64).abs().max() / K64.abs().max())
+    assert err < TOL, err
+
+
+def test_sobol_f32_on_card_matches_f64_cpu(cuda):
+    """A small SVGP with seeded parameters: every component's normalised
+    Sobol value in float32 on the card (K1 for Kuu) within 1e-3 of float64
+    on the CPU; the per-component predictions sum to the mean."""
+    rng = np.random.default_rng(71)
+    X = rng.normal(size=(256, 6))
+    kernel = OAKKernel.create(num_dims=6, max_interaction_depth=3, dtype=torch.float32,
+                              device=cuda)
+    m = SVGP.create(kernel, Gaussian.create(0.01, dtype=torch.float32, device=cuda),
+                    X[:64], dtype=torch.float32, device=cuda)
+    for kk in m.kernel.kernels:
+        kk.lengthscale.assign(rng.uniform(1.0, 3.0))
+    m.q_mu.assign(rng.normal(size=(64, 1)))
+    before = og.LAUNCHES
+    tuples, v32 = sb.compute_sobol_oak(m)
+    assert og.LAUNCHES > before and len(tuples) == 41
+    Xs = torch.as_tensor(X[:128], dtype=torch.float32, device=cuda)
+    comps = sb.get_prediction_component(m, X=Xs)
+    with torch.no_grad():
+        const = float(m.posterior_alpha()[:, 0].sum() * m.kernel.variances[0].value)
+        mean = m.predict_f(Xs)[0][:, 0].cpu().numpy()
+    assert np.abs(comps.sum(0) + const - mean).max() < 1e-3 * np.abs(mean).max()
+    _, v64 = sb.compute_sobol_oak(m.to(device="cpu", dtype=torch.float64))
+    err = np.abs(sb.normalize_sobol(v32) - sb.normalize_sobol(v64)).max()
+    assert err < 1e-3, err

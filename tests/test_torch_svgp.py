@@ -207,7 +207,9 @@ def test_port_imports_no_jax():
             "oak_tpu_torch.ops.newton_girard, oak_tpu_torch.models.svgp, "
             "oak_tpu_torch.utils.diagnostics, oak_tpu_torch.optim, "
             "oak_tpu_torch.optim.natgrad, oak_tpu_torch.ops.quadrature, "
-            "oak_tpu_torch.models.likelihoods, oak_tpu_torch.testing\n"
+            "oak_tpu_torch.models.likelihoods, oak_tpu_torch.testing, "
+            "oak_tpu_torch.sobol, oak_tpu_torch.models.gpr, "
+            "oak_tpu_torch.models.sgpr, oak_tpu_torch.models.sampling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'oak_tpu')]\n"
             "assert not bad, bad")
