@@ -7,314 +7,561 @@
 // output element (i, j),
 //
 //   bE_d = exp(logb[d] - (u1[d,i] - u2[d,j])^2),  g_d = bE_d - c1[d,i] c2[d,j]
-//   e_0..e_P                                       (power sums, Newton-Girard)
+//   e_1..e_P                          (the product expansion, oak_gram_common.cuh)
 //
 // and then, per dim, the downdate h_0 = 1, h_k = e_k - g_d h_{k-1} (so that
-// h_k is e_k of the other dims) and
+// h_k is e_k of the other grams) and
 //
 //   W_d = sum_{n=1..P} sig2[n] h_{n-1},   T_d = gbar W_d   (= gbar dout/dg_d)
+//
+// T_d is evaluated as a polynomial in g_d whose coefficients are formed once
+// per element after pass 1 (see there), by P - 1 FFMAs per (element, dim).
 //
 //   du1[d,i]  = -2 sum_j T bE du      du2[d,j]  = +2 sum_i T bE du
 //   dc1[d,i]  =   -sum_j T c2         dc2[d,j]  =   -sum_i T c1
 //   dlogb[d]  =    sum_ij T bE        dsig2[n]  =    sum_ij gbar e_n
 //   dextra[e,i,j] = gbar W_{D+e}
 //
-// with du = u1[d,i] - u2[d,j]. Layouts, all float32 and contiguous: u1, c1
-// [D, N]; u2, c2 [D, M]; extra, dextra [E, N, M]; logb [D]; sig2 [P + 1];
-// gbar [N, M].
+// with du = u1[d,i] - u2[d,j]. Layouts, all float32 and contiguous: u1, c1,
+// du1, dc1 [D, N]; u2, c2, du2, dc2 [D, M]; extra, dextra [E, N, M]; logb,
+// dlogb [D]; sig2, dsig2 [P + 1]; gbar [N, M]. P is the clamped depth, 1..64.
 //
-// The reductions are deterministic, with no atomics: each block writes
-// per-tile partials, which the wrapper (ops/oak_gram.py) sums with torch:
-//   du1p, dc1p [blocks_m, D, N]   (one row per column tile)
-//   du2p, dc2p [blocks_n, D, M]   (one row per row tile)
-//   dlogbp [blocks, D], dsig2p [blocks, P + 1]
-// Along M a warp shuffle sums the 32 lanes; along N shared memory sums the 8
-// warps of a block.
+// What bounds it on this card: per (element, dim) two MUFU ex2 (the D grams
+// of a tile do not fit on chip, where the TPU kernel kept them all in VMEM,
+// so pass 2 recomputes them) and 3 + P FP32 operations in pass 1 plus
+// 8 + P in pass 2 (du, the exponent, -g, P - 1 for T, T bE, five sums): 17
+// at depth 3, so FP32 throughput bounds it (Kuf, 512 x 8192 at D = 32: 69 us
+// at 1.98 GHz; the exps alone 64 us).
 //
-// What bounds it on this card: per (element, dim) two exps (one in each
-// pass: the D grams of a tile do not fit on chip, where the TPU kernel kept
-// them all in VMEM) and about 4P + 20 FP32 operations, plus five warp sums
-// per (row, dim). At the training shape (Kuf: N = 512, M = 8192, D = 32)
-// that is 268 M exps against about 16 MB of gbar read and 48 MB of partials
-// written: bound by compute, not by memory.
-//
-// Design, simple and exact first: a block of 32 x 8 threads covers a tile of
-// 32 rows x 64 columns, each thread 4 rows (ty + 8r) x 2 columns (tx + 32c),
-// so the gbar reads are coalesced and the u1/c1 reads are warp broadcasts.
-// Pass 1 keeps e_0..e_P of the thread's 8 elements in registers (P is a
-// template parameter, 1..8). Pass 2 runs over the dims with the dim loop
-// outermost, so that each dim's sums are scalars in registers and are
-// reduced and written before the next dim. Ragged N and M are handled by
-// clamped loads and a zero cotangent outside the output, so every thread
-// takes part in the shuffles and barriers.
+// Design: a block of 16 x 16 threads owns a tile of 16R x 16C elements, each
+// thread a register micro-tile of R x C (4 x 4 at depth <= 4, 2 x 2 at 5..8,
+// smaller for small grids and deeper variants; oak_gram_common.cuh). Two
+// blocks of 128 registers a thread fill an SM; one block of more registers
+// is slower, so the 4 x 4 tile at depth 2 keeps a 12-byte spill. The block
+// stages its rows' and columns' u, c into shared memory as the forward does.
+// Pass 1 keeps e_1..e_P of each element in registers, then sums dsig2 and
+// turns e and gbar into T's P coefficients. Pass 2 runs over the dims: each
+// thread sums its R row partials over its C columns and its C column
+// partials over its R rows in registers, stores them to shared memory as
+// float4 (R + R + C + C values per R x C element-dims), and after one
+// barrier per two dims (8192 element-dims at 4 x 4) each thread sums two
+// adjacent rows' or columns' 16 partials of a dim (8-byte loads, four chains
+// and a fixed tree) and writes them as the tile's partials; one warp per dim
+// sums dlogb over the block's threads. The shared buffers are double-
+// buffered, so one barrier per two dims suffices. oak_gram_bwd_reduce then
+// sums the per-tile partials in a fixed order: no atomics, the same inputs
+// give the same bits.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "oak_gram_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;          // threads along M (threadIdx.x)
-constexpr int kWarps = 8;           // threads along N (threadIdx.y)
-constexpr int kRows = 4;            // rows per thread
-constexpr int kCols = 2;            // columns per thread
-constexpr int kTileN = 32;          // rows per block
-constexpr int kTileM = 64;          // columns per block
-constexpr int kElems = kRows * kCols;
-static_assert(kTileN == kWarps * kRows, "tile rows");
-static_assert(kTileM == kLanes * kCols, "tile columns");
-static_assert(2 * kTileM < kLanes * kWarps, "one thread per column sum, and one spare");
+using namespace oak;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int offset = kLanes / 2; offset > 0; offset >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, offset);
-  return v;
-}
+// Per-tile partials in the workspace, for a grid of blocks_n x blocks_m
+// tiles (floats):
+//   rowp [2, blocks_m, D, N]   du1, dc1 partials (one row per column tile)
+//   colp [2, blocks_n, D, M]   du2, dc2 partials (one row per row tile)
+//   dlogbp [blocks, D], dsig2p [blocks, P + 1]
+struct Workspace {
+  size_t rowp, colp, dlogbp, dsig2p, total;
+};
 
-template <int P>
-__device__ __forceinline__ void accumulate(float (&s)[P], float g) {
-  float gp = g;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    s[p] += gp;
-    gp *= g;
-  }
-}
-
-// W = sum_{n=1..P} sig2[n] h_{n-1}, by the downdate h_k = e_k - g h_{k-1}.
-template <int P>
-__device__ __forceinline__ float downdate_weight(const float (&en)[P + 1],
-                                                 const float (&sg)[P + 1],
-                                                 float g) {
-  float h = 1.0f;
-  float w = sg[1];
-#pragma unroll
-  for (int k = 1; k < P; ++k) {
-    h = en[k] - g * h;
-    w += sg[k + 1] * h;
-  }
+Workspace workspace(int D, int N, int M, int P, int blocks_n, int blocks_m) {
+  Workspace w;
+  const size_t blocks = (size_t)blocks_n * blocks_m;
+  w.rowp = 0;
+  w.colp = w.rowp + 2 * (size_t)blocks_m * D * N;
+  w.dlogbp = w.colp + 2 * (size_t)blocks_n * D * M;
+  w.dsig2p = w.dlogbp + blocks * D;
+  w.total = w.dsig2p + blocks * (P + 1);
   return w;
 }
 
-template <int P>
-__global__ void __launch_bounds__(kLanes * kWarps)
+template <int PMAX, int R, int C>
+struct BwdShape {
+  static constexpr int BN = kThreadsY * R, BM = kThreadsX * C;
+  // dims whose partials go through shared memory between two barriers
+  static constexpr int KD = 2;
+  // partial rows padded by 4 floats: the float4 stores of a quarter warp
+  // land on distinct banks
+  static constexpr int kRowStride = BN + 4, kColStride = BM + 4;
+  static constexpr int kRedFloats = 2 * kThreadsX * kRowStride + 2 * kThreadsY * kColStride;
+  static constexpr int kSmemFloats = 2 * kStageDims * (BN + BM) + kStageDims  // staging
+                                     + 2 * KD * (kRedFloats + kThreads)       // partials
+                                     + kWarps * (PMAX + 1) + (PMAX + 1);      // dsig2, sig2
+  static constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+};
+
+// Sums of the pairs src[2t], src[2t + 1] over t = 0..15 at a stride: one
+// 8-byte load per pair, four interleaved chains and a fixed tree, so the
+// order is the same every time at a quarter of the latency.
+__device__ __forceinline__ void sum16x2(float (&out)[2], const float* src, int stride) {
+  float v[4][2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) load_vec<2>(v[k], src + k * stride);
+#pragma unroll
+  for (int t = 4; t < 16; t += 4)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float x[2];
+      load_vec<2>(x, src + (t + k) * stride);
+      v[k][0] += x[0];
+      v[k][1] += x[1];
+    }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) out[c] = (v[0][c] + v[1][c]) + (v[2][c] + v[3][c]);
+}
+
+template <int PMAX, int R, int C>
+__global__ void __launch_bounds__(kThreads, R * C * (PMAX + 1) <= 64 ? 2 : 1)
 oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
                     const float* __restrict__ c1, const float* __restrict__ c2,
                     const float* __restrict__ extra,
                     const float* __restrict__ logb,
                     const float* __restrict__ sig2,
-                    const float* __restrict__ gbar, float* __restrict__ du1p,
-                    float* __restrict__ dc1p, float* __restrict__ du2p,
-                    float* __restrict__ dc2p, float* __restrict__ dlogbp,
+                    const float* __restrict__ gbar, float* __restrict__ rowp,
+                    float* __restrict__ colp, float* __restrict__ dlogbp,
                     float* __restrict__ dsig2p, float* __restrict__ dextra,
-                    int D, int N, int M, int E, int blocks_m) {
-  __shared__ float s_du2[kWarps][kTileM];
-  __shared__ float s_dc2[kWarps][kTileM];
-  __shared__ float s_red[kWarps][P + 1];
+                    int D, int N, int M, int E, int P_arg, int blocks_n,
+                    int blocks_m) {
+  using S = BwdShape<PMAX, R, C>;
+  constexpr bool EXACT = PMAX <= 8;
+  constexpr int BN = S::BN, BM = S::BM;
+  const int P = EXACT ? PMAX : P_arg;
+  extern __shared__ __align__(16) float smem[];
+  float* s_u1 = smem;
+  float* s_c1 = s_u1 + kStageDims * BN;
+  float* s_u2 = s_c1 + kStageDims * BN;
+  float* s_c2 = s_u2 + kStageDims * BM;
+  float* s_red = s_c2 + kStageDims * BM;  // [2 buffers][KD][kRedFloats]
+  float* s_db = s_red + 2 * S::KD * S::kRedFloats;  // [2 buffers][KD][kThreads]
+  float* s_ds = s_db + 2 * S::KD * kThreads;  // [kWarps][PMAX + 1]
+  float* s_sg = s_ds + kWarps * (PMAX + 1);  // [PMAX + 1]
+  float* s_lb = s_sg + (PMAX + 1);  // [kStageDims]
 
   const int tile_i = blockIdx.x / blocks_m;
   const int tile_j = blockIdx.x - tile_i * blocks_m;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kLanes + tx;
+  const int row0 = tile_i * BN, col0 = tile_j * BM;
+  const int tx = threadIdx.x % kThreadsX, ty = threadIdx.x / kThreadsX;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int j0 = col0 + tx * C;
   const size_t nm = (size_t)N * M;
+  const bool vec = M % C == 0 && aligned_for<C>(gbar) &&
+                   (E == 0 || (aligned_for<C>(extra) &&
+                               (dextra == nullptr || aligned_for<C>(dextra))));
 
-  int row[kRows], col[kCols];  // clamped into range for the loads
-  bool row_ok[kRows], col_ok[kCols];
+  for (int n = threadIdx.x; n <= P; n += kThreads) s_sg[n] = sig2[n];
+  // sig2 in registers for the exact depths, from shared memory deeper
+  float sg_r[EXACT ? PMAX + 1 : 1];
+  if constexpr (EXACT) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = tile_i * kTileN + ty + kWarps * r;
-    row_ok[r] = i < N;
-    row[r] = row_ok[r] ? i : N - 1;
+    for (int n = 0; n <= PMAX; ++n) sg_r[n] = sig2[n];
   }
+  auto sg = [&](int n) -> float {
+    if constexpr (EXACT) return sg_r[n];
+    else return s_sg[n];
+  };
+  // T = gbar W for a gram g, by Horner in ng = -g over the coefficients of
+  // the expanded downdate, a[k] = a_{P-1-k} (below)
+  auto cotangent = [&](const float(&a)[PMAX], float ng) -> float {
+    float t = a[0];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int j = tile_j * kTileM + tx + kLanes * c;
-    col_ok[c] = j < M;
-    col[c] = col_ok[c] ? j : M - 1;
-  }
+    for (int k = 1; k < PMAX; ++k)
+      if (EXACT || k < P) t = fmaf(t, ng, a[k]);
+    return t;
+  };
 
-  float sg[P + 1];
+  // pass 1: e_1..e_P of each element, then its cotangent and dsig2's sums
+  float e[R][C][PMAX];
 #pragma unroll
-  for (int n = 0; n <= P; ++n) sg[n] = sig2[n];
-
-  // pass 1: e_0..e_P and the cotangent of each element; dsig2's sums
-  float en[kElems][P + 1];
-  float gb[kElems];
-  float ds[P + 1];
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-  for (int n = 0; n <= P; ++n) ds[n] = 0.0f;
+    for (int c = 0; c < C; ++c)
 #pragma unroll
-  for (int el = 0; el < kElems; ++el) {
-    const int r = el / kCols, c = el % kCols;
-    const size_t ij = (size_t)row[r] * M + col[c];
-    gb[el] = (row_ok[r] && col_ok[c]) ? gbar[ij] : 0.0f;
-    float s[P];
+      for (int k = 0; k < PMAX; ++k) e[r][c][k] = 0.0f;
+  const bool staged_once = D <= kStageDims;
+  for (int d0 = 0; d0 < D; d0 += kStageDims) {
+    const int kd = min(kStageDims, D - d0);
+    __syncthreads();
+    stage<BN, BM>(s_u1, s_c1, s_u2, s_c2, s_lb, u1, c1, u2, c2, logb, d0, kd,
+                  row0, col0, N, M);
+    __syncthreads();
+#pragma unroll 1
+    for (int d = 0; d < kd; ++d) {
+      float a[R], ca[R], b[C], cb[C];
+      load_vec<R>(a, s_u1 + d * BN + ty * R);
+      load_vec<R>(ca, s_c1 + d * BN + ty * R);
+      load_vec<C>(b, s_u2 + d * BM + tx * C);
+      load_vec<C>(cb, s_c2 + d * BM + tx * C);
+      const float lb = s_lb[d];
 #pragma unroll
-    for (int p = 0; p < P; ++p) s[p] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float du = u1[(size_t)d * N + row[r]] - u2[(size_t)d * M + col[c]];
-      const float g = expf(logb[d] - du * du) -
-                      c1[(size_t)d * N + row[r]] * c2[(size_t)d * M + col[c]];
-      accumulate<P>(s, g);
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float du = a[r] - b[c];
+          const float g = fmaf(-ca[r], cb[c], fast_exp2(fmaf(-du, du, lb)));
+          add_gram<PMAX, EXACT>(e[r][c], g, P);
+        }
     }
-    for (int e = 0; e < E; ++e) accumulate<P>(s, extra[(size_t)e * nm + ij]);
-    en[el][0] = 1.0f;
+  }
+  for (int k = 0; k < E; ++k) {
 #pragma unroll
-    for (int n = 1; n <= P; ++n) {
-      float t = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const int i = row0 + ty * R + r;
+      float x[C];
+      load_run<C>(x, extra + k * nm + (size_t)i * M + j0, i < N ? M - j0 : 0, vec);
 #pragma unroll
-      for (int k = 1; k <= n; ++k) {
-        const float term = en[el][n - k] * s[k - 1];
-        t += (k % 2 == 1) ? term : -term;
+      for (int c = 0; c < C; ++c) add_gram<PMAX, EXACT>(e[r][c], x[c], P);
+    }
+  }
+  float gb[R][C];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + ty * R + r;
+    load_run<C>(gb[r], gbar + (size_t)i * M + j0, i < N ? M - j0 : 0, vec);
+  }
+  {
+    float ds[PMAX + 1];
+#pragma unroll
+    for (int n = 0; n <= PMAX; ++n) ds[n] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        ds[0] += gb[r][c];
+#pragma unroll
+        for (int n = 1; n <= PMAX; ++n)
+          if (EXACT || n <= P) ds[n] = fmaf(gb[r][c], e[r][c][n - 1], ds[n]);
       }
-      en[el][n] = t / (float)n;
-    }
 #pragma unroll
-    for (int n = 0; n <= P; ++n) ds[n] += gb[el] * en[el][n];
-  }
-#pragma unroll
-  for (int n = 0; n <= P; ++n) {
-    const float v = warp_sum(ds[n]);
-    if (tx == 0) s_red[ty][n] = v;
+    for (int n = 0; n <= PMAX; ++n)
+      if (EXACT || n <= P) {
+        const float v = warp_sum(ds[n]);
+        if (lane == 0) s_ds[warp * (PMAX + 1) + n] = v;
+      }
   }
   __syncthreads();
-  if (tid <= P) {
+  for (int n = threadIdx.x; n <= P; n += kThreads) {
     float v = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += s_red[w][tid];
-    dsig2p[(size_t)blockIdx.x * (P + 1) + tid] = v;
+    for (int w = 0; w < kWarps; ++w) v += s_ds[w * (PMAX + 1) + n];
+    dsig2p[(size_t)blockIdx.x * (P + 1) + n] = v;
   }
-  __syncthreads();
 
-  // pass 2, one dim at a time: recompute g_d, downdate, reduce, write
-  for (int d = 0; d < D; ++d) {
-    const float lb = logb[d];
-    float u2v[kCols], c2v[kCols], col_du[kCols], col_dc[kCols];
+  // The downdate h_0 = 1, h_k = e_k - g h_{k-1} makes W(g) = sum_{n=1..P}
+  // sig2[n] h_{n-1} a polynomial of degree P - 1 in g: T = gbar W =
+  // sum_m a_m (-g)^m with a_m = gbar sum_{n=m+1..P} sig2[n] e_{n-1-m}. Each
+  // element's a_0..a_{P-1} replace its e_1..e_P and gbar, so pass 2 costs
+  // P - 1 FFMAs per (element, dim) for T where the downdate costs 2P - 1.
+  // In place, slot k (which held e_{k+1}) takes a_{P-1-k} = gbar sum_{j=0..k}
+  // sig2[P-k+j] e_j, for k from the top down: slot k reads e_0..e_k only.
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      u2v[c] = u2[(size_t)d * M + col[c]];
-      c2v[c] = c2[(size_t)d * M + col[c]];
-      col_du[c] = 0.0f;
-      col_dc[c] = 0.0f;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int k = PMAX - 1; k >= 0; --k)
+        if (EXACT || k < P) {
+          float v = sg(P - k);  // j = 0: e_0 = 1
+#pragma unroll
+          for (int j = 1; j <= k; ++j) v = fmaf(sg(P - k + j), e[r][c][j - 1], v);
+          e[r][c][k] = gb[r][c] * v;
+        }
+
+  // pass 2, dim by dim: recompute g_d and T; every KD dims reduce and write
+  constexpr float kDuScale = 2.0f / kSqrtLog2e;  // du was staged times sqrt(log2 e)
+  int buf = 0;
+  for (int d0 = 0; d0 < D; d0 += kStageDims) {
+    const int kd = min(kStageDims, D - d0);
+    if (!staged_once) {
+      __syncthreads();
+      stage<BN, BM>(s_u1, s_c1, s_u2, s_c2, s_lb, u1, c1, u2, c2, logb, d0, kd,
+                    row0, col0, N, M);
+      __syncthreads();
     }
-    float row_du[kRows], row_dc[kRows];
-    float db = 0.0f;
+    for (int d1 = 0; d1 < kd; d1 += S::KD) {
+      const int nd = min(S::KD, kd - d1);
+      float* red = s_red + buf * S::KD * S::kRedFloats;
+      float* dbs = s_db + buf * S::KD * kThreads;
+      // one dim at a time: interleaving two would spill at the register cap
+#pragma unroll 1
+      for (int k = 0; k < nd; ++k) {
+        const int d = d1 + k;
+        float a[R], ca[R], b[C], cb[C];
+        load_vec<R>(a, s_u1 + d * BN + ty * R);
+        load_vec<R>(ca, s_c1 + d * BN + ty * R);
+        load_vec<C>(b, s_u2 + d * BM + tx * C);
+        load_vec<C>(cb, s_c2 + d * BM + tx * C);
+        const float lb = s_lb[d];
+        float rdu[R], rdc[R], cdu[C], cdc[C], db = 0.0f;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float u1v = u1[(size_t)d * N + row[r]];
-      const float c1v = c1[(size_t)d * N + row[r]];
-      row_du[r] = 0.0f;
-      row_dc[r] = 0.0f;
+        for (int r = 0; r < R; ++r) rdu[r] = rdc[r] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int el = r * kCols + c;
-        const float du = u1v - u2v[c];
-        const float bE = expf(lb - du * du);
-        const float g = bE - c1v * c2v[c];
-        const float T = gb[el] * downdate_weight<P>(en[el], sg, g);
-        const float TbEdu = T * bE * du;
-        row_du[r] -= 2.0f * TbEdu;
-        row_dc[r] -= T * c2v[c];
-        col_du[c] += 2.0f * TbEdu;
-        col_dc[c] -= T * c1v;
-        db += T * bE;
+        for (int c = 0; c < C; ++c) cdu[c] = cdc[c] = 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float du = a[r] - b[c];
+            const float bE = fast_exp2(fmaf(-du, du, lb));
+            const float T = cotangent(e[r][c], fmaf(ca[r], cb[c], -bE));
+            const float q = T * bE;
+            rdu[r] = fmaf(q, du, rdu[r]);
+            cdu[c] = fmaf(q, du, cdu[c]);
+            rdc[r] = fmaf(T, cb[c], rdc[r]);
+            cdc[c] = fmaf(T, ca[r], cdc[c]);
+            db += q;
+          }
+        }
+        float* rred = red + k * S::kRedFloats;
+        float* cred = rred + 2 * kThreadsX * S::kRowStride;
+        store_vec<R>(rred + tx * S::kRowStride + ty * R, rdu);
+        store_vec<R>(rred + (kThreadsX + tx) * S::kRowStride + ty * R, rdc);
+        store_vec<C>(cred + ty * S::kColStride + tx * C, cdu);
+        store_vec<C>(cred + (kThreadsY + ty) * S::kColStride + tx * C, cdc);
+        dbs[k * kThreads + threadIdx.x] = db;
       }
-    }
-    // along M: the warp's 32 lanes share its rows
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float vu = warp_sum(row_du[r]);
-      const float vc = warp_sum(row_dc[r]);
-      if (tx == 0 && row_ok[r]) {
-        const size_t at = ((size_t)tile_j * D + d) * N + row[r];
-        du1p[at] = vu;
-        dc1p[at] = vc;
+      __syncthreads();
+      // each thread sums two adjacent rows' or columns' 16 partials of one
+      // dim; warp k sums dim k's dlogb over the block's threads
+      for (int s = threadIdx.x; s < nd * (BN + BM); s += kThreads) {
+        const int k = s / (BN + BM), sk = s % (BN + BM);
+        const size_t dd = d0 + d1 + k;
+        const float* rred = red + k * S::kRedFloats;
+        float v[2];
+        if (sk < BN) {
+          const int q = sk / (BN / 2), idx = 2 * (sk % (BN / 2)), i = row0 + idx;
+          sum16x2(v, rred + q * kThreadsX * S::kRowStride + idx, S::kRowStride);
+          const float scale = q == 0 ? -kDuScale : -1.0f;
+          v[0] *= scale;
+          v[1] *= scale;
+          store_run<2>(rowp + (((size_t)q * blocks_m + tile_j) * D + dd) * N + i, v, N - i,
+                       N % 2 == 0);
+        } else {
+          const int q = (sk - BN) / (BM / 2), idx = 2 * ((sk - BN) % (BM / 2));
+          const int j = col0 + idx;
+          const float* cred = rred + 2 * kThreadsX * S::kRowStride;
+          sum16x2(v, cred + q * kThreadsY * S::kColStride + idx, S::kColStride);
+          const float scale = q == 0 ? kDuScale : -1.0f;
+          v[0] *= scale;
+          v[1] *= scale;
+          store_run<2>(colp + (((size_t)q * blocks_n + tile_i) * D + dd) * M + j, v, M - j,
+                       M % 2 == 0);
+        }
       }
-    }
-    db = warp_sum(db);
-    // along N: the block's 8 warps share its columns
+      if (warp < nd) {
+        float v = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      s_du2[ty][tx + kLanes * c] = col_du[c];
-      s_dc2[ty][tx + kLanes * c] = col_dc[c];
+        for (int t = 0; t < kThreads; t += 32) v += dbs[warp * kThreads + t + lane];
+        v = warp_sum(v);
+        if (lane == 0) dlogbp[(size_t)blockIdx.x * D + d0 + d1 + warp] = v;
+      }
+      buf ^= 1;
     }
-    if (tx == 0) s_red[ty][0] = db;
-    __syncthreads();
-    if (tid < 2 * kTileM) {
-      const int cc = tid % kTileM;
-      const float(*src)[kTileM] = tid < kTileM ? s_du2 : s_dc2;
-      float v = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += src[w][cc];
-      const int j = tile_j * kTileM + cc;
-      if (j < M) (tid < kTileM ? du2p : dc2p)[((size_t)tile_i * D + d) * M + j] = v;
-    } else if (tid == 2 * kTileM) {
-      float v = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += s_red[w][0];
-      dlogbp[(size_t)blockIdx.x * D + d] = v;
-    }
-    __syncthreads();
   }
 
   // the extra grams: no reduction, one cotangent per element
   if (dextra != nullptr) {
-    for (int e = 0; e < E; ++e) {
+    for (int k = 0; k < E; ++k) {
 #pragma unroll
-      for (int el = 0; el < kElems; ++el) {
-        const int r = el / kCols, c = el % kCols;
-        if (!(row_ok[r] && col_ok[c])) continue;
-        const size_t at = (size_t)e * nm + (size_t)row[r] * M + col[c];
-        dextra[at] = gb[el] * downdate_weight<P>(en[el], sg, extra[at]);
+      for (int r = 0; r < R; ++r) {
+        const int i = row0 + ty * R + r;
+        const int n = i < N ? M - j0 : 0;
+        const size_t at = k * nm + (size_t)i * M + j0;
+        float x[C], dx[C];
+        load_run<C>(x, extra + at, n, vec);
+#pragma unroll
+        for (int c = 0; c < C; ++c) dx[c] = cotangent(e[r][c], -x[c]);
+        store_run<C>(dextra + at, dx, n, vec);
       }
     }
   }
 }
 
-template <int P>
-void launch(const float* u1, const float* u2, const float* c1, const float* c2,
-            const float* extra, const float* logb, const float* sig2,
-            const float* gbar, float* du1p, float* dc1p, float* du2p,
-            float* dc2p, float* dlogbp, float* dsig2p, float* dextra, int D,
-            int N, int M, int E, cudaStream_t stream) {
-  const int blocks_m = (M + kTileM - 1) / kTileM;
-  const int blocks_n = (N + kTileN - 1) / kTileN;
-  const dim3 block(kLanes, kWarps);
-  const dim3 grid((unsigned)blocks_m * (unsigned)blocks_n);
-  oak_gram_bwd_kernel<P><<<grid, block, 0, stream>>>(
-      u1, u2, c1, c2, extra, logb, sig2, gbar, du1p, dc1p, du2p, dc2p, dlogbp,
-      dsig2p, dextra, D, N, M, E, blocks_m);
+// Threads that share one output of oak_gram_bwd_reduce: more where the
+// outputs are few and the planes many (du1, dc1 at Kuf: 32 K outputs of
+// 128 planes get 8), until about 256 K threads keep memory busy.
+__host__ __device__ int plane_groups(int planes, size_t outputs) {
+  int g = 1;
+  while (g < 8 && 4 * g <= planes && outputs * g < (size_t)1 << 18) g *= 2;
+  return g;
+}
+
+// Sums `planes` planes of `len` floats, two quantities one after the other
+// (quantity q's planes start at src + q * planes * len), into out0 and out1.
+// `groups` threads share an output: group g sums planes g, g + groups, ...,
+// and the groups' sums are added in the order of g, so the order is fixed.
+__device__ __forceinline__ void sum_planes(const float* __restrict__ src, int planes,
+                                           size_t len, float* __restrict__ out0,
+                                           float* __restrict__ out1, int groups,
+                                           int block, float* s_part) {
+  const int per_block = kThreads / groups;
+  const int g = threadIdx.x / per_block, o = threadIdx.x % per_block;
+  const size_t t = (size_t)block * per_block + o;
+  const size_t q = t / len, at = t - q * len;
+  float v = 0.0f;
+  if (t < 2 * len) {
+    const float* p = src + q * planes * len + at;
+    for (int b = g; b < planes; b += groups) v += p[b * len];
+  }
+  s_part[threadIdx.x] = v;
+  __syncthreads();
+  if (g == 0 && t < 2 * len) {
+    float sum = 0.0f;
+    for (int k = 0; k < groups; ++k) sum += s_part[k * per_block + o];
+    (q == 0 ? out0 : out1)[at] = sum;
+  }
+}
+
+// Sums the per-tile partials in a fixed order: du1, dc1 over the column
+// tiles in the first row_blocks blocks, du2, dc2 over the row tiles in the
+// next col_blocks, then one block per dlogb[d] and per dsig2[n], each a
+// fixed tree over all tiles.
+__global__ void __launch_bounds__(kThreads)
+oak_gram_bwd_reduce(const float* __restrict__ work, Workspace w,
+                    float* __restrict__ du1, float* __restrict__ dc1,
+                    float* __restrict__ du2, float* __restrict__ dc2,
+                    float* __restrict__ dlogb, float* __restrict__ dsig2,
+                    int D, int N, int M, int P, int blocks_n, int blocks_m,
+                    int row_blocks, int col_blocks) {
+  __shared__ float s_part[kThreads];
+  const int b = blockIdx.x;
+  if (b < row_blocks) {
+    sum_planes(work + w.rowp, blocks_m, (size_t)D * N, du1, dc1,
+               plane_groups(blocks_m, 2 * (size_t)D * N), b, s_part);
+    return;
+  }
+  if (b < row_blocks + col_blocks) {
+    sum_planes(work + w.colp, blocks_n, (size_t)D * M, du2, dc2,
+               plane_groups(blocks_n, 2 * (size_t)D * M), b - row_blocks, s_part);
+    return;
+  }
+  const int k = b - row_blocks - col_blocks;
+  const int blocks = blocks_n * blocks_m;
+  const bool is_logb = k < D;
+  const float* src = work + (is_logb ? w.dlogbp + k : w.dsig2p + (k - D));
+  const int stride = is_logb ? D : P + 1;
+  float v = 0.0f;
+  for (int t = threadIdx.x; t < blocks; t += kThreads) v += src[(size_t)t * stride];
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) s_part[threadIdx.x / 32] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) sum += s_part[i];
+    if (is_logb) dlogb[k] = sum;
+    else dsig2[k - D] = sum;
+  }
+}
+
+template <int PMAX, int V>
+void grid_of(int N, int M, int* blocks_n, int* blocks_m) {
+  constexpr int BN = kThreadsY * bwd_rows(PMAX, V), BM = kThreadsX * bwd_cols(PMAX, V);
+  *blocks_n = (N + BN - 1) / BN;
+  *blocks_m = (M + BM - 1) / BM;
+}
+
+template <int PMAX, int V>
+cudaError_t launch(const float* u1, const float* u2, const float* c1,
+                   const float* c2, const float* extra, const float* logb,
+                   const float* sig2, const float* gbar, float* work,
+                   float* du1, float* dc1, float* du2, float* dc2,
+                   float* dlogb, float* dsig2, float* dextra, int D, int N,
+                   int M, int E, int P, cudaStream_t stream) {
+  constexpr int R = bwd_rows(PMAX, V), C = bwd_cols(PMAX, V);
+  using S = BwdShape<PMAX, R, C>;
+  int blocks_n, blocks_m;
+  grid_of<PMAX, V>(N, M, &blocks_n, &blocks_m);
+  const Workspace w = workspace(D, N, M, P, blocks_n, blocks_m);
+  auto kernel = oak_gram_bwd_kernel<PMAX, R, C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks_n * (unsigned)blocks_m, kThreads, S::kSmemBytes,
+           stream>>>(u1, u2, c1, c2, extra, logb, sig2, gbar, work + w.rowp,
+                     work + w.colp, work + w.dlogbp, work + w.dsig2p, dextra,
+                     D, N, M, E, P, blocks_n, blocks_m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int per_row = kThreads / plane_groups(blocks_m, 2 * (size_t)D * N);
+  const int per_col = kThreads / plane_groups(blocks_n, 2 * (size_t)D * M);
+  const int row_blocks = (int)((2 * (size_t)D * N + per_row - 1) / per_row);
+  const int col_blocks = (int)((2 * (size_t)D * M + per_col - 1) / per_col);
+  oak_gram_bwd_reduce<<<row_blocks + col_blocks + D + P + 1, kThreads, 0, stream>>>(
+      work, w, du1, dc1, du2, dc2, dlogb, dsig2, D, N, M, P, blocks_n, blocks_m,
+      row_blocks, col_blocks);
+  return cudaGetLastError();
+}
+
+template <int PMAX, int V>
+long long workspace_floats(int D, int N, int M, int P) {
+  int blocks_n, blocks_m;
+  grid_of<PMAX, V>(N, M, &blocks_n, &blocks_m);
+  return (long long)workspace(D, N, M, P, blocks_n, blocks_m).total;
+}
+
+bool valid(int P, int variant) {
+  return P >= 1 && P <= kMaxDepth && variant >= 0 && variant <= 1;
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Depth P in 1..8.
+#define OAK_BWD_DISPATCH(call)                                                 \
+  switch (depth_bucket(P)) {                                                   \
+    case 1: return variant ? call(1, 1) : call(1, 0);                          \
+    case 2: return variant ? call(2, 1) : call(2, 0);                          \
+    case 3: return variant ? call(3, 1) : call(3, 0);                          \
+    case 4: return variant ? call(4, 1) : call(4, 0);                          \
+    case 5: return variant ? call(5, 1) : call(5, 0);                          \
+    case 6: return variant ? call(6, 1) : call(6, 0);                          \
+    case 7: return variant ? call(7, 1) : call(7, 0);                          \
+    case 8: return variant ? call(8, 1) : call(8, 0);                          \
+    case 16: return call(16, 0);                                               \
+    case 32: return call(32, 0);                                               \
+    default: return call(64, 0);                                               \
+  }
+
+// The block tile (rows bn x columns bm) the backward kernel takes at clamped
+// depth P for variant 0 (large) or 1 (small). Returns a cudaError_t.
+extern "C" int oak_gram_bwd_tile(int P, int variant, int* bn, int* bm) {
+  if (!valid(P, variant)) return (int)cudaErrorInvalidValue;
+  const int pmax = depth_bucket(P);
+  *bn = kThreadsY * bwd_rows(pmax, variant);
+  *bm = kThreadsX * bwd_cols(pmax, variant);
+  return 0;
+}
+
+// Floats of workspace oak_gram_bwd_f32 needs for these sizes (the per-tile
+// partials); -1 for an invalid depth or variant.
+extern "C" long long oak_gram_bwd_workspace(int D, int N, int M, int P,
+                                            int variant) {
+  if (!valid(P, variant)) return -1;
+#define OAK_WS(pmax, v) workspace_floats<pmax, v>(D, N, M, P)
+  OAK_BWD_DISPATCH(OAK_WS)
+#undef OAK_WS
+}
+
+// Returns the cudaError_t of the launches (0 on success): the tile kernel,
+// then oak_gram_bwd_reduce. P is the clamped depth, 1..64; dsig2 gets P + 1
+// entries. work holds oak_gram_bwd_workspace(D, N, M, P, variant) floats.
 // dextra may be null: the extra grams' cotangent is then not written.
 extern "C" int oak_gram_bwd_f32(const float* u1, const float* u2,
                                 const float* c1, const float* c2,
                                 const float* extra, const float* logb,
                                 const float* sig2, const float* gbar,
-                                float* du1p, float* dc1p, float* du2p,
-                                float* dc2p, float* dlogbp, float* dsig2p,
-                                float* dextra, int D, int N, int M, int E,
-                                int P, void* stream) {
+                                float* work, float* du1, float* dc1,
+                                float* du2, float* dc2, float* dlogb,
+                                float* dsig2, float* dextra, int D, int N,
+                                int M, int E, int P, int variant,
+                                void* stream) {
+  if (!valid(P, variant)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define OAK_BWD_CASE(p)                                                     \
-  case p:                                                                   \
-    launch<p>(u1, u2, c1, c2, extra, logb, sig2, gbar, du1p, dc1p, du2p,    \
-              dc2p, dlogbp, dsig2p, dextra, D, N, M, E, s);                 \
-    break;
-  switch (P) {
-    OAK_BWD_CASE(1)
-    OAK_BWD_CASE(2)
-    OAK_BWD_CASE(3)
-    OAK_BWD_CASE(4)
-    OAK_BWD_CASE(5)
-    OAK_BWD_CASE(6)
-    OAK_BWD_CASE(7)
-    OAK_BWD_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef OAK_BWD_CASE
-  return (int)cudaGetLastError();
+#define OAK_LAUNCH(pmax, v)                                                    \
+  (int)launch<pmax, v>(u1, u2, c1, c2, extra, logb, sig2, gbar, work, du1,    \
+                       dc1, du2, dc2, dlogb, dsig2, dextra, D, N, M, E, P, s)
+  OAK_BWD_DISPATCH(OAK_LAUNCH)
+#undef OAK_LAUNCH
 }
+#undef OAK_BWD_DISPATCH

@@ -16,6 +16,7 @@ from typing import Callable, Iterator, List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..config import resolve
 from ..measures import EmpiricalMeasure, GaussianMeasure, MOGMeasure
 from ..ops import oak_gram as og
 from ..ops.newton_girard import (newton_girard, newton_girard_from_power_sums,
@@ -42,7 +43,8 @@ class UnconstrainedRBF(nn.Module):
     @classmethod
     def create(cls, lengthscale=1.0, variance=1.0, active_dim: int = 0,
                lengthscale_bounds=None, train_variance: bool = True,
-               dtype: torch.dtype = torch.float64, device=None):
+               dtype: Optional[torch.dtype] = None, device=None):
+        dtype, device = resolve(dtype, device)
         if lengthscale_bounds is not None:
             ls = bounded(lengthscale_bounds[0], lengthscale_bounds[1], lengthscale,
                          dtype=dtype, device=device)
@@ -113,7 +115,7 @@ class OAKKernel(nn.Module):
         gmm_measures: Optional[Sequence[Optional[MOGMeasure]]] = None,
         share_var_across_orders: bool = True,
         use_sparsity_prior: bool = False,
-        dtype: torch.dtype = torch.float64,
+        dtype: Optional[torch.dtype] = None,
         device=None,
     ) -> "OAKKernel":
         """Same semantics as ``oak_tpu.kernels.OAKKernel.create``:
@@ -126,7 +128,9 @@ class OAKKernel(nn.Module):
           from a generator seeded with the dim's index;
         - share_var_across_orders: base variances pinned to 1 and trainable
           σ²_0..σ²_P; otherwise σ²_0 alone plus trainable base variances;
-        - constrain_orthogonal=False: UnconstrainedRBF for continuous dims.
+        - constrain_orthogonal=False: UnconstrainedRBF for continuous dims;
+        - dtype, device: float32 on the CUDA card when None
+          (``config.resolve``), as ``oak_tpu`` builds in float32 on its chip.
         """
         if active_dims is None:
             active_dims = [[d] for d in range(num_dims)]
@@ -154,6 +158,7 @@ class OAKKernel(nn.Module):
                 loc is not None for loc in empirical_locations):
             raise ValueError("Cannot have empirical locations without orthogonal constraint")
 
+        dtype, device = resolve(dtype, device)
         kw = dict(dtype=dtype, device=device)
         kernels = []
         for d in range(D):
@@ -239,8 +244,9 @@ class OAKKernel(nn.Module):
            one RBF-form dim, every other dim binary or categorical).
 
         Otherwise the per-dim Newton–Girard route in plain torch. So the CPU,
-        and float64 anywhere, never reach the kernel. A qualifying CUDA
-        float32 model deeper than the kernel's 8 raises there (ROADMAP K1-P8).
+        and float64 anywhere, never reach the kernel. The kernels take any
+        depth up to ``ops.oak_gram.MAX_DEPTH`` after clamping it to the number
+        of dims (64: sonar's D = 60 at full depth); deeper, the wrapper raises.
         """
         check_matrix_input(X, self._max_active_dim(), "X")
         if X2 is not None:

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..config import resolve
 from ..params import Param, positive
 
 
@@ -26,8 +27,9 @@ class OrthogonalBinary(nn.Module):
 
     @classmethod
     def create(cls, p0: float = 0.5, variance=1.0, active_dim: int = 0,
-               train_variance: bool = True, dtype: torch.dtype = torch.float64,
+               train_variance: bool = True, dtype: Optional[torch.dtype] = None,
                device=None) -> "OrthogonalBinary":
+        dtype, device = resolve(dtype, device)
         return cls(positive(variance, trainable=train_variance, dtype=dtype,
                             device=device),
                    torch.tensor(p0, dtype=dtype, device=device), active_dim)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import resolve
 from ..params import Param, param, positive
 
 
@@ -33,8 +34,9 @@ class OrthogonalCategorical(nn.Module):
     def create(cls, p, rank: int = 2, variance=1.0, active_dim: int = 0,
                train_variance: bool = True,
                generator: Optional[torch.Generator] = None,
-               dtype: torch.dtype = torch.float64,
+               dtype: Optional[torch.dtype] = None,
                device=None) -> "OrthogonalCategorical":
+        dtype, device = resolve(dtype, device)
         p = torch.as_tensor(np.asarray(p), dtype=dtype, device=device).reshape(-1, 1)
         num_cat = p.shape[0]
         if generator is None:

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..measures import (EmpiricalMeasure, GaussianMeasure, Measure, MOGMeasure,
                         UniformMeasure)
+from ..config import like
 from ..params import Param, bounded, positive
 
 
@@ -37,8 +38,10 @@ class OrthogonalRBF(nn.Module):
     @classmethod
     def create(cls, measure: Measure, lengthscale=1.0, variance=1.0,
                active_dim: int = 0, lengthscale_bounds=None,
-               train_variance: bool = True, dtype: torch.dtype = torch.float64,
+               train_variance: bool = True, dtype: Optional[torch.dtype] = None,
                device=None) -> "OrthogonalRBF":
+        """Built in ``measure``'s dtype and device unless told otherwise."""
+        dtype, device = like(measure, dtype, device)
         if lengthscale_bounds is not None:
             ls = bounded(lengthscale_bounds[0], lengthscale_bounds[1], lengthscale,
                          dtype=dtype, device=device)

@@ -3,9 +3,13 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
+
+from .config import resolve
 
 
 class Measure(nn.Module):
@@ -25,8 +29,9 @@ class UniformMeasure(Measure):
     _fields = ("a", "b")
 
     @classmethod
-    def create(cls, a: float, b: float, dtype: torch.dtype = torch.float64,
+    def create(cls, a: float, b: float, dtype: Optional[torch.dtype] = None,
                device=None) -> "UniformMeasure":
+        dtype, device = resolve(dtype, device)
         return cls(a=torch.tensor(a, dtype=dtype, device=device),
                    b=torch.tensor(b, dtype=dtype, device=device))
 
@@ -37,8 +42,9 @@ class GaussianMeasure(Measure):
     _fields = ("mu", "var")
 
     @classmethod
-    def create(cls, mu: float, var: float, dtype: torch.dtype = torch.float64,
+    def create(cls, mu: float, var: float, dtype: Optional[torch.dtype] = None,
                device=None) -> "GaussianMeasure":
+        dtype, device = resolve(dtype, device)
         return cls(mu=torch.tensor(mu, dtype=dtype, device=device),
                    var=torch.tensor(var, dtype=dtype, device=device))
 
@@ -55,8 +61,9 @@ class EmpiricalMeasure(Measure):
     _fields = ("location", "weights")
 
     @classmethod
-    def create(cls, location, weights=None, dtype: torch.dtype = torch.float64,
+    def create(cls, location, weights=None, dtype: Optional[torch.dtype] = None,
                device=None) -> "EmpiricalMeasure":
+        dtype, device = resolve(dtype, device)
         location = torch.as_tensor(np.asarray(location), dtype=dtype,
                                    device=device).reshape(-1, 1)
         if weights is None:
@@ -75,8 +82,9 @@ class MOGMeasure(Measure):
     _fields = ("means", "variances", "weights")
 
     @classmethod
-    def create(cls, means, variances, weights, dtype: torch.dtype = torch.float64,
+    def create(cls, means, variances, weights, dtype: Optional[torch.dtype] = None,
                device=None) -> "MOGMeasure":
+        dtype, device = resolve(dtype, device)
         def vec(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=device).reshape(-1)

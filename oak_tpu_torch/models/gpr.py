@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..config import like
 from ..kernels.oak_kernel import OAKKernel
 from ..ops.psd import cholesky, cholesky_solve, logdet_from_chol, solve_lower
 from ..params import log_prior_density
@@ -46,7 +47,9 @@ class GPR(nn.Module):
 
     @classmethod
     def create(cls, X, Y, kernel: OAKKernel, noise_variance: float = 1.0,
-               dtype: torch.dtype = torch.float64, device=None) -> "GPR":
+               dtype: Optional[torch.dtype] = None, device=None) -> "GPR":
+        """Built in ``kernel``'s dtype and device unless told otherwise."""
+        dtype, device = like(kernel, dtype, device)
         X, Y = as_data(X, Y, dtype, device)
         return cls(kernel, Gaussian.create(noise_variance, dtype=dtype, device=device),
                    X, Y)

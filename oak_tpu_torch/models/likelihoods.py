@@ -4,11 +4,12 @@ Bernoulli by Gauss–Hermite quadrature."""
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
+from ..config import resolve
 from ..ops.quadrature import gauss_hermite, log_gauss_hermite
 from ..params import Param, positive
 
@@ -23,9 +24,10 @@ class Gaussian(nn.Module):
         self.variance = variance
 
     @classmethod
-    def create(cls, variance: float = 1.0, dtype: torch.dtype = torch.float64,
+    def create(cls, variance: float = 1.0, dtype: Optional[torch.dtype] = None,
                device=None) -> "Gaussian":
         # GPflow lower-bounds the likelihood variance at 1e-6
+        dtype, device = resolve(dtype, device)
         return cls(positive(variance, low=1e-6, dtype=dtype, device=device))
 
     def log_prob(self, f, y):

@@ -16,11 +16,12 @@ exists for the bf16 inside XLA:TPU's solvers and is not needed here.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..config import like
 from ..kernels.oak_kernel import OAKKernel
 from ..ops.psd import cholesky, solve_lower, solve_upper
 from ..params import Param, fixed, log_prior_density, param
@@ -44,8 +45,10 @@ class SGPR(nn.Module):
 
     @classmethod
     def create(cls, X, Y, kernel: OAKKernel, Z, noise_variance: float = 1.0,
-               trainable_Z: bool = False, dtype: torch.dtype = torch.float64,
+               trainable_Z: bool = False, dtype: Optional[torch.dtype] = None,
                device=None) -> "SGPR":
+        """Built in ``kernel``'s dtype and device unless told otherwise."""
+        dtype, device = like(kernel, dtype, device)
         X, Y = as_data(X, Y, dtype, device)
         kw = dict(dtype=dtype, device=device)
         Zp = param(Z, **kw) if trainable_Z else fixed(Z, **kw)

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..config import like
 from ..kernels.oak_kernel import OAKKernel
 from ..ops.psd import (cholesky, cholesky_solve, safe_cholesky, solve_lower,
                        solve_upper, tri_inv_lower)
@@ -39,7 +40,9 @@ class SVGP(nn.Module):
     def create(cls, kernel: OAKKernel, likelihood: nn.Module, Z,
                num_latent: int = 1, q_diag: bool = True, whiten: bool = True,
                trainable_Z: bool = False, num_data: Optional[int] = None,
-               dtype: torch.dtype = torch.float64, device=None) -> "SVGP":
+               dtype: Optional[torch.dtype] = None, device=None) -> "SVGP":
+        """Built in ``kernel``'s dtype and device unless told otherwise."""
+        dtype, device = like(kernel, dtype, device)
         kw = dict(dtype=dtype, device=device)
         Z = torch.as_tensor(Z, **kw)
         M = Z.shape[0]

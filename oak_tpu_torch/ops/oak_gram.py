@@ -27,7 +27,9 @@ oak_gram_pallas.py:523-535).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,13 +43,10 @@ from .newton_girard import newton_girard
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-# Deepest interaction order the kernel is instantiated for (csrc dispatch).
-MAX_DEPTH = 8
-
-# The backward kernel's tile (csrc/oak_gram_bwd.cu kTileN, kTileM): one
-# partial row per tile sizes the partial sums.
-BWD_TILE_N = 32
-BWD_TILE_M = 64
+# Deepest clamped depth min(depth, D + E) the kernels take
+# (csrc/oak_gram_common.cuh kMaxDepth): e_n of D + E grams is 0 for
+# n > D + E, so a deeper model loses nothing by the clamp.
+MAX_DEPTH = 64
 
 _SQRT2 = 1.4142135623730951
 _RSQRT_FLOOR = 1.0842022e-19  # sqrt of the smallest f32 normal
@@ -187,8 +186,9 @@ def oak_gram_bwd_plain(u1, u2, c1, c2, extra, logb, sig2, gbar,
 def supports_fused(oak) -> bool:
     """Structure check: at least one RBF-form dim (any measure, or the
     unconstrained variant), and every other dim binary or categorical
-    (through ``extra``). Depth is not part of it: a CUDA model deeper than
-    MAX_DEPTH reaches ``oak_gram_fused``, which raises (ROADMAP K1-P8)."""
+    (through ``extra``). Depth is not part of it, as in ``oak_tpu``'s
+    ``supports_pallas``: ``oak_gram_fused`` takes any depth whose clamp to
+    the number of grams is at most MAX_DEPTH, and raises above."""
     from ..kernels.oak_kernel import UnconstrainedRBF
     from ..kernels.ortho_binary import OrthogonalBinary
     from ..kernels.ortho_categorical import OrthogonalCategorical
@@ -217,14 +217,15 @@ def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int,
             raise ValueError(f"oak_gram_fused: {name} is not contiguous")
     if len({t.device for t in named.values()}) != 1:
         raise ValueError("oak_gram_fused: inputs lie on different devices")
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"oak_gram_fused: depth {depth} is outside 1..{MAX_DEPTH}, "
-                         f"the depths the CUDA kernel is built for (ROADMAP K1-P8)")
     if u1.dim() != 2 or u2.dim() != 2:
         raise ValueError("oak_gram_fused: u1 and u2 must be 2-D [D, N], [D, M]")
     D, N = u1.shape
     M = u2.shape[1]
     E = extra.shape[0] if extra.dim() == 3 else -1
+    if depth < 1 or clamped_depth(depth, D, max(E, 0)) > MAX_DEPTH:
+        raise ValueError(f"oak_gram_fused: depth {depth} over {D} + {max(E, 0)} grams; "
+                         f"the CUDA kernels take depths 1.. with min(depth, grams) "
+                         f"<= {MAX_DEPTH}")
     expected = dict(u2=(D, M), c1=(D, N), c2=(D, M), extra=(E, N, M),
                     logb=(D,), sig2=(depth + 1,), gbar=(N, M))
     for name, t in named.items():
@@ -233,24 +234,67 @@ def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int,
                              f"{tuple(t.shape)}, expected {expected[name]}")
 
 
+def clamped_depth(depth: int, D: int, E: int) -> int:
+    """The depth the kernels run: e_n of D + E grams is exactly 0 for
+    n > D + E, so deeper orders add nothing (at least 1)."""
+    return max(1, min(depth, D + E))
+
+
+def pick_tile(N: int, M: int, tiles: Sequence[Tuple[int, int]], sms: int) -> int:
+    """Index into ``tiles`` ((rows, columns) per block, largest first) of the
+    first tile whose grid over an [N, M] output has at least ``sms`` blocks,
+    so that every SM gets one; the last (smallest) when none has."""
+    for k, (bn, bm) in enumerate(tiles):
+        if -(-N // bn) * -(-M // bm) >= sms:
+            return k
+    return len(tiles) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles(entry: str, P: int) -> Tuple[Tuple[int, int], ...]:
+    """The (rows, columns) block tiles of variants 0 and 1 that the library
+    entry point ``entry`` reports for clamped depth P."""
+    fn = getattr(_build.library(), entry)
+    out = []
+    for variant in (0, 1):
+        bn, bm = ctypes.c_int(), ctypes.c_int()
+        rc = fn(P, variant, ctypes.byref(bn), ctypes.byref(bm))
+        if rc != 0:
+            raise RuntimeError(f"{entry}({P}, {variant}) failed with cudaError {rc}")
+        out.append((bn.value, bm.value))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _variant(entry: str, P: int, N: int, M: int, device: torch.device) -> int:
+    return pick_tile(N, M, _tiles(entry, P), _sm_count(device))
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
-    """``oak_gram_fwd_f32`` on inputs ``_check_cuda_inputs`` accepted."""
+    """``oak_gram_fwd_f32`` on inputs ``_check_cuda_inputs`` accepted, at
+    the clamped depth and the tile ``pick_tile`` chooses."""
     global LAUNCHES
     D, N = u1.shape
     M, E = u2.shape[1], extra.shape[0]
     out = torch.empty((N, M), dtype=torch.float32, device=u1.device)
     if N == 0 or M == 0:
         return out
+    P = clamped_depth(depth, D, E)
+    variant = _variant("oak_gram_fwd_tile", P, N, M, u1.device)
     lib = _build.library()
     with torch.cuda.device(u1.device):
         rc = lib.oak_gram_fwd_f32(
             u1.data_ptr(), u2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             extra.data_ptr(), logb.data_ptr(), sig2.data_ptr(), out.data_ptr(),
-            D, N, M, E, depth, _stream(u1))
+            D, N, M, E, P, variant, _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_fwd_f32 launch failed with cudaError {rc}")
     LAUNCHES += 1
@@ -259,8 +303,9 @@ def _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
 
 def _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
                 with_dextra: bool) -> Grads:
-    """``oak_gram_bwd_f32`` on inputs ``_check_cuda_inputs`` accepted; the
-    per-tile partials it writes are summed here, in a fixed order."""
+    """``oak_gram_bwd_f32`` on inputs ``_check_cuda_inputs`` accepted: the
+    tile kernel writes per-tile partials into a workspace whose size the
+    library reports, and its second kernel sums them in a fixed order."""
     global BWD_LAUNCHES
     D, N = u1.shape
     M, E = u2.shape[1], extra.shape[0]
@@ -269,27 +314,31 @@ def _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
         return (torch.zeros_like(u1), torch.zeros_like(u2), torch.zeros_like(c1),
                 torch.zeros_like(c2), None if dextra is None else dextra.zero_(),
                 torch.zeros_like(logb), torch.zeros_like(sig2))
-    blocks_n = -(-N // BWD_TILE_N)
-    blocks_m = -(-M // BWD_TILE_M)
-    kw = dict(dtype=torch.float32, device=u1.device)
-    du1p, dc1p = (torch.empty((blocks_m, D, N), **kw) for _ in range(2))
-    du2p, dc2p = (torch.empty((blocks_n, D, M), **kw) for _ in range(2))
-    dlogbp = torch.empty((blocks_n * blocks_m, D), **kw)
-    dsig2p = torch.empty((blocks_n * blocks_m, depth + 1), **kw)
+    P = clamped_depth(depth, D, E)
+    variant = _variant("oak_gram_bwd_tile", P, N, M, u1.device)
     lib = _build.library()
+    floats = lib.oak_gram_bwd_workspace(D, N, M, P, variant)
+    if floats < 0:
+        raise RuntimeError(f"oak_gram_bwd_workspace refused depth {P}")
+    kw = dict(dtype=torch.float32, device=u1.device)
+    work = torch.empty((floats,), **kw)
+    du1, dc1 = torch.empty((D, N), **kw), torch.empty((D, N), **kw)
+    du2, dc2 = torch.empty((D, M), **kw), torch.empty((D, M), **kw)
+    dlogb = torch.empty((D,), **kw)
+    # orders above the clamped depth have e_n = 0, so their cotangent is 0
+    dsig2 = (torch.empty if P == depth else torch.zeros)((depth + 1,), **kw)
     with torch.cuda.device(u1.device):
         rc = lib.oak_gram_bwd_f32(
             u1.data_ptr(), u2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             extra.data_ptr(), logb.data_ptr(), sig2.data_ptr(), gbar.data_ptr(),
-            du1p.data_ptr(), dc1p.data_ptr(), du2p.data_ptr(), dc2p.data_ptr(),
-            dlogbp.data_ptr(), dsig2p.data_ptr(),
+            work.data_ptr(), du1.data_ptr(), dc1.data_ptr(), du2.data_ptr(),
+            dc2.data_ptr(), dlogb.data_ptr(), dsig2.data_ptr(),
             None if dextra is None else dextra.data_ptr(),
-            D, N, M, E, depth, _stream(u1))
+            D, N, M, E, P, variant, _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_bwd_f32 launch failed with cudaError {rc}")
     BWD_LAUNCHES += 1
-    return (du1p.sum(0), du2p.sum(0), dc1p.sum(0), dc2p.sum(0), dextra,
-            dlogbp.sum(0), dsig2p.sum(0))
+    return du1, du2, dc1, dc2, dextra, dlogb, dsig2
 
 
 def oak_gram_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
@@ -342,7 +391,7 @@ def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
     through ``FusedGram``: the forward kernel ``oak_gram_fwd_f32`` and, when
     a gradient is taken, the backward kernel ``oak_gram_bwd_f32``, or raise.
     They must be float32, contiguous, on one device, of consistent shapes,
-    with 1 <= depth <= MAX_DEPTH."""
+    with depth >= 1 and ``clamped_depth(depth, D, E) <= MAX_DEPTH``."""
     if not any(t.is_cuda for t in (u1, u2, c1, c2, extra, logb, sig2)):
         return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
     return FusedGram.apply(u1, u2, c1, c2, extra, logb, sig2, depth)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from .bijectors import Bijector, Identity, Sigmoid, Softplus
+from .config import resolve
 
 
 # --------------------------------------------------------------------------- #
@@ -91,24 +92,27 @@ class Param(nn.Module):
 
 
 def param(value, bij: Bijector = Identity(), trainable: bool = True, prior=None,
-          dtype: torch.dtype = torch.float64, device=None) -> Param:
+          dtype: Optional[torch.dtype] = None, device=None) -> Param:
+    """A Param whose constrained value is ``value``, in ``dtype`` on
+    ``device`` (float32 on the card when None, ``config.resolve``)."""
+    dtype, device = resolve(dtype, device)
     v = torch.as_tensor(value, dtype=dtype, device=device)
     return Param(bij.inverse(v).clone(), bij=bij, trainable=trainable, prior=prior)
 
 
 def positive(value, low: float = 0.0, trainable: bool = True, prior=None,
-             dtype: torch.dtype = torch.float64, device=None) -> Param:
+             dtype: Optional[torch.dtype] = None, device=None) -> Param:
     return param(value, Softplus(low=low), trainable=trainable, prior=prior,
                  dtype=dtype, device=device)
 
 
 def bounded(low: float, high: float, value, trainable: bool = True, prior=None,
-            dtype: torch.dtype = torch.float64, device=None) -> Param:
+            dtype: Optional[torch.dtype] = None, device=None) -> Param:
     return param(value, Sigmoid(low=low, high=high), trainable=trainable,
                  prior=prior, dtype=dtype, device=device)
 
 
-def fixed(value, dtype: torch.dtype = torch.float64, device=None) -> Param:
+def fixed(value, dtype: Optional[torch.dtype] = None, device=None) -> Param:
     return param(value, Identity(), trainable=False, dtype=dtype, device=device)
 
 

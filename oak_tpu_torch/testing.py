@@ -1,19 +1,38 @@
 """Inputs for checking the fused gram kernels, forward and backward, against
-their plain versions on the card: one generator and one list of cases,
-shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``."""
+their plain versions on the card: one generator, one list of cases and one
+acceptance rule, shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 # (name, D, N, M, E, depth): a ragged shape, a mixed case with two extra
-# grams, and every depth the kernel is instantiated for
+# grams, every depth with its own kernel template (1..8), and the deep
+# variants' buckets (9..16, 17..32) at D = 32
 KERNEL_CASES = [("ragged 1000x77", 32, 1000, 77, 0, 3),
                 ("mixed E=2", 30, 300, 200, 2, 3)] + \
-    [(f"P={p}", 32, 300, 200, 0, p) for p in range(1, 9)]
+    [(f"P={p}", 32, 300, 200, 0, p) for p in range(1, 9)] + \
+    [(f"P={p}", 32, 300, 200, 0, p) for p in (9, 12, 16, 32)]
+
+
+def kernel_error(out: torch.Tensor, plain: torch.Tensor,
+                 plain64: torch.Tensor, tol: float) -> Tuple[bool, float, str]:
+    """Whether a kernel's result ``out`` passes against the plain version in
+    float32 (``plain``) and in float64 (``plain64``) on the same inputs, its
+    error relative to max |plain|, and a finding. It passes within ``tol``
+    of max |plain|; or, where the float32 plain version itself drifts (deep
+    Newton–Girard), when its error against float64 is at most twice the
+    float32 plain version's."""
+    scale = max(float(plain64.abs().max()), 1e-30)
+    err = float((out - plain).abs().max()) / max(float(plain.abs().max()), 1e-30)
+    if err < tol:
+        return True, err, f"{err:.1e}"
+    ours = float((out.double() - plain64).abs().max()) / scale
+    theirs = float((plain.double() - plain64).abs().max()) / scale
+    return ours <= 2.0 * theirs, err, f"{err:.1e} (vs f64 {ours:.1e}, plain f32 {theirs:.1e})"
 
 
 # (name, D, N, depth): the exact GP's square gram K(X), X2 = None, at the width

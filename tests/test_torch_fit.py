@@ -28,6 +28,10 @@ from oak_tpu_torch.optim import fit as tfit
 REL = 1e-8
 N, M, STEPS = 40, 8, 10
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close(a, b, rel=REL):
     a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -46,7 +50,7 @@ def _pair(tmp_path, seed=80):
     jm = JSVGP.create(JOAKKernel.create(**kw, dtype=jnp.float64),
                       JGaussian.create(0.1, dtype=jnp.float64), X[:M], num_data=N,
                       dtype=jnp.float64)
-    tm = SVGP.create(OAKKernel.create(**kw), Gaussian.create(0.1), X[:M], num_data=N)
+    tm = SVGP.create(OAKKernel.create(**kw, **KW), Gaussian.create(0.1, **KW), X[:M], num_data=N)
     path = tmp_path / "pair.npz"
     jckpt.save_params(jm, path)
     with np.load(path) as f:
@@ -220,8 +224,8 @@ def test_train_state_has_oak_tpu_layout(tmp_path):
 def test_trainable_vector_helpers():
     """unflatten_trainable / call_with / assign_trainable round-trip
     flatten_trainable, and call_with leaves the module as it was."""
-    tm = SVGP.create(OAKKernel.create(num_dims=2, max_interaction_depth=2),
-                     Gaussian.create(0.1), np.zeros((3, 2)))
+    tm = SVGP.create(OAKKernel.create(num_dims=2, max_interaction_depth=2, **KW),
+                     Gaussian.create(0.1, **KW), np.zeros((3, 2)))
     vec = _vec(tm)
     names = tp.trainable_names(tm)
     assert names[0] == "kernel.kernels.0.lengthscale.raw" and names[-1] == "q_sqrt.raw"

@@ -16,12 +16,14 @@ from oak_tpu_torch import sobol as sb
 from oak_tpu_torch.kernels import OAKKernel
 from oak_tpu_torch.models import SVGP, Gaussian
 from oak_tpu_torch.ops import oak_gram as og
-from oak_tpu_torch.testing import KERNEL_CASES, SQUARE_CASE, prescaled_inputs, square_inputs
+from oak_tpu_torch.testing import (KERNEL_CASES, SQUARE_CASE, kernel_error, prescaled_inputs,
+                                   square_inputs)
 
 pytestmark = pytest.mark.gpu
 
 # the Pallas gate's bounds on the forward and on the gradient, relative to
-# max |plain| (bench.py:1326-1327)
+# max |plain| (bench.py:1326-1327); past them, kernel_error's drift rule
+# against float64 (deep Newton–Girard in the f32 plain version)
 TOL = 1e-4
 GRAD_TOL = 1e-3
 NAMES = ("du1", "du2", "dc1", "dc2", "dextra", "dlogb", "dsig2")
@@ -47,32 +49,37 @@ def test_kernel_matches_plain(cuda, name, D, N, M, E, depth):
     torch.cuda.synchronize()
     assert og.LAUNCHES == before + 1
     ref = og.oak_gram_plain(*args, depth)
+    ref64 = og.oak_gram_plain(*[a.double() for a in args], depth)
     assert out.shape == (N, M) and torch.isfinite(out).all()
-    err = float((out - ref).abs().max() / ref.abs().max())
-    assert err < TOL, err
+    ok, _, text = kernel_error(out, ref, ref64, TOL)
+    assert ok, text
 
 
 @pytest.mark.parametrize("name,D,N,M,E,depth", CASES, ids=[c[0] for c in CASES])
 def test_bwd_kernel_matches_plain(cuda, name, D, N, M, E, depth):
     """Every cotangent of the backward kernel against autograd of the plain
-    gram and against the written-out plain backward, for a seeded gbar."""
+    gram and against the written-out plain backward, for a seeded gbar; a
+    second launch gives the same bits (no atomics)."""
     args = prescaled_inputs(65, D, N, M, E, depth, cuda)
     gbar = torch.as_tensor(np.random.default_rng(66).normal(size=(N, M)),
                            dtype=torch.float32, device=cuda)
     before = og.BWD_LAUNCHES
     ours = og.oak_gram_bwd(*args, gbar, depth)
+    again = og.oak_gram_bwd(*args, gbar, depth)
     torch.cuda.synchronize()
-    assert og.BWD_LAUNCHES == before + 1
+    assert og.BWD_LAUNCHES == before + 2
+    assert all(torch.equal(o, a) for o, a in zip(ours, again))
     leaves = [a.clone().requires_grad_(True) for a in args]
     auto = torch.autograd.grad(og.oak_gram_plain(*leaves, depth), leaves, gbar,
                                allow_unused=True, materialize_grads=True)
     plain = og.oak_gram_bwd_plain(*args, gbar, depth)
-    for n, o, a, p in zip(NAMES, ours, auto, plain):
+    plain64 = og.oak_gram_bwd_plain(*[a.double() for a in args], gbar.double(), depth)
+    for n, o, a, p, p64 in zip(NAMES, ours, auto, plain, plain64):
         assert o.shape == a.shape and torch.isfinite(o).all(), n
         if a.numel():
             for ref in (a, p):
-                err = float((o - ref).abs().max() / ref.abs().max())
-                assert err < GRAD_TOL, (n, err)
+                ok, _, text = kernel_error(o, ref, p64, GRAD_TOL)
+                assert ok, (n, text)
 
 
 def test_kernel_refuses_what_it_cannot_run(cuda):
@@ -82,8 +89,10 @@ def test_kernel_refuses_what_it_cannot_run(cuda):
     torch.autograd.grad(og.oak_gram_fused(*leaves, 3).sum(), leaves[:4])
     with pytest.raises(TypeError, match="float32"):
         og.oak_gram_fused(*[a.double() for a in args], 3)
-    with pytest.raises(ValueError, match="1..8"):
-        og.oak_gram_fused(*args[:6], torch.ones(10, device=cuda), 9)
+    # depth clamps to the number of grams; past 64 grams and depth 64, no variant
+    og.oak_gram_fused(*args[:6], torch.ones(10, device=cuda), 9)
+    with pytest.raises(ValueError, match="<= 64"):
+        og.oak_gram_fused(*prescaled_inputs(62, 65, 16, 8, 0, 65, cuda), 65)
     with pytest.raises(ValueError, match="contiguous"):
         og.oak_gram_fused(args[0].t().contiguous().t(), *args[1:], 3)
     with pytest.raises(ValueError, match="cpu"):
@@ -110,16 +119,37 @@ def test_oak_kernel_K_routes_through_kernel(cuda):
     assert err < TOL, err
 
 
-def test_oak_kernel_K_deeper_than_kernel_raises(cuda):
-    """Depth 9 qualifies for the fused route, as in oak_tpu, and the wrapper
-    refuses it instead of running the per-dim route on the card."""
+def test_oak_kernel_K_deeper_than_8_runs_the_kernel(cuda):
+    """Depth 9 over 10 dims qualifies for the fused route, as in oak_tpu, and
+    the kernel runs it (once it raised): one K1 launch, within TOL of the
+    float64 per-dim route on the same card."""
     k = OAKKernel.create(num_dims=10, max_interaction_depth=9, dtype=torch.float32,
                          device=cuda)
-    X = torch.as_tensor(np.random.default_rng(64).normal(size=(20, 10)),
+    X = torch.as_tensor(np.random.default_rng(64).normal(size=(200, 10)),
                         dtype=torch.float32, device=cuda)
     assert og.supports_fused(k)
-    with torch.no_grad(), pytest.raises(ValueError, match="K1-P8"):
-        k.K(X)
+    with torch.no_grad():
+        before = og.LAUNCHES
+        K = k.K(X[:50], X)
+        torch.cuda.synchronize()
+        assert og.LAUNCHES == before + 1
+        K64 = k.double().K(X[:50].double(), X.double())
+    err = float((K.double() - K64).abs().max() / K64.abs().max())
+    assert err < TOL, err
+
+
+def test_defaults_build_on_the_card_in_float32(cuda):
+    """OAKKernel.create with no dtype or device holds float32 CUDA
+    parameters, as oak_tpu builds in float32 on its chip, and K launches K1."""
+    k = OAKKernel.create(num_dims=32, max_interaction_depth=3)
+    assert {(p.dtype, p.device.type) for p in k.parameters()} == {(torch.float32, "cuda")}
+    X = torch.as_tensor(np.random.default_rng(72).normal(size=(64, 32)),
+                        dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        before = og.LAUNCHES
+        K = k.K(X)
+        torch.cuda.synchronize()
+    assert og.LAUNCHES == before + 1 and torch.isfinite(K).all()
 
 
 def test_oak_kernel_K_gradient_through_kernels(cuda):

@@ -35,6 +35,10 @@ from oak_tpu_torch.ops import newton_girard as tng
 
 REL = 1e-10
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close(a, b, rel=REL):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -66,18 +70,18 @@ def _t(x):
 
 def _measure_pair(name):
     if name == "gaussian":
-        return jmeas.GaussianMeasure.create(0.3, 1.7), tmeas.GaussianMeasure.create(0.3, 1.7)
+        return jmeas.GaussianMeasure.create(0.3, 1.7), tmeas.GaussianMeasure.create(0.3, 1.7, **KW)
     if name == "uniform":
-        return jmeas.UniformMeasure.create(-1.0, 2.0), tmeas.UniformMeasure.create(-1.0, 2.0)
+        return jmeas.UniformMeasure.create(-1.0, 2.0), tmeas.UniformMeasure.create(-1.0, 2.0, **KW)
     if name == "empirical":
         rng = np.random.default_rng(21)
         loc = rng.normal(size=(9, 1))
         w = rng.uniform(0.5, 1.5, size=(9, 1))
         w = w / w.sum()
-        return jmeas.EmpiricalMeasure.create(loc, w), tmeas.EmpiricalMeasure.create(loc, w)
+        return jmeas.EmpiricalMeasure.create(loc, w), tmeas.EmpiricalMeasure.create(loc, w, **KW)
     means, variances, weights = [-0.5, 0.5], [0.7, 1.3], [0.4, 0.6]
     return (jmeas.MOGMeasure.create(np.array(means), np.array(variances), np.array(weights)),
-            tmeas.MOGMeasure.create(means, variances, weights))
+            tmeas.MOGMeasure.create(means, variances, weights, **KW))
 
 
 @pytest.mark.parametrize("measure", ["gaussian", "uniform", "empirical", "mog"])
@@ -97,7 +101,7 @@ def test_ortho_rbf_matches_jax(measure):
 
 
 def test_var_s_floor_keeps_pruned_dim_finite():
-    tk = OrthogonalRBF.create(tmeas.GaussianMeasure.create(0.0, 1.0), variance=1.0)
+    tk = OrthogonalRBF.create(tmeas.GaussianMeasure.create(0.0, 1.0, **KW), variance=1.0)
     tk.variance.assign(0.0)
     x = _t(np.linspace(-1, 1, 5))
     K = trbf.K(tk, x)
@@ -106,7 +110,7 @@ def test_var_s_floor_keeps_pruned_dim_finite():
 
 def test_binary_matches_jax():
     jk = jbin.OrthogonalBinary.create(p0=0.3, variance=1.7)
-    tk = OrthogonalBinary.create(p0=0.3, variance=1.7)
+    tk = OrthogonalBinary.create(p0=0.3, variance=1.7, **KW)
     jk = _bridge(jk, tk, noise_seed=24)
     rng = np.random.default_rng(25)
     x = rng.integers(0, 2, 13).astype(np.float64)
@@ -120,7 +124,7 @@ def test_categorical_matches_jax():
     jk = jcat.OrthogonalCategorical.create(p, rank=2, variance=1.4,
                                            key=jax.random.PRNGKey(3))
     tk = OrthogonalCategorical.create(p, rank=2, variance=1.4,
-                                      generator=torch.Generator().manual_seed(3))
+                                      generator=torch.Generator().manual_seed(3), **KW)
     jk = _bridge(jk, tk, noise_seed=26)
     rng = np.random.default_rng(27)
     x = rng.integers(0, 3, 13).astype(np.float64)
@@ -132,7 +136,7 @@ def test_categorical_matches_jax():
 
 def test_unconstrained_rbf_matches_jax():
     jk = JUnconstrainedRBF.create(lengthscale=0.6, variance=2.0)
-    tk = UnconstrainedRBF.create(lengthscale=0.6, variance=2.0)
+    tk = UnconstrainedRBF.create(lengthscale=0.6, variance=2.0, **KW)
     jk = _bridge(jk, tk, noise_seed=28)
     rng = np.random.default_rng(29)
     x, x2 = rng.normal(size=9), rng.normal(size=5)
@@ -156,7 +160,7 @@ def _mixed_kwargs():
 
 def _mog_pair():
     args = (np.array([-0.5, 0.5]), np.array([0.7, 1.3]), np.array([0.4, 0.6]))
-    return jmeas.MOGMeasure.create(*args), tmeas.MOGMeasure.create(*args)
+    return jmeas.MOGMeasure.create(*args), tmeas.MOGMeasure.create(*args, **KW)
 
 
 def _mixed_inputs(rng, N, M):
@@ -170,11 +174,11 @@ def _mixed_inputs(rng, N, M):
 def _oak_pair(kind, depth=3, **extra):
     if kind == "rbf":
         kw = dict(num_dims=4, max_interaction_depth=depth, **extra)
-        return JOAKKernel.create(**kw), OAKKernel.create(**kw)
+        return JOAKKernel.create(**kw), OAKKernel.create(**kw, **KW)
     jmog, tmog = _mog_pair()
     kw = dict(num_dims=5, max_interaction_depth=depth, **_mixed_kwargs(), **extra)
     return (JOAKKernel.create(gmm_measures=[None] * 4 + [jmog], **kw),
-            OAKKernel.create(gmm_measures=[None] * 4 + [tmog], **kw))
+            OAKKernel.create(gmm_measures=[None] * 4 + [tmog], **kw, **KW))
 
 
 @pytest.mark.parametrize("kind", ["rbf", "mixed"])
@@ -212,13 +216,13 @@ def test_oak_kernel_create_options_match_jax(options):
 
 
 def test_oak_kernel_rejects_bad_input():
-    tk = OAKKernel.create(num_dims=3)
+    tk = OAKKernel.create(num_dims=3, **KW)
     with pytest.raises(ValueError, match="2-D"):
         tk.K(_t(np.zeros(3)))
     with pytest.raises(ValueError, match="columns"):
         tk.K(_t(np.zeros((4, 2))))
     with pytest.raises(ValueError, match="duplicates"):
-        OAKKernel.create(num_dims=3, active_dims=[[0], [0], [1]])
+        OAKKernel.create(num_dims=3, active_dims=[[0], [0], [1]], **KW)
 
 
 def test_component_index_tuples_match_jax():

@@ -24,6 +24,10 @@ from oak_tpu_torch.ops import quadrature as tq
 
 REL = 1e-12
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close(a, b, rel=REL):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -121,7 +125,7 @@ def test_bernoulli_svgp_loss_and_gradient_match_jax(tmp_path):
     kw = dict(num_dims=3, max_interaction_depth=2, use_sparsity_prior=True)
     jm = JSVGP.create(JOAKKernel.create(**kw, dtype=jnp.float64), JBernoulli.create(),
                       X[:8], num_data=40, dtype=jnp.float64)
-    tm = SVGP.create(OAKKernel.create(**kw), Bernoulli.create(), X[:8], num_data=40)
+    tm = SVGP.create(OAKKernel.create(**kw, **KW), Bernoulli.create(), X[:8], num_data=40)
     path = tmp_path / "bernoulli.npz"
     jckpt.save_params(jm, path)
     with np.load(path) as f:

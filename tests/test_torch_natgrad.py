@@ -36,6 +36,10 @@ from oak_tpu_torch.optim import natgrad as tng
 REL = 1e-8
 N, M = 40, 8
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close(a, b, rel=REL):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -52,8 +56,8 @@ def _pair(tmp_path, q_diag, seed=95, noise=0.3):
     jm = JSVGP.create(JOAKKernel.create(**kw, dtype=jnp.float64),
                       JGaussian.create(0.1, dtype=jnp.float64), X[:M], num_data=N,
                       q_diag=q_diag, dtype=jnp.float64)
-    tm = SVGP.create(OAKKernel.create(**kw), Gaussian.create(0.1), X[:M], num_data=N,
-                     q_diag=q_diag)
+    tm = SVGP.create(OAKKernel.create(**kw, **KW), Gaussian.create(0.1, **KW), X[:M],
+                     num_data=N, q_diag=q_diag)
     path = tmp_path / "pair.npz"
     jckpt.save_params(jm, path)
     with np.load(path) as f:
@@ -127,8 +131,8 @@ def test_fit_natgrad_adam_matches_jax(tmp_path):
     assert res.losses.shape == (3,) and float(res.losses[-1]) == res.fun
     _close(tp.flatten_trainable(res.model), jp.flatten_trainable(jres.model)[0])
     with pytest.warns(UserWarning, match="q_diag=True"):
-        tng.warn_if_q_diag(SVGP.create(OAKKernel.create(num_dims=1), Gaussian.create(),
-                                       np.zeros((2, 1))))
+        tng.warn_if_q_diag(SVGP.create(OAKKernel.create(num_dims=1, **KW),
+                                       Gaussian.create(**KW), np.zeros((2, 1))))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tng.warn_if_q_diag(tm)

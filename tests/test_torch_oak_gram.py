@@ -27,6 +27,10 @@ from oak_tpu_torch.ops import oak_gram as og
 
 REL = 1e-10
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close(a, b, rel=REL):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -83,7 +87,7 @@ def _bridge(jobj, tobj, noise_seed):
 def _kernels(kind, depth=3):
     if kind == "rbf":
         kw = dict(num_dims=5, max_interaction_depth=depth)
-        return JOAKKernel.create(**kw), OAKKernel.create(**kw)
+        return JOAKKernel.create(**kw), OAKKernel.create(**kw, **KW)
     loc = np.linspace(-2, 2, 9).reshape(-1, 1)
     w = np.full((9, 1), 1 / 9.0)
     mog = (np.array([-0.5, 0.5]), np.array([0.7, 1.3]), np.array([0.4, 0.6]))
@@ -93,7 +97,8 @@ def _kernels(kind, depth=3):
               empirical_locations=[None, None, None, loc, None],
               empirical_weights=[None, None, None, w, None])
     return (JOAKKernel.create(gmm_measures=[None] * 4 + [jmeas.MOGMeasure.create(*mog)], **kw),
-            OAKKernel.create(gmm_measures=[None] * 4 + [tmeas.MOGMeasure.create(*mog)], **kw))
+            OAKKernel.create(gmm_measures=[None] * 4 + [tmeas.MOGMeasure.create(*mog, **KW)],
+                             **kw, **KW))
 
 
 def _inputs(kind, rng, N, M):
@@ -171,7 +176,8 @@ def test_fused_wrapper_takes_plain_route_on_cpu_with_autograd():
 
 
 def test_cpu_float32_K_takes_per_dim_route():
-    tk = OAKKernel.create(num_dims=3, max_interaction_depth=2, dtype=torch.float32)
+    tk = OAKKernel.create(num_dims=3, max_interaction_depth=2, dtype=torch.float32,
+                          device="cpu")
     X = torch.as_tensor(np.random.default_rng(48).normal(size=(6, 3)), dtype=torch.float32)
     launches = og.LAUNCHES
     K = tk.K(X)
@@ -179,37 +185,70 @@ def test_cpu_float32_K_takes_per_dim_route():
 
 
 def test_supports_fused():
-    assert og.supports_fused(OAKKernel.create(num_dims=5, max_interaction_depth=3))
+    assert og.supports_fused(OAKKernel.create(num_dims=5, max_interaction_depth=3, **KW))
     _, mixed = _kernels("mixed")
     assert og.supports_fused(mixed)
     # all-discrete: nothing to fuse
     assert not og.supports_fused(OAKKernel.create(num_dims=2, max_interaction_depth=1,
-                                                  p0=[0.5, 0.3]))
+                                                  p0=[0.5, 0.3], **KW))
     # depth is no part of the structure check, as in oak_tpu's supports_pallas:
-    # on CUDA the wrapper raises above 8 (tests/test_torch_gpu.py)
+    # on CUDA the kernels take it (tests/test_torch_gpu.py)
     for depth in (8, 9):
         jk = JOAKKernel.create(num_dims=10, max_interaction_depth=depth)
-        tk = OAKKernel.create(num_dims=10, max_interaction_depth=depth)
+        tk = OAKKernel.create(num_dims=10, max_interaction_depth=depth, **KW)
         assert og.supports_fused(tk) and ogp.supports_pallas(jk)
 
 
+def test_deep_plain_route_matches_jax():
+    """Depth 12 over 14 dims (past the 8 the kernels once stopped at): the
+    fused op's plain route, K(X, X2) and K(X), against oak_tpu at float64,
+    rel 1e-10."""
+    kw = dict(num_dims=14, max_interaction_depth=12, use_sparsity_prior=True)
+    jk, tk = JOAKKernel.create(**kw), OAKKernel.create(**kw, **KW)
+    jk = _bridge(jk, tk, noise_seed=49)
+    rng = np.random.default_rng(50)
+    X, X2 = rng.normal(size=(15, 14)), rng.normal(size=(9, 14))
+    tX, tX2 = torch.as_tensor(X), torch.as_tensor(X2)
+    _close(og.oak_gram(tk, tX, tX2), jk.K(jnp.asarray(X), jnp.asarray(X2)))
+    _close(og.oak_gram(tk, tX), jk.K(jnp.asarray(X)))
+
+
+@pytest.mark.parametrize("N,M,want", [(512, 8192, 0), (512, 512, 1), (512, 1, 1),
+                                      (8192, 8192, 0), (1000, 77, 1)],
+                         ids=["Kus", "Kuu", "one row", "square", "ragged"])
+def test_pick_tile_covers_the_sms(N, M, want):
+    """The large tile where its grid gives every one of 132 SMs a block, else
+    the small one (the tiles the library reports at depth <= 8)."""
+    assert og.pick_tile(N, M, [(64, 64), (32, 32)], 132) == want
+
+
+def test_clamped_depth():
+    """e_n of D + E grams is 0 past D + E, so the kernels run at most that."""
+    assert og.clamped_depth(3, 32, 0) == 3
+    assert og.clamped_depth(9, 6, 1) == 7
+    assert og.clamped_depth(60, 60, 0) == 60
+    assert og.clamped_depth(5, 0, 0) == 1
+
+
 def test_ctypes_signature_matches_kernel_source():
-    """Each C entry point's parameter list, read from its .cu source, against
-    the argtypes the loader sets (nvcc cannot be asked here); and the
-    backward kernel's tile, which sizes its partial sums in the wrapper."""
+    """Each C entry point's parameter list and return type, read from its .cu
+    source, against the argtypes the loader sets (nvcc cannot be asked
+    here); and the kernels' depth limit, which the wrapper checks before a
+    launch. The tile sizes and the workspace come from the library."""
     assert [p.name for p in _build._sources()] == ["oak_gram_bwd.cu", "oak_gram_fwd.cu"]
     src = "".join(p.read_text() for p in _build._sources())
+    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
     for name, (argtypes, restype) in _build.SIGNATURES.items():
-        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        m = re.search(r'extern "C" (int|long long) ' + name + r"\(([^)]*)\)", src)
         assert m is not None, name
-        params = [p.strip() for p in m.group(1).split(",")]
-        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        params = [p.strip() for p in m.group(2).split(",")]
+        want = [ctypes.POINTER(ctypes.c_int) if p.startswith("int*") else
+                ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
         assert argtypes == want, name
-        assert restype is ctypes.c_int
-    assert set(_build.SIGNATURES) == set(re.findall(r'extern "C" int (\w+)\(', src))
-    bwd = (_build.CSRC_DIR / "oak_gram_bwd.cu").read_text()
-    assert f"constexpr int kTileN = {og.BWD_TILE_N};" in bwd
-    assert f"constexpr int kTileM = {og.BWD_TILE_M};" in bwd
+        assert restype is ctype[m.group(1)], name
+    assert set(_build.SIGNATURES) == set(re.findall(r'extern "C" (?:int|long long) (\w+)\(', src))
+    common = (_build.CSRC_DIR / "oak_gram_common.cuh").read_text()
+    assert f"constexpr int kMaxDepth = {og.MAX_DEPTH};" in common
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -232,6 +271,61 @@ def test_bwd_plain_matches_autograd(E, depth):
                               allow_unused=True, materialize_grads=True)
     ours = og.oak_gram_bwd_plain(*[t.detach() for t in args], gbar, depth)
     for name, o, r in zip(_NAMES, ours, ref):
+        assert o.shape == r.shape, name
+        if r.numel():
+            _close(o, r.numpy())
+
+
+def _kernel_arithmetic(u1, u2, c1, c2, extra, logb, sig2, gbar, depth):
+    """The CUDA kernels' arithmetic, written out in float64 torch: e_1..e_P
+    by the product expansion e_k += g e_{k-1} at the depth clamped to the
+    number of grams, and each gram's cotangent T = gbar W(g) as the
+    polynomial sum_m a_m (-g)^m, a_m = gbar sum_{n=m+1..P} sig2[n] e_{n-1-m}
+    (csrc/oak_gram_common.cuh, csrc/oak_gram_bwd.cu). Returns the gram and
+    (du1, du2, dc1, dc2, dextra, dlogb, dsig2)."""
+    D = u1.shape[0]
+    bEs = [torch.exp(logb[d] - (u1[d, :, None] - u2[d, None, :]) ** 2) for d in range(D)]
+    grams = [bEs[d] - c1[d, :, None] * c2[d, None, :] for d in range(D)] + list(extra)
+    P = og.clamped_depth(depth, D, extra.shape[0])
+    e = [torch.ones_like(gbar)] + [torch.zeros_like(gbar) for _ in range(P)]
+    for g in grams:
+        for k in range(P, 0, -1):
+            e[k] = e[k] + g * e[k - 1]
+    out = sum(sig2[n] * e[n] for n in range(P + 1))
+    a = [gbar * sum(sig2[n] * e[n - 1 - m] for n in range(m + 1, P + 1)) for m in range(P)]
+
+    def T_of(g):
+        t = a[P - 1]
+        for m in range(P - 2, -1, -1):
+            t = t * -g + a[m]
+        return t
+
+    Ts = [T_of(g) for g in grams]
+    du = [u1[d, :, None] - u2[d, None, :] for d in range(D)]
+    dsig2 = torch.stack([torch.sum(gbar * e[n]) if n <= P else torch.zeros(())
+                         for n in range(depth + 1)])
+    return out, (torch.stack([-2.0 * (Ts[d] * bEs[d] * du[d]).sum(1) for d in range(D)]),
+                 torch.stack([2.0 * (Ts[d] * bEs[d] * du[d]).sum(0) for d in range(D)]),
+                 torch.stack([-(Ts[d] * c2[d, None, :]).sum(1) for d in range(D)]),
+                 torch.stack([-(Ts[d] * c1[d, :, None]).sum(0) for d in range(D)]),
+                 torch.stack(Ts[D:]) if extra.shape[0] else torch.zeros_like(extra),
+                 torch.stack([(Ts[d] * bEs[d]).sum() for d in range(D)]), dsig2)
+
+
+@pytest.mark.parametrize("D,E,depth", [(5, 0, 3), (4, 2, 3), (5, 1, 9)],
+                         ids=["rbf", "mixed", "deep clamped"])
+def test_kernel_arithmetic_matches_jax(D, E, depth):
+    """What the CUDA kernels compute, in float64 on the CPU: the gram
+    against oak_tpu's XLA reference and every cotangent against the plain
+    backward (itself held to autograd and oak_tpu above), rel 1e-10; depth
+    9 over 6 grams runs clamped to 6."""
+    rng = np.random.default_rng(78 + D + E)
+    a = _prescaled(rng, D=D, N=11, M=9, E=E, depth=depth)
+    args = _torch_args(a)
+    gbar = torch.as_tensor(rng.normal(size=(11, 9)))
+    out, grads = _kernel_arithmetic(*args, gbar, depth)
+    _close(out, ogp._xla_gram_from_prep(*_jax_args(a), depth))
+    for name, o, r in zip(_NAMES, grads, og.oak_gram_bwd_plain(*args, gbar, depth)):
         assert o.shape == r.shape, name
         if r.numel():
             _close(o, r.numpy())

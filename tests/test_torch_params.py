@@ -16,11 +16,16 @@ from oak_tpu.models import SVGP as JSVGP
 from oak_tpu.models import Gaussian as JGaussian
 from oak_tpu_torch import bijectors as tb
 from oak_tpu_torch import checkpoint as tckpt
+from oak_tpu_torch import config
 from oak_tpu_torch import params as tp
 from oak_tpu_torch.kernels import OAKKernel
 from oak_tpu_torch.models import SVGP, Gaussian
 
 REL = 1e-10  # f64: both packages evaluate the same formulas
+
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
 
 
 def _close(a, b, rel=REL):
@@ -74,14 +79,30 @@ def test_gamma_sparsity_prior_finite_at_zero():
     assert torch.isfinite(tp.Gamma(1.0, 0.2).log_prob(torch.zeros(3, dtype=torch.float64))).all()
 
 
+def test_defaults_resolve_to_the_card_in_float32():
+    """None resolves to float32 on CUDA, as oak_tpu builds in float32 on its
+    chip; an explicit CPU and dtype are kept; a built module lends its own.
+    Resolving touches no card. Without one, building on the default device
+    raises instead of falling back to the CPU."""
+    assert config.resolve() == (torch.float32, torch.device("cuda"))
+    assert config.resolve(torch.float64, "cpu") == (torch.float64, torch.device("cpu"))
+    assert config.resolve(None, "cpu") == (torch.float32, torch.device("cpu"))
+    f = tp.fixed(3.0, **KW)
+    assert config.like(f) == (torch.float64, torch.device("cpu"))
+    assert config.like(f, dtype=torch.float32) == (torch.float32, torch.device("cpu"))
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tp.positive(1.0)
+
+
 def test_param_factories_and_prior_density():
-    ls = tp.bounded(1e-3, 1e3, 2.5)
+    ls = tp.bounded(1e-3, 1e3, 2.5, **KW)
     assert abs(float(ls.value.detach()) - 2.5) < 1e-12
-    v = tp.positive([0.5, 1.5], prior=tp.Gamma(2.0, 1.0))
+    v = tp.positive([0.5, 1.5], prior=tp.Gamma(2.0, 1.0), **KW)
     _close(v.value.detach().numpy(), [0.5, 1.5])
     jv = jp.positive(jnp.asarray([0.5, 1.5]), prior=jp.Gamma(2.0, 1.0))
     _close(v.log_prior_density().detach().numpy(), jv.log_prior_density())
-    f = tp.fixed(3.0)
+    f = tp.fixed(3.0, **KW)
     assert not f.trainable and not f.raw.requires_grad
     assert float(f.log_prior_density()) == 0.0
     v.assign([2.0, 3.0])
@@ -104,8 +125,8 @@ def _models(q_diag=True):
     jm = JSVGP.create(jk, JGaussian.create(0.05, dtype=jnp.float64), Z,
                       num_data=N, q_diag=q_diag, dtype=jnp.float64)
     tk = OAKKernel.create(num_dims=D, max_interaction_depth=DEPTH,
-                          use_sparsity_prior=True, lengthscale_bounds=[1e-3, 1e3])
-    tm = SVGP.create(tk, Gaussian.create(0.05), Z, num_data=N, q_diag=q_diag)
+                          use_sparsity_prior=True, lengthscale_bounds=[1e-3, 1e3], **KW)
+    tm = SVGP.create(tk, Gaussian.create(0.05, **KW), Z, num_data=N, q_diag=q_diag)
     return jm, tm
 
 

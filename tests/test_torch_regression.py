@@ -34,6 +34,10 @@ from tests.test_torch_svgp import _close, _data, _kernel_kwargs, _model_pair
 
 REL = 1e-8
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def regression_pair(tmp_path, kind, mixed=False, trainable_Z=False, outputs=1,
                     seed=71):
@@ -46,8 +50,8 @@ def regression_pair(tmp_path, kind, mixed=False, trainable_Z=False, outputs=1,
     jkw, tkw = dict(kw), dict(kw)
     if mog is not None:
         jkw["gmm_measures"] = [None] * 4 + [jmeas.MOGMeasure.create(*mog)]
-        tkw["gmm_measures"] = [None] * 4 + [tmeas.MOGMeasure.create(*mog)]
-    jk, tk = JOAKKernel.create(**jkw, dtype=jnp.float64), OAKKernel.create(**tkw)
+        tkw["gmm_measures"] = [None] * 4 + [tmeas.MOGMeasure.create(*mog, **KW)]
+    jk, tk = JOAKKernel.create(**jkw, dtype=jnp.float64), OAKKernel.create(**tkw, **KW)
     if kind == "gpr":
         jm = JGPR.create(X, Y, jk, noise_variance=0.05)
         tm = GPR.create(X, Y, tk, noise_variance=0.05)
@@ -182,8 +186,9 @@ def test_port_sgpr_bound_capped_under_perturbation():
     rng = np.random.default_rng(73)
     X = rng.normal(size=(40, 3))
     Y = (np.sin(X[:, 0]) + 0.5 * X[:, 1] ** 2 + 0.1 * rng.normal(size=40))[:, None]
-    kern = OAKKernel.create(num_dims=3, max_interaction_depth=2, dtype=torch.float32)
-    m = SGPR.create(X, Y, kern, X[:12], noise_variance=0.01, dtype=torch.float32)
+    kern = OAKKernel.create(num_dims=3, max_interaction_depth=2, dtype=torch.float32,
+                            device="cpu")
+    m = SGPR.create(X, Y, kern, X[:12], noise_variance=0.01)
     vec0 = tp.flatten_trainable(m).detach().clone()
     finite = 0
     for scale, seed in ((0.3, 0), (3.0, 1), (10.0, 2), (30.0, 3)):

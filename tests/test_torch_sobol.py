@@ -38,6 +38,10 @@ from tests.test_torch_svgp import _close, _model_pair
 L_REL = 1e-10
 SOBOL_REL = 1e-9
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close_max(a, b, rel):
     """|a - b| <= rel · max |b|, elementwise."""
@@ -151,7 +155,7 @@ def _routings(jks, tks):
     """``_factor_routing`` of an OAKKernel over the given constituent
     kernels: (the port's, oak_tpu's)."""
     jbase = JOAKKernel.create(num_dims=len(jks), dtype=jnp.float64)
-    tbase = OAKKernel.create(num_dims=len(tks))
+    tbase = OAKKernel.create(num_dims=len(tks), **KW)
     return (sb._factor_routing(OAKKernel(tks, list(tbase.variances))),
             jsb._factor_routing(jbase.replace(kernels=tuple(jks))))
 
@@ -165,7 +169,7 @@ def mixed_kernels(tmp_path_factory):
                                                             tm.kernel.kernels)]
     ju = JOrthogonalRBF.create(jmeas.UniformMeasure.create(-1.0, 2.0), lengthscale=0.9,
                                variance=1.1, dtype=jnp.float64)
-    tu = OrthogonalRBF.create(tmeas.UniformMeasure.create(-1.0, 2.0), lengthscale=0.9,
+    tu = OrthogonalRBF.create(tmeas.UniformMeasure.create(-1.0, 2.0, **KW), lengthscale=0.9,
                               variance=1.1)
     return pairs + [(ju, tu, np.linspace(-1.5, 2.5, 11))]
 
@@ -200,8 +204,9 @@ def _gaussian_pair(ratio, dtype=torch.float64):
     jdtype = jnp.float64 if dtype == torch.float64 else jnp.float32
     jk = JOrthogonalRBF.create(jmeas.GaussianMeasure.create(MU, DELTA ** 2, dtype=jdtype),
                                lengthscale=ratio * DELTA, variance=1.2, dtype=jdtype)
-    tk = OrthogonalRBF.create(tmeas.GaussianMeasure.create(MU, DELTA ** 2, dtype=dtype),
-                              lengthscale=ratio * DELTA, variance=1.2, dtype=dtype)
+    tk = OrthogonalRBF.create(tmeas.GaussianMeasure.create(MU, DELTA ** 2, dtype=dtype,
+                                                           device="cpu"),
+                              lengthscale=ratio * DELTA, variance=1.2)
     return jk, tk
 
 
@@ -232,9 +237,10 @@ def test_factor_routing_straddling_the_switch_matches_jax(dtype):
     pairs = [_gaussian_pair(r, dtype) for r in RATIOS]
     jdtype = jnp.float64 if dtype == torch.float64 else jnp.float32
     pairs.insert(2, (JOrthogonalBinary.create(0.3, dtype=jdtype),
-                     OrthogonalBinary.create(0.3, dtype=dtype)))
+                     OrthogonalBinary.create(0.3, dtype=dtype, device="cpu")))
     pairs.insert(5, (JOrthogonalCategorical.create([0.2, 0.5, 0.3], dtype=jdtype),
-                     OrthogonalCategorical.create([0.2, 0.5, 0.3], dtype=dtype)))
+                     OrthogonalCategorical.create([0.2, 0.5, 0.3], dtype=dtype,
+                                                   device="cpu")))
     routing, jrouting = _routings([j for j, _ in pairs], [t for _, t in pairs])
     assert routing == jrouting
     expect = [r > 0.5 for r in RATIOS]
@@ -246,7 +252,7 @@ def test_factor_routing_straddling_the_switch_matches_jax(dtype):
 def test_closed_form_loses_f32_where_quadrature_holds():
     """Why the switch: at l = 40 the f32 closed form's relative error is
     above 1e-2, while quadrature stays within 1e-6 of the f64 closed form."""
-    k = OrthogonalRBF.create(tmeas.GaussianMeasure.create(0.0, 1.0), lengthscale=40.0,
+    k = OrthogonalRBF.create(tmeas.GaussianMeasure.create(0.0, 1.0, **KW), lengthscale=40.0,
                              variance=1.0)
     x = torch.linspace(-1.0, 1.0, 5, dtype=torch.float64)
     L64 = sb.compute_L_gaussian(x, 40.0, 1.0, 1.0, 0.0)
@@ -288,7 +294,7 @@ def test_normalize_sobol_matches_jax():
 
 def _gpr_pair(X, Y, **kw):
     return (JGPR.create(X, Y, JOAKKernel.create(**kw, dtype=jnp.float64), noise_variance=0.1),
-            GPR.create(X, Y, OAKKernel.create(**kw), noise_variance=0.1))
+            GPR.create(X, Y, OAKKernel.create(**kw, **KW), noise_variance=0.1))
 
 
 def test_guards_raise_like_jax():
@@ -330,7 +336,7 @@ def test_unknown_measure_routes_to_hadamard_and_raises():
     class _FakeMeasure(nn.Module):
         pass
 
-    oak = OAKKernel.create(num_dims=2, max_interaction_depth=2)
+    oak = OAKKernel.create(num_dims=2, max_interaction_depth=2, **KW)
     assert sb._factor_routing(oak) == (True, True)
     oak.kernels[0].measure = _FakeMeasure()
     assert not sb._has_factor_form(oak.kernels[0])
@@ -349,8 +355,8 @@ def _svgp_pair(tmp_path, q_diag):
     jm = JSVGP.create(JOAKKernel.create(**kw, dtype=jnp.float64),
                       JGaussian.create(0.1, dtype=jnp.float64), X[:8], num_latent=2,
                       q_diag=q_diag, dtype=jnp.float64)
-    tm = SVGP.create(OAKKernel.create(**kw), Gaussian.create(0.1), X[:8], num_latent=2,
-                     q_diag=q_diag)
+    tm = SVGP.create(OAKKernel.create(**kw, **KW), Gaussian.create(0.1, **KW), X[:8],
+                     num_latent=2, q_diag=q_diag)
     path = tmp_path / "latents.npz"
     jckpt.save_params(jm, path)
     with np.load(path) as f:

@@ -33,6 +33,10 @@ PRED_REL = 1e-8
 REL = 1e-10
 N, M, DEPTH = 40, 12, 3
 
+# the port builds on the CUDA card in float32 by default; these tests hold it
+# against oak_tpu at float64 on the CPU
+KW = dict(dtype=torch.float64, device="cpu")
+
 
 def _close(a, b, rel=REL):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -74,11 +78,11 @@ def _model_pair(tmp_path, q_diag=True, whiten=True, mixed=False):
     jkw, tkw = dict(kw), dict(kw)
     if mog is not None:
         jkw["gmm_measures"] = [None] * 4 + [jmeas.MOGMeasure.create(*mog)]
-        tkw["gmm_measures"] = [None] * 4 + [tmeas.MOGMeasure.create(*mog)]
+        tkw["gmm_measures"] = [None] * 4 + [tmeas.MOGMeasure.create(*mog, **KW)]
     jm = JSVGP.create(JOAKKernel.create(**jkw, dtype=jnp.float64),
                       JGaussian.create(0.05, dtype=jnp.float64), Z, num_data=N,
                       q_diag=q_diag, whiten=whiten, dtype=jnp.float64)
-    tm = SVGP.create(OAKKernel.create(**tkw), Gaussian.create(0.05), Z,
+    tm = SVGP.create(OAKKernel.create(**tkw, **KW), Gaussian.create(0.05, **KW), Z,
                      num_data=N, q_diag=q_diag, whiten=whiten)
     path = tmp_path / "svgp.npz"
     jckpt.save_params(jm, path)
@@ -187,7 +191,7 @@ def test_safe_cholesky_escalates_like_jax():
 
 def test_gaussian_likelihood_matches_jax():
     rng = np.random.default_rng(54)
-    tl, jl = Gaussian.create(0.3), JGaussian.create(0.3)
+    tl, jl = Gaussian.create(0.3, **KW), JGaussian.create(0.3)
     f, fvar, y = rng.normal(size=(8, 1)), rng.uniform(-0.01, 1.0, size=(8, 1)), rng.normal(size=(8, 1))
     tf, tfv, ty = (torch.as_tensor(a) for a in (f, fvar, y))
     jf, jfv, jy = (jnp.asarray(a) for a in (f, fvar, y))
