@@ -55,7 +55,24 @@ non-zero before the result line:
    gram K(X) and K2 in training;
 8. defaults and depth: a kernel and an SVGP built with no dtype or device
    are float32 on the card and launch K1 and K2; depth 9 over 10 dims and
-   32 over 32 run through both kernels and agree with the per-dim route.
+   32 over 32 run through both kernels and agree with the per-dim route;
+9. the oak_model user path at the UCI pumadyn configuration's full width
+   (examples/uci/outputs/pumadyn/config.json: depth 8, M = 500, flows, the
+   sparsity prior, L-BFGS; float32, built with no dtype or device) on fold
+   0 of the synthetic stand-in (6553 training rows, 1639 test rows): fit
+   (flows and k-means timed), optimise(max_iters=40, restarts=2) (each lane
+   300 Adam steps, then L-BFGS; a lane finite and the loss below the
+   start's), predict with clipping, NLL and RMSE (below std(y)); a save
+   loaded in float64 on the card, factoring at float32's jitter, agrees at
+   matched parameters (the B1 gate: NLL and the 255 normalised Sobol values
+   within 1e-3; predictions within 1e-3 or, where the same float32 model on
+   the per-dim route is further off, within twice its error); the
+   per-component predictions plus the
+   constant against the mean, within the UCI regression script's float32
+   budget 1e-2 + 2e-2 |mean| per point; a float32 save loads back to
+   bitwise-equal predictions; K1
+   and K2 launched on the path, then both held against their plain versions
+   and timed at its Kuf shape (500 x 6553, D 8, depth 8).
 
 Each phase prints its seconds. Then one JSON line about the kernels, and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
@@ -99,6 +116,10 @@ GPR_N, GPR_D, GPR_DEPTH = 8192, 8, 2  # bench.py --gpr-scale (its second row)
 SOBOL_TOL = 1e-3  # the B1 gate: normalised Sobol values, f32 against f64
 SGPR_STEPS, GPR_STEPS = 20, 10
 COMPONENT_ROWS, SAMPLE_ROWS, SAMPLE_DRAWS = 1024, 256, 16
+# examples/uci/outputs/pumadyn/config.json at full width, on the stand-in
+# data's 8192 rows; 40 L-BFGS iterations after each lane's 300 Adam steps
+PUMA_N, PUMA_D, PUMA_DEPTH, PUMA_M = 8192, 8, 8, 500
+PUMA_ITERS, PUMA_RESTARTS = 40, 2
 
 
 def synth_pumadyn(n=8192, d=32, seed=0):
@@ -291,7 +312,9 @@ def _device_ms(fn, iters=10, rounds=3):
     """Device time per call of the CUDA kernels fn launches, from
     torch.profiler's kernel durations (no host time in it): per profiled
     round, each kernel's mean duration times its launches per call, summed;
-    the median over ``rounds`` rounds, since a round can miss events."""
+    the median over ``rounds`` rounds that recorded kernels. A round can
+    miss every event and read 0, so such rounds are run again, up to
+    3·``rounds`` rounds in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -299,14 +322,19 @@ def _device_ms(fn, iters=10, rounds=3):
     fn()
     torch.cuda.synchronize()
     per_round = []
-    for _ in range(rounds):
+    for _ in range(3 * rounds):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per_round.append(sum(
-            e.self_device_time_total / e.count * max(1, round(e.count / iters))
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count))
+        total = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count)
+        if total > 0:
+            per_round.append(total)
+        if len(per_round) == rounds:
+            break
+    if not per_round:
+        raise RuntimeError(f"torch.profiler recorded no kernel in {3 * rounds} rounds")
     return float(np.median(per_round)) / 1e3
 
 
@@ -899,6 +927,253 @@ def phase_defaults(device):
     print("phase 8 defaults and depth: " + "; ".join(lines))
 
 
+def synthetic_regression(n, d, seed=0):
+    """The UCI scripts' synthetic regression stand-in
+    (examples/uci/datasets.py::_synthetic_regression)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d))
+    w = rng.normal(size=d) / np.sqrt(d)
+    y = X @ w + 0.5 * np.sin(2 * X[:, 0]) + 0.3 * X[:, 1 % d] * X[:, 2 % d]
+    y = y + 0.1 * rng.normal(size=n)
+    return X, y.reshape(-1, 1)
+
+
+def pumadyn_fold0():
+    """The UCI regression script's pumadyn stand-in (8192 x 8), its rows
+    permuted by numpy's seed-0 stream, and fold 0 of an unshuffled 5-way
+    split (scikit-learn's KFold: the first n % 5 folds take one row more):
+    (X_train 6553 x 8, y_train, X_test 1639 x 8, y_test)."""
+    X, y = synthetic_regression(PUMA_N, PUMA_D)
+    perm = np.random.RandomState(0).permutation(PUMA_N)
+    X, y = X[perm], y[perm]
+    n_test = PUMA_N // 5 + (PUMA_N % 5 > 0)
+    return X[n_test:], y[n_test:], X[:n_test], y[:n_test]
+
+
+def _kernels_at(name, args, device):
+    """K1 and K2 at one prescaled shape: each against its plain version
+    under phase 2's and 2b's rules (a repeat K2 launch bitwise equal), then
+    device ms (two profiled series), CUDA events of kernel and plain in
+    turns, bound and share. Returns ({"K1": numbers, "K2": numbers},
+    findings)."""
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.testing import kernel_error
+
+    *inputs, depth = args
+    numbers, text = {}, []
+    with torch.no_grad():
+        out = og.oak_gram_fused(*inputs, depth)
+        ref = og.oak_gram_plain(*inputs, depth)
+        ref64 = og.oak_gram_plain(*[t.double() for t in inputs], depth)
+        ok, _, line = kernel_error(out, ref, ref64, KERNEL_TOL)
+        if not (ok and bool(torch.isfinite(out).all())):
+            raise RuntimeError(f"K1 {name}: {line} over tol {KERNEL_TOL} or non-finite")
+        text.append(f"K1 {line}")
+        k1_err = float((out - ref).abs().max())
+        del out, ref, ref64
+    gbar = torch.as_tensor(np.random.default_rng(98).normal(
+        size=(inputs[0].shape[1], inputs[1].shape[1])), dtype=torch.float32, device=device)
+    ours = og.oak_gram_bwd(*inputs, gbar, depth)
+    if not all(torch.equal(a, b) for a, b in zip(ours, og.oak_gram_bwd(*inputs, gbar, depth))):
+        raise RuntimeError(f"K2 {name}: a repeat launch differs")
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    auto = torch.autograd.grad(og.oak_gram_plain(*leaves, depth), leaves, gbar,
+                               allow_unused=True, materialize_grads=True)
+    plain = og.oak_gram_bwd_plain(*inputs, gbar, depth)
+    plain64 = og.oak_gram_bwd_plain(*[t.double() for t in inputs], gbar.double(), depth)
+    k2_err, errs = 0.0, []
+    for gname, o, a, p, p64 in zip(GRAD_NAMES, ours, auto, plain, plain64):
+        if a.numel() == 0:
+            continue
+        results = [kernel_error(o, r, p64, GRAD_TOL) for r in (a, p)]
+        errs.append(f"{gname} {max(results, key=lambda r: r[1])[2]}")
+        if not (all(ok for ok, _, _ in results) and bool(torch.isfinite(o).all())):
+            raise RuntimeError(f"K2 {name} {gname}: {errs[-1]} over tol {GRAD_TOL}")
+        k2_err = max(k2_err, float((o - a).abs().max()))
+    text.append(f"K2 [{', '.join(errs)}]")
+    del ours, auto, plain, plain64, leaves
+
+    fns = {"K1": (lambda: og.oak_gram_fused(*inputs, depth),
+                  lambda: og.oak_gram_plain(*inputs, depth)),
+           "K2": (lambda: og.oak_gram_bwd(*inputs, gbar, depth),
+                  lambda: og.oak_gram_bwd_plain(*inputs, gbar, depth))}
+    for kind, (kernel, plain_fn) in fns.items():
+        with torch.no_grad():
+            dev = [_device_ms(kernel) for _ in range(2)]
+            ev = _turns({"plain": plain_fn, "kernel": kernel},
+                        lambda fn: _cuda_ms(fn, TIMING_ITERS))
+        row, nums = _table_row(name, kind, args, dev, None, float(np.mean(ev["kernel"])),
+                               float(np.mean(ev["plain"])))
+        numbers[kind] = nums | dict(max_abs_err=k1_err if kind == "K1" else k2_err)
+        text.append(row)
+    return numbers, text
+
+
+def phase_oak_model(device):
+    """The oak_model user path at the UCI pumadyn configuration's full width
+    (examples/uci/outputs/pumadyn/config.json: depth 8, 500 inducing points,
+    flows, the sparsity prior, L-BFGS), float32 on the card, on fold 0 of
+    the synthetic stand-in: fit (flows, k-means, SGPR), optimise with two
+    restarts, predict, NLL and RMSE, a save loaded back in float64 on the
+    card (the B1 gate at matched parameters and jitter: predictions, NLL
+    and the 255 normalised Sobol values, predictions also against float32's
+    own error on the per-dim route), the per-component predictions against the
+    mean (the UCI regression script's float32 budget), and a float32 save
+    loaded back to bitwise-equal predictions. Each part prints its line. The
+    launch counts cover exactly that path; then K1 and K2 at its Kuf
+    shape against their plain versions."""
+    from oak_tpu_torch import config, load_oak_model, oak_model, save_oak_model
+    from oak_tpu_torch.models import SGPR
+    from oak_tpu_torch.ops import oak_gram as og
+
+    Xtr, ytr, Xte, yte = pumadyn_fold0()
+    out_dir = REPO / "chiprun_out" / "phase9"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    secs = {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return result
+
+    print(f"phase 9 oak_model, UCI pumadyn configuration (N {len(Xtr)} + {len(Xte)}, D "
+          f"{PUMA_D}, depth {PUMA_DEPTH}, M {PUMA_M}, float32)")
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    oak = oak_model(max_interaction_depth=PUMA_DEPTH, num_inducing=PUMA_M,
+                    lengthscale_bounds=[1e-3, 1e3], use_sparsity_prior=True,
+                    use_normalising_flow=True, optimizer="lbfgs")
+    part("fit", lambda: oak.fit(Xtr, ytr, optimise=False))
+    kinds = {(t.dtype, t.device.type) for t in oak.m.parameters()}
+    if not (isinstance(oak.m, SGPR) and tuple(oak.m.Z.value.shape) == (PUMA_M, PUMA_D)
+            and kinds == {(torch.float32, "cuda")}):
+        raise RuntimeError(f"pumadyn fit built {type(oak.m).__name__} with Z "
+                           f"{tuple(oak.m.Z.value.shape)} holding {kinds}")
+    with torch.no_grad():
+        start = float(oak.m.training_loss())
+    print(f"phase 9.1 fit {secs['fit']:.3f} s (flows {oak.timings['flows']:.3f} s, k-means "
+          f"{oak.timings['kmeans']:.3f} s); training loss at the start {start:.6g}")
+    res = part("optimise", lambda: oak.optimise(max_iters=PUMA_ITERS, restarts=PUMA_RESTARTS))
+    lanes = res.losses.numpy()
+    print(f"phase 9.2 optimise(max_iters={PUMA_ITERS}, restarts={PUMA_RESTARTS}) "
+          f"{secs['optimise']:.3f} s: lane losses {', '.join(f'{v:.6g}' for v in lanes)}, "
+          f"returned {res.fun:.6g} after {res.num_iters} L-BFGS iterations")
+    if not (np.isfinite(lanes).any() and res.fun < start):
+        raise RuntimeError(f"pumadyn optimise: lanes {lanes}, returned {res.fun} against "
+                           f"the start's {start}")
+
+    pred = part("predict", lambda: oak.predict(Xte, clip=True))
+    nll = part("get_loglik", lambda: -oak.get_loglik(Xte, yte, clip=True))
+    rmse, std = float(np.sqrt(np.mean((pred - yte[:, 0]) ** 2))), float(yte.std())
+    sobol = part("get_sobol", oak.get_sobol)
+    print(f"phase 9.3 predict {len(Xte)} rows {secs['predict']:.3f} s, get_loglik "
+          f"{secs['get_loglik']:.3f} s, get_sobol {secs['get_sobol']:.3f} s: test rmse "
+          f"{rmse:.6g} (std {std:.6g}), nll {nll:.6g}, {len(sobol)} Sobol values")
+    if not (np.isfinite(pred).all() and np.isfinite(nll) and rmse < std
+            and len(sobol) == 2 ** PUMA_D - 1):
+        raise RuntimeError(f"pumadyn test: rmse {rmse} (std {std}), nll {nll}, "
+                           f"{len(sobol)} Sobol values")
+
+    path = out_dir / "pumadyn_f32.npz"
+    part("save", lambda: save_oak_model(oak, path))
+    oak64 = part("load_f64", lambda: load_oak_model(path, dtype=torch.float64))
+
+    def outputs(model):
+        return (model.predict(Xte, clip=True), model.get_loglik(Xte, yte, clip=True),
+                model.get_sobol())
+
+    def b1_errors(ours, ref):
+        """Predictions (relative to max |ref|), |NLL difference| and max
+        |normalised Sobol difference|."""
+        return (rel_err(ours[0], ref[0]), abs(ours[1] - ref[1]),
+                float(np.abs(ours[2] - ref[2]).max()))
+
+    # Matched parameters include the jitter, a constant of the model that
+    # differs by dtype (1e-5 of Kuu's mean diagonal in float32, 1e-6 in
+    # float64): Kuu's smallest eigenvalues lie below both, so the jitter
+    # alone moves the float64 model by more than the gate. The float64
+    # reference therefore factors at float32's jitter; its own jitter's
+    # numbers are printed beside. Predictions pass within 1e-3, or within
+    # twice the error of the same float32 model on the per-dim route (no
+    # kernel), the drift rule of oak_tpu_torch.testing.kernel_error; NLL and
+    # the Sobol values, bench.py's B1 quantities, within 1e-3.
+    kernels, own = outputs(oak), outputs(oak64)
+    f64_jitter = config.DEFAULT_JITTER_F64
+    config.DEFAULT_JITTER_F64 = config.DEFAULT_JITTER_F32
+    try:
+        ref = outputs(oak64)
+    finally:
+        config.DEFAULT_JITTER_F64 = f64_jitter
+    errs = b1_errors(kernels, ref)
+    supports_fused = og.supports_fused
+    og.supports_fused = lambda kernel: False
+    try:
+        plain = b1_errors(outputs(oak), ref)
+    finally:
+        og.supports_fused = supports_fused
+    print(f"phase 9.4 save {secs['save']:.3f} s, load in float64 on the card "
+          f"{secs['load_f64']:.3f} s; B1 at matched parameters (f64 at f32's jitter), f32 "
+          f"through the kernels vs f64: predictions {errs[0]:.2e} of max |f64| (tol "
+          f"{E2E_TOL}, or twice the f32 per-dim route's), nll |diff| {errs[1]:.2e} (tol "
+          f"{E2E_TOL}), {len(sobol)} normalised Sobol values max |diff| {errs[2]:.2e} (tol "
+          f"{SOBOL_TOL}); the f32 per-dim route vs f64: "
+          + ", ".join(f"{e:.2e}" for e in plain)
+          + "; the kernels vs f64 at its own jitter: "
+          + ", ".join(f"{e:.2e}" for e in b1_errors(kernels, own))
+          + "; f64 at f32's jitter vs f64 at its own (the jitter alone): "
+          + ", ".join(f"{e:.2e}" for e in b1_errors(ref, own)))
+    if not ((errs[0] < E2E_TOL or errs[0] <= 2.0 * plain[0]) and errs[1] < E2E_TOL
+            and errs[2] < SOBOL_TOL):
+        raise RuntimeError(f"pumadyn B1 gate: predictions {errs[0]:.3e}, nll {errs[1]:.3e}, "
+                           f"Sobol {errs[2]:.3e}")
+
+    comps = part("components", lambda: oak.get_prediction_components(Xte, clip=True))
+    with torch.no_grad():
+        const = float(oak.m.posterior_alpha()[:, 0].sum() * oak.m.kernel.variances[0].value)
+        mean = oak.m.predict_f(oak._tensor(oak._scaled_input(Xte, True)))[0][:, 0]
+    mean = mean.cpu().numpy().astype(np.float64)
+    # the components run through alpha = L⁻ᵀ LB⁻ᵀ c, the mean through
+    # (LB⁻¹ L⁻¹ Kus)ᵀ c; at this configuration's conditioning float32 holds
+    # the identity to the UCI regression script's own budget for it
+    # (examples/uci/uci_regression_train.py:140-153: 1e-2 + 2e-2 |mean| per
+    # point), not to 1e-3, which is printed beside it
+    diff = np.abs(comps.sum(0) + const - mean)
+    ident = float(diff.max() / np.abs(mean).max())
+    print(f"phase 9.5 components {secs['components']:.3f} s: {comps.shape[0]} x "
+          f"{comps.shape[1]}, + constant vs the mean {ident:.2e} of max |mean| (1e-3), "
+          f"max |diff| {diff.max():.2e} against the budget 1e-2 + 2e-2 |mean|")
+    if not (comps.shape == (len(sobol), len(Xte)) and (diff <= 1e-2 + 2e-2 * np.abs(mean)).all()):
+        raise RuntimeError(f"pumadyn components: shape {comps.shape}, sum-to-mean {ident:.3e}")
+    again = part("load_f32", lambda: load_oak_model(path))
+    if not np.array_equal(again.predict(Xte, clip=True), pred):
+        raise RuntimeError("pumadyn: a float32 save loaded back predicts differently")
+    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    print(f"phase 9.6 float32 save loaded back in {secs['load_f32']:.3f} s predicts bitwise "
+          f"equal; launches over the path: K1 {launches['fwd']}, K2 {launches['bwd']}")
+    if launches["fwd"] == 0 or launches["bwd"] == 0:
+        raise RuntimeError(f"the oak_model path launched K1 {launches['fwd']} and K2 "
+                           f"{launches['bwd']} times")
+    path.unlink()
+
+    # why f32 misses 1e-3 here: Kuu's conditioning against its rounding
+    with torch.no_grad():
+        Kuu64 = oak64.m.kernel.K(oak64.m.Z.value)
+        Kuu_rounding = float((oak.m.kernel.K(oak.m.Z.value).double() - Kuu64).abs().max())
+        eig_min = float(torch.linalg.eigvalsh(Kuu64)[0])
+        mean_diag = float(Kuu64.diagonal().mean())
+        args = tuple(t.detach().contiguous() for t in og._prep(
+            oak.m.kernel, oak.m.Z.value, oak.m.X)) + (PUMA_DEPTH,)
+    name = f"Kuf {PUMA_M}x{len(Xtr)}"
+    numbers, text = _kernels_at(name, args, device)
+    print(f"phase 9.7 Kuu in f64: smallest eigenvalue {eig_min:.3g}, mean diagonal "
+          f"{mean_diag:.4g}; max |Kuu through K1 - f64| {Kuu_rounding:.2e}; kernels at {name}, "
+          f"depth {PUMA_DEPTH}, vs plain: " + "; ".join(text[:2])
+          + "\n" + "\n".join(text[2:]))
+    return launches, numbers
+
+
 def _host_ms(fn, repeats):
     """Median host-clock ms of fn() with the card synchronized on both ends."""
     times = []
@@ -1078,7 +1353,7 @@ def profile_sobol(model, device, repeats=5):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-8, print where a warm predict_y "
+                        help="instead of phases 2-9, print where a warm predict_y "
                              "request's, a warm training step's and a full Sobol "
                              "decomposition's time goes (host clock and torch.profiler)")
     parser.add_argument("--old", metavar="DIR",
@@ -1118,29 +1393,35 @@ def main():
     sgpr_launches = timed("6", phase_sgpr, device)
     gpr_launches = timed("7", phase_gpr, device)
     timed("8", phase_defaults, device)
+    oak_launches, oak_kernels = timed("9", phase_oak_model, device)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, source, replaces, launches, numbers):
+    def entry(name, source, replaces, launches, numbers, depth8):
         # at Kus / Kuf: ms is the CUDA-event time over 20 launches, device_ms
         # torch.profiler's kernel time per launch, plain_ms the plain version's
-        # CUDA-event time; no PyTorch call computes the fused gram
+        # CUDA-event time; no PyTorch call computes the fused gram. The same
+        # numbers at phase 9's depth-8 Kuf under "kuf_depth8"
         n = numbers["Kus/Kuf 512x8192"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": n["max_abs_err"], "ms": n["event_ms"],
                 "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
-                "library_ms": None, "old_device_ms": n["old_device_ms"]}
+                "library_ms": None, "old_device_ms": n["old_device_ms"],
+                "kuf_depth8": {k: depth8[k] for k in ("max_abs_err", "event_ms", "device_ms",
+                                                      "plain_ms", "bound_ms", "bound_by",
+                                                      "share")}}
 
     print(json.dumps({"kernels": [
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:63",
               predict_launches + train_launches["fwd"] + sobol_launches
-              + sgpr_launches["fwd"] + gpr_launches["fwd"], kernel),
+              + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"], kernel,
+              oak_kernels["K1"]),
         entry("oak_gram_bwd_f32", "oak_tpu_torch/csrc/oak_gram_bwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:158",
-              train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"],
-              kernel_bwd)]}))
+              train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"]
+              + oak_launches["bwd"], kernel_bwd, oak_kernels["K2"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

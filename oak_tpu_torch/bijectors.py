@@ -1,12 +1,14 @@
 """1-D bijectors for parameter transforms.
 
-Same forward and inverse formulas as ``oak_tpu.bijectors``; each bijector is a
-frozen dataclass holding only Python floats, applied to torch tensors.
+Same forward, inverse and log-det-Jacobian formulas as ``oak_tpu.bijectors``;
+each bijector is a frozen dataclass holding only Python floats, applied to
+torch tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -25,6 +27,10 @@ class Bijector:
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def forward_log_det_jacobian(self, x: torch.Tensor) -> torch.Tensor:
+        """log |dy/dx| at x, elementwise."""
+        raise NotImplementedError
+
 
 @dataclasses.dataclass(frozen=True)
 class Identity(Bijector):
@@ -33,6 +39,9 @@ class Identity(Bijector):
 
     def inverse(self, y):
         return y
+
+    def forward_log_det_jacobian(self, x):
+        return torch.zeros_like(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +58,9 @@ class Softplus(Bijector):
         z = y - self.low
         return z + torch.log(-torch.expm1(-z))
 
+    def forward_log_det_jacobian(self, x):
+        return -_softplus(-x)
+
 
 @dataclasses.dataclass(frozen=True)
 class Exp(Bijector):
@@ -57,6 +69,9 @@ class Exp(Bijector):
 
     def inverse(self, y):
         return torch.log(y)
+
+    def forward_log_det_jacobian(self, x):
+        return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +87,6 @@ class Sigmoid(Bijector):
     def inverse(self, y):
         z = (y - self.low) / (self.high - self.low)
         return torch.log(z) - torch.log1p(-z)
+
+    def forward_log_det_jacobian(self, x):
+        return math.log(self.high - self.low) - _softplus(-x) - _softplus(x)

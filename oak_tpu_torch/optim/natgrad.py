@@ -27,7 +27,7 @@ import torch
 
 from ..ops.psd import chol_of_inv, cholesky_lower, tri_inv_lower
 from ..params import assign_trainable, call_with, unflatten_trainable
-from .fit import FitResult, _leaf, _stack, adam, finite_or_zero
+from .fit import FitResult, _leaf, _stack, adam, finite_or_zero, scan_checkpoint_driver
 
 _VAR_FLOOR = 1e-10
 _Q = ("q_mu", "q_sqrt")
@@ -197,3 +197,30 @@ def fit_natgrad_adam(model, loss_fn: Callable, steps: int = 200,
     fun = float(losses[-1]) if losses else float("inf")
     return FitResult(model=model, fun=fun, num_iters=steps,
                      success=bool(np.isfinite(fun)), losses=_stack(losses, vec))
+
+
+def fit_natgrad_scan(model, loss_fn: Callable, steps: int = 200, gamma: float = 0.1,
+                     hyper_lr: float = 1e-2, batch_args=None, checkpoint_path=None,
+                     checkpoint_every: int = 0, resume: bool = True,
+                     staggered: bool = False) -> FitResult:
+    """``oak_tpu``'s device-resident ``fit_natgrad_adam`` (one ``lax.scan``)
+    as a loop over ``natgrad_adam_step`` with ``scan_checkpoint_driver``'s
+    chunks: the state is (trainable vector, Adam's state, step), so a run
+    resumed from ``checkpoint_path`` replays the uninterrupted trajectory.
+    ``batch_args``: tensors with leading dimension ``steps``; step i calls
+    ``loss_fn(model, *[a[i] for a in batch_args])``. Returns the last
+    iterate and the last step's loss."""
+    warn_if_q_diag(model)
+    vec = _leaf(model)
+    opt = adam(vec, hyper_lr)
+    step = natgrad_adam_step(opt, vec, model, loss_fn, gamma, staggered=staggered)
+    v, start, ran = scan_checkpoint_driver(step, opt, vec, steps, batch_args,
+                                           checkpoint_path, checkpoint_every, resume)
+    assign_trainable(model, vec.detach())
+    if not ran:
+        return FitResult(model=model, fun=float("nan"), num_iters=0, success=True,
+                         message=f"checkpoint at step {start} >= steps={steps};"
+                                 " nothing to run")
+    v = float(v)
+    return FitResult(model=model, fun=v, num_iters=steps - start,
+                     success=bool(np.isfinite(v)))

@@ -252,3 +252,84 @@ def test_sobol_f32_on_card_matches_f64_cpu(cuda):
     _, v64 = sb.compute_sobol_oak(m.to(device="cpu", dtype=torch.float64))
     err = np.abs(sb.normalize_sobol(v32) - sb.normalize_sobol(v64)).max()
     assert err < 1e-3, err
+
+
+def _oak_data(n=300, seed=73):
+    """Skewed positive columns (the flows fit on the card) and a smooth
+    target with one interaction."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.lognormal(0.0, 0.5, n), rng.normal(size=n), rng.gamma(3.0, 1.0, n)], 1)
+    y = np.sin(X[:, 1]) + 0.3 * np.log(X[:, 0]) * X[:, 2] + 0.1 * rng.normal(size=n)
+    return X, y
+
+
+@pytest.fixture(scope="module")
+def oak_on_card():
+    """A default-built oak_model (float32 on the card) after fit(optimise=
+    False) and 40 L-BFGS iterations: (model, X, y, loss at the start, fit
+    result, K1 and K2 launches of the fit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oak_tpu_torch import oak_model
+
+    X, y = _oak_data()
+    before = (og.LAUNCHES, og.BWD_LAUNCHES)
+    oak = oak_model(max_interaction_depth=2).fit(X, y, optimise=False)
+    with torch.no_grad():
+        start = float(oak.m.training_loss())
+    res = oak.optimise(max_iters=40)
+    torch.cuda.synchronize()
+    launches = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+    return oak, X, y, start, res, launches
+
+
+def test_oak_model_fits_on_the_card_through_both_kernels(cuda, oak_on_card):
+    """The default build is float32 on the card; its flows, L-BFGS and
+    predictions run there, and the fit launched K1 and K2."""
+    oak, X, _, start, res, launches = oak_on_card
+    assert {(p.dtype, p.device.type) for p in oak.m.parameters()} == \
+        {(torch.float32, "cuda")}
+    assert launches[0] > 0 and launches[1] > 0
+    assert np.isfinite(res.fun) and res.fun < start
+    pred = oak.predict(X[:50])
+    assert pred.shape == (50,) and np.isfinite(pred).all()
+
+
+def test_load_oak_model_round_trips_on_the_card(cuda, oak_on_card, tmp_path):
+    """A float32 save loads back on the card to bitwise-equal predictions;
+    a float64 load on the card agrees within 1e-3 (predictions, NLL,
+    normalised Sobol)."""
+    from oak_tpu_torch import load_oak_model
+
+    oak, X, y, _, _, _ = oak_on_card
+    pred = oak.predict(X[:50])
+    path = tmp_path / "oak_f32.npz"
+    oak.save(path)
+    again = load_oak_model(path)
+    assert {(p.dtype, p.device.type) for p in again.m.parameters()} == \
+        {(torch.float32, "cuda")}
+    assert np.array_equal(again.predict(X[:50]), pred)
+    oak64 = load_oak_model(path, dtype=torch.float64)
+    assert {(p.dtype, p.device.type) for p in oak64.m.parameters()} == \
+        {(torch.float64, "cuda")}
+    assert np.abs(oak64.predict(X[:50]) - pred).max() < 1e-3 * np.abs(pred).max()
+    assert abs(oak64.get_loglik(X[:50], y[:50]) - oak.get_loglik(X[:50], y[:50])) < 1e-3
+    assert np.abs(oak64.get_sobol() - oak.get_sobol()).max() < 1e-3
+
+
+def test_fit_lbfgs_on_the_card_reaches_the_cpu_f64_loss(cuda):
+    """The port's L-BFGS on a float32 GPR on the card (K1 and K2 in every
+    evaluation) ends within 1e-3 relative of the loss it reaches in float64
+    on the CPU from the same start."""
+    from oak_tpu_torch.models import GPR
+    from oak_tpu_torch.optim import fit_lbfgs
+
+    X, y = _oak_data(seed=74)
+    Xs = (X - X.mean(0)) / X.std(0)
+    fits = {}
+    for dtype, device in ((torch.float32, cuda), (torch.float64, torch.device("cpu"))):
+        k = OAKKernel.create(num_dims=3, max_interaction_depth=2, dtype=dtype, device=device)
+        m = GPR.create(Xs, (y - y.mean()) / y.std(), k, noise_variance=0.05)
+        fits[dtype] = fit_lbfgs(m, lambda m: m.training_loss(), max_iters=200)
+    f32, f64 = fits[torch.float32].fun, fits[torch.float64].fun
+    assert np.isfinite(f32) and abs(f32 - f64) < 1e-3 * abs(f64), (f32, f64)

@@ -138,6 +138,37 @@ def test_fit_natgrad_adam_matches_jax(tmp_path):
         tng.warn_if_q_diag(tm)
 
 
+def test_fit_natgrad_scan_matches_jax_and_resumes(tmp_path):
+    """fit_natgrad_scan on a minibatch index stream: oak_tpu's losses and
+    raws after 4 steps; a run checkpointed at step 2 and resumed equals the
+    uninterrupted one exactly."""
+    jm, tm, X, Y = _pair(tmp_path, q_diag=False, seed=98)
+    idx = np.random.default_rng(3).integers(0, N, size=(4, 16))
+    tX, tY, jX, jY = torch.as_tensor(X), torch.as_tensor(Y), jnp.asarray(X), jnp.asarray(Y)
+    kw = dict(steps=4, gamma=0.2)
+    jres = jng.fit_natgrad_scan(jm, lambda m, i: m.training_loss(jX[i], jY[i]),
+                                batch_args=(jnp.asarray(idx),), **kw)
+
+    def loss(m, i):
+        return m.training_loss(tX[i], tY[i])
+
+    start = tp.flatten_trainable(tm).detach().clone()
+    res = tng.fit_natgrad_scan(tm, loss, batch_args=(torch.as_tensor(idx),), **kw)
+    assert res.model is tm and res.success and res.num_iters == 4
+    assert res.fun == pytest.approx(jres.fun, rel=REL)
+    _close(tp.flatten_trainable(tm), jp.flatten_trainable(jres.model)[0])
+
+    path = tmp_path / "natgrad_state.npz"
+    tp.assign_trainable(tm, start)
+    tng.fit_natgrad_scan(tm, loss, batch_args=(torch.as_tensor(idx[:2]),), steps=2,
+                         gamma=0.2, checkpoint_path=path, checkpoint_every=1)
+    tp.assign_trainable(tm, start)
+    resumed = tng.fit_natgrad_scan(tm, loss, batch_args=(torch.as_tensor(idx),),
+                                   checkpoint_path=path, checkpoint_every=1, **kw)
+    assert resumed.num_iters == 2 and resumed.fun == res.fun
+    _close(tp.flatten_trainable(tm), jp.flatten_trainable(jres.model)[0])
+
+
 def test_diag_step_rejects_overshoot_elementwise():
     """A step that would make θ2 non-negative keeps that entry's q."""
     q_mu = torch.tensor([[0.5], [1.0]], dtype=torch.float64)

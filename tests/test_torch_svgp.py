@@ -213,7 +213,9 @@ def test_port_imports_no_jax():
             "oak_tpu_torch.optim.natgrad, oak_tpu_torch.ops.quadrature, "
             "oak_tpu_torch.models.likelihoods, oak_tpu_torch.testing, "
             "oak_tpu_torch.sobol, oak_tpu_torch.models.gpr, "
-            "oak_tpu_torch.models.sgpr, oak_tpu_torch.models.sampling\n"
+            "oak_tpu_torch.models.sgpr, oak_tpu_torch.models.sampling, "
+            "oak_tpu_torch.model, oak_tpu_torch.flows, oak_tpu_torch.preprocessing, "
+            "oak_tpu_torch.optim.multistart, oak_tpu_torch.utils.summary\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'oak_tpu')]\n"
             "assert not bad, bad")
