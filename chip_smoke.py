@@ -59,7 +59,8 @@ non-zero before the result line:
 9. the oak_model user path at the UCI pumadyn configuration's full width
    (examples/uci/outputs/pumadyn/config.json: depth 8, M = 500, flows, the
    sparsity prior, L-BFGS; float32, built with no dtype or device) on fold
-   0 of the synthetic stand-in (6553 training rows, 1639 test rows): fit
+   0 of the synthetic stand-in (6553 training rows, 1639 test rows, the
+   committed run's seed-4 split): fit
    (flows and k-means timed), optimise(max_iters=40, restarts=2) (each lane
    300 Adam steps, then L-BFGS; a lane finite and the loss below the
    start's), predict with clipping, NLL and RMSE (below std(y)); a save
@@ -72,7 +73,18 @@ non-zero before the result line:
    budget 1e-2 + 2e-2 |mean| per point; a float32 save loads back to
    bitwise-equal predictions; K1
    and K2 launched on the path, then both held against their plain versions
-   and timed at its Kuf shape (500 x 6553, D 8, depth 8).
+   and timed at its Kuf shape (500 x 6553, D 8, depth 8);
+10. committed models and serving (phase_committed): oak_tpu's committed
+   pumadyn fold 0 (examples/uci/outputs/pumadyn/model_oak_0.npz) loaded in
+   float32 on the card, its test RMSE beside out_0.npz's and the B1 gate
+   against float64 as in phase 9; that model and heart fold 0 (a Bernoulli
+   SVGP with binary and categorical dims) exported with torch.export and
+   served at 1, 100 and 1639 rows against the live predict (1e-4), one K1
+   launch per served request, export seconds, bytes and warm latencies; the
+   torch UCI scripts (examples/uci_torch/) run end to end with --k 2
+   --max_iters 30 --restarts 0; then K1 and K2 held against their plain
+   versions at the shapes the phase adds (heart's Kus and Kuf with 8 extra
+   grams at depth 4, autoMPG's square K(X) at depth 7).
 
 Each phase prints its seconds. Then one JSON line about the kernels, and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
@@ -96,6 +108,8 @@ import copy
 import json
 import re
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -308,34 +322,38 @@ def gram_bound(kind, D, N, M, E, depth):
     return 1e3 * t[top], "bytes" if top == "bytes" else "operations", f"{top}: {detail}"
 
 
-def _device_ms(fn, iters=10, rounds=3):
-    """Device time per call of the CUDA kernels fn launches, from
-    torch.profiler's kernel durations (no host time in it): per profiled
-    round, each kernel's mean duration times its launches per call, summed;
-    the median over ``rounds`` rounds that recorded kernels. A round can
+def _device_ms(fn, iters=10, rounds=3, with_ops=False):
+    """Device time per call of the CUDA operations fn launches, from
+    torch.profiler's durations (no host time in it): per profiled round,
+    each operation's mean duration times its launches per call, summed;
+    the median over ``rounds`` rounds that recorded operations. A round can
     miss every event and read 0, so such rounds are run again, up to
-    3·``rounds`` rounds in all."""
+    3·``rounds`` rounds in all. ``with_ops``: return (ms, the device
+    operations, kernels and copies, of one call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    per_round = []
+    per_round, ops = [], 0
     for _ in range(3 * rounds):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
         total = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count)
+                    for e in events)
         if total > 0:
             per_round.append(total)
+            ops = round(sum(e.count for e in events) / iters)
         if len(per_round) == rounds:
             break
     if not per_round:
         raise RuntimeError(f"torch.profiler recorded no kernel in {3 * rounds} rounds")
-    return float(np.median(per_round)) / 1e3
+    ms = float(np.median(per_round)) / 1e3
+    return (ms, ops) if with_ops else ms
 
 
 def _old_kernels(old_dir):
@@ -940,11 +958,14 @@ def synthetic_regression(n, d, seed=0):
 
 def pumadyn_fold0():
     """The UCI regression script's pumadyn stand-in (8192 x 8), its rows
-    permuted by numpy's seed-0 stream, and fold 0 of an unshuffled 5-way
-    split (scikit-learn's KFold: the first n % 5 folds take one row more):
+    permuted as the script permutes them (np.random.seed(4), then
+    np.random.permutation: the stream of RandomState(4); seed 4 is every
+    committed config.json's), and fold 0 of an unshuffled 5-way split
+    (scikit-learn's KFold: the first n % 5 folds take one row more), the
+    split of the committed examples/uci/outputs/pumadyn/model_oak_0.npz:
     (X_train 6553 x 8, y_train, X_test 1639 x 8, y_test)."""
     X, y = synthetic_regression(PUMA_N, PUMA_D)
-    perm = np.random.RandomState(0).permutation(PUMA_N)
+    perm = np.random.RandomState(4).permutation(PUMA_N)
     X, y = X[perm], y[perm]
     n_test = PUMA_N // 5 + (PUMA_N % 5 > 0)
     return X[n_test:], y[n_test:], X[:n_test], y[:n_test]
@@ -1009,6 +1030,67 @@ def _kernels_at(name, args, device):
     return numbers, text
 
 
+def _outputs(model, X, y):
+    return (model.predict(X, clip=True), model.get_loglik(X, y, clip=True),
+            model.get_sobol())
+
+
+def _b1_errors(ours, ref):
+    """Predictions (relative to max |ref|), |NLL difference| and max
+    |normalised Sobol difference|."""
+    return (rel_err(ours[0], ref[0]), abs(ours[1] - ref[1]),
+            float(np.abs(ours[2] - ref[2]).max()))
+
+
+def b1_gate(name, oak, oak64, X, y):
+    """The B1 gate at matched parameters between a float32 oak_model on the
+    card (the kernels' route) and the same file loaded in float64 on the
+    card, on the rows X, y; raises past it. Returns (the float32 model's
+    predictions, a findings line).
+
+    Matched parameters include the jitter, a constant of the model that
+    differs by dtype (1e-5 of Kuu's mean diagonal in float32, 1e-6 in
+    float64): Kuu's smallest eigenvalues lie below both, so the jitter
+    alone moves the float64 model by more than the gate. The float64
+    reference therefore factors at float32's jitter; its own jitter's
+    numbers are printed beside. Predictions pass within 1e-3, or within
+    twice the error of the same float32 model on the per-dim route (no
+    kernel), the drift rule of oak_tpu_torch.testing.kernel_error; NLL and
+    the Sobol values, bench.py's B1 quantities, within 1e-3."""
+    from oak_tpu_torch import config
+    from oak_tpu_torch.ops import oak_gram as og
+
+    kernels, own = _outputs(oak, X, y), _outputs(oak64, X, y)
+    f64_jitter = config.DEFAULT_JITTER_F64
+    config.DEFAULT_JITTER_F64 = config.DEFAULT_JITTER_F32
+    try:
+        ref = _outputs(oak64, X, y)
+    finally:
+        config.DEFAULT_JITTER_F64 = f64_jitter
+    errs = _b1_errors(kernels, ref)
+    supports_fused = og.supports_fused
+    og.supports_fused = lambda kernel: False
+    try:
+        plain = _b1_errors(_outputs(oak, X, y), ref)
+    finally:
+        og.supports_fused = supports_fused
+    text = (f"B1 at matched parameters (f64 at f32's jitter), f32 through the kernels vs "
+            f"f64: predictions {errs[0]:.2e} of max |f64| (tol {E2E_TOL}, or twice the f32 "
+            f"per-dim route's), nll |diff| {errs[1]:.2e} (tol {E2E_TOL}), "
+            f"{len(kernels[2])} normalised Sobol values max |diff| {errs[2]:.2e} (tol "
+            f"{SOBOL_TOL}); the f32 per-dim route vs f64: "
+            + ", ".join(f"{e:.2e}" for e in plain)
+            + "; the kernels vs f64 at its own jitter: "
+            + ", ".join(f"{e:.2e}" for e in _b1_errors(kernels, own))
+            + "; f64 at f32's jitter vs f64 at its own (the jitter alone): "
+            + ", ".join(f"{e:.2e}" for e in _b1_errors(ref, own)))
+    if not ((errs[0] < E2E_TOL or errs[0] <= 2.0 * plain[0]) and errs[1] < E2E_TOL
+            and errs[2] < SOBOL_TOL):
+        raise RuntimeError(f"{name} B1 gate: predictions {errs[0]:.3e}, nll {errs[1]:.3e}, "
+                           f"Sobol {errs[2]:.3e}")
+    return kernels[0], text
+
+
 def phase_oak_model(device):
     """The oak_model user path at the UCI pumadyn configuration's full width
     (examples/uci/outputs/pumadyn/config.json: depth 8, 500 inducing points,
@@ -1022,7 +1104,7 @@ def phase_oak_model(device):
     loaded back to bitwise-equal predictions. Each part prints its line. The
     launch counts cover exactly that path; then K1 and K2 at its Kuf
     shape against their plain versions."""
-    from oak_tpu_torch import config, load_oak_model, oak_model, save_oak_model
+    from oak_tpu_torch import load_oak_model, oak_model, save_oak_model
     from oak_tpu_torch.models import SGPR
     from oak_tpu_torch.ops import oak_gram as og
 
@@ -1079,55 +1161,9 @@ def phase_oak_model(device):
     path = out_dir / "pumadyn_f32.npz"
     part("save", lambda: save_oak_model(oak, path))
     oak64 = part("load_f64", lambda: load_oak_model(path, dtype=torch.float64))
-
-    def outputs(model):
-        return (model.predict(Xte, clip=True), model.get_loglik(Xte, yte, clip=True),
-                model.get_sobol())
-
-    def b1_errors(ours, ref):
-        """Predictions (relative to max |ref|), |NLL difference| and max
-        |normalised Sobol difference|."""
-        return (rel_err(ours[0], ref[0]), abs(ours[1] - ref[1]),
-                float(np.abs(ours[2] - ref[2]).max()))
-
-    # Matched parameters include the jitter, a constant of the model that
-    # differs by dtype (1e-5 of Kuu's mean diagonal in float32, 1e-6 in
-    # float64): Kuu's smallest eigenvalues lie below both, so the jitter
-    # alone moves the float64 model by more than the gate. The float64
-    # reference therefore factors at float32's jitter; its own jitter's
-    # numbers are printed beside. Predictions pass within 1e-3, or within
-    # twice the error of the same float32 model on the per-dim route (no
-    # kernel), the drift rule of oak_tpu_torch.testing.kernel_error; NLL and
-    # the Sobol values, bench.py's B1 quantities, within 1e-3.
-    kernels, own = outputs(oak), outputs(oak64)
-    f64_jitter = config.DEFAULT_JITTER_F64
-    config.DEFAULT_JITTER_F64 = config.DEFAULT_JITTER_F32
-    try:
-        ref = outputs(oak64)
-    finally:
-        config.DEFAULT_JITTER_F64 = f64_jitter
-    errs = b1_errors(kernels, ref)
-    supports_fused = og.supports_fused
-    og.supports_fused = lambda kernel: False
-    try:
-        plain = b1_errors(outputs(oak), ref)
-    finally:
-        og.supports_fused = supports_fused
+    _, b1_text = b1_gate("pumadyn", oak, oak64, Xte, yte)
     print(f"phase 9.4 save {secs['save']:.3f} s, load in float64 on the card "
-          f"{secs['load_f64']:.3f} s; B1 at matched parameters (f64 at f32's jitter), f32 "
-          f"through the kernels vs f64: predictions {errs[0]:.2e} of max |f64| (tol "
-          f"{E2E_TOL}, or twice the f32 per-dim route's), nll |diff| {errs[1]:.2e} (tol "
-          f"{E2E_TOL}), {len(sobol)} normalised Sobol values max |diff| {errs[2]:.2e} (tol "
-          f"{SOBOL_TOL}); the f32 per-dim route vs f64: "
-          + ", ".join(f"{e:.2e}" for e in plain)
-          + "; the kernels vs f64 at its own jitter: "
-          + ", ".join(f"{e:.2e}" for e in b1_errors(kernels, own))
-          + "; f64 at f32's jitter vs f64 at its own (the jitter alone): "
-          + ", ".join(f"{e:.2e}" for e in b1_errors(ref, own)))
-    if not ((errs[0] < E2E_TOL or errs[0] <= 2.0 * plain[0]) and errs[1] < E2E_TOL
-            and errs[2] < SOBOL_TOL):
-        raise RuntimeError(f"pumadyn B1 gate: predictions {errs[0]:.3e}, nll {errs[1]:.3e}, "
-                           f"Sobol {errs[2]:.3e}")
+          f"{secs['load_f64']:.3f} s; {b1_text}")
 
     comps = part("components", lambda: oak.get_prediction_components(Xte, clip=True))
     with torch.no_grad():
@@ -1172,6 +1208,272 @@ def phase_oak_model(device):
           f"depth {PUMA_DEPTH}, vs plain: " + "; ".join(text[:2])
           + "\n" + "\n".join(text[2:]))
     return launches, numbers
+
+
+COMMITTED = REPO / "examples" / "uci" / "outputs"
+SERVE_ROWS = (1, 100, 1639)
+SERVE_TOL = 1e-4  # served vs live, both float32 through K1, as KERNEL_TOL
+SERVE_REPEATS = 5
+
+
+def _uci_modules():
+    """examples/uci/datasets, examples/uci/artifact_io and
+    examples/uci_torch/uci_common (numpy and scipy only)."""
+    for sub in ("uci", "uci_torch"):
+        if str(REPO / "examples" / sub) not in sys.path:
+            sys.path.insert(0, str(REPO / "examples" / sub))
+    import artifact_io
+    import datasets
+    import uci_common
+
+    return datasets, artifact_io, uci_common
+
+
+def heart_fold0():
+    """The committed heart run's fold-0 test rows (seed-4 split, 60 x 13):
+    the classification script's stand-in data, through the torch scripts'
+    split."""
+    datasets, _, uci_common = _uci_modules()
+    X, y, _ = datasets.load_classification("heart")
+    perm, folds = uci_common.kfold_splits(len(X), 5, 4)
+    test = folds[0][1]
+    return X[perm][test], y[perm][test]
+
+
+def _check_served(name, served, live, tol=SERVE_TOL):
+    served = served.cpu().numpy() if isinstance(served, torch.Tensor) else served
+    err = rel_err(served, live)
+    if not (served.shape == live.shape and np.isfinite(served).all() and err < tol):
+        raise RuntimeError(f"{name}: served {served.shape} vs live {live.shape}, error "
+                           f"{err:.3e} (tol {tol})")
+    return err
+
+
+def _one_launch_per_request(name, f, X):
+    from oak_tpu_torch.ops import oak_gram as og
+
+    before = og.LAUNCHES
+    f(X)
+    torch.cuda.synchronize()
+    if og.LAUNCHES != before + 1:
+        raise RuntimeError(f"{name}: a served request launched K1 {og.LAUNCHES - before} "
+                           f"times, not once")
+
+
+def _serve_model(name, oak, X, bernoulli):
+    """Export on the card, load, serve SERVE_ROWS requests against the live
+    API (the rows of X repeated where it has fewer); each served call
+    launches K1 once (Kus; the factors are in the artifact). Returns a
+    findings line and the mean-only artifact's function."""
+    from oak_tpu_torch import deserialize_predict, serialize_predict
+
+    t0 = time.perf_counter()
+    blob = serialize_predict(oak)
+    t1 = time.perf_counter()
+    blob_v = serialize_predict(oak, include_var=True)
+    export_s = (t1 - t0, time.perf_counter() - t1)
+    f, fv = deserialize_predict(blob), deserialize_predict(blob_v)
+    X = np.resize(X, (max(SERVE_ROWS), X.shape[1]))
+    live = oak.predict(X, clip=True)
+    errs = [_check_served(f"{name} {r} rows", f(X[:r]), live[:r]) for r in SERVE_ROWS]
+    _one_launch_per_request(name, f, X[:100])
+    mean, std = (t.cpu().numpy() for t in fv(X))
+    if bernoulli:
+        # (p, std) mirrors predict_proba: the posterior-predictive
+        # probability and the outcome's std
+        v_err = _check_served(f"{name} (p, std) p", mean, oak.predict_proba(X, clip=True))
+        s_err = _check_served(f"{name} (p, std) std", std, np.sqrt(mean * (1.0 - mean)))
+    else:
+        with torch.no_grad():
+            var = oak.m.predict_f(oak._tensor(oak._scaled_input(X, True)))[1]
+        latent_std = np.sqrt(np.maximum(var.cpu().numpy()[:, 0], 0.0)) * oak.scaler_y.scale_[0]
+        v_err = _check_served(f"{name} (mean, std) mean", mean, live)
+        s_err = _check_served(f"{name} (mean, std) std", std, latent_std)
+    line = (f"{name}: export {export_s[0]:.3f} s, {len(blob)} bytes ((mean, std): "
+            f"{export_s[1]:.3f} s, {len(blob_v)} bytes); mean-only vs {'predict' if bernoulli else 'the live mean'} at "
+            + ", ".join(f"{r} rows {e:.2e}" for r, e in zip(SERVE_ROWS, errs))
+            + f"; (mean, std) vs {'predict_proba' if bernoulli else 'live mean and latent std'}"
+            f" {v_err:.2e} / {s_err:.2e} (tol {SERVE_TOL} of max |live|); one K1 launch per "
+            f"served request")
+    return line, f
+
+
+def _run_script(name, args):
+    """One of examples/uci_torch/'s scripts in this process (so that its
+    launches count), as ``python <script> <args>``; a non-zero exit
+    raises."""
+    import runpy
+
+    path = REPO / "examples" / "uci_torch" / name
+    argv, sys.argv = sys.argv, [str(path)] + args
+    try:
+        runpy.run_path(str(path), run_name="__main__")
+    except SystemExit as exit_:
+        if exit_.code not in (None, 0):
+            raise RuntimeError(f"{name} {' '.join(args)} exited with {exit_.code}") from exit_
+    finally:
+        sys.argv = argv
+
+
+def phase_committed(device):
+    """Phase 10, the committed models and serving on the card.
+
+    10.1 examples/uci/outputs/pumadyn/model_oak_0.npz (oak_tpu's fold 0:
+    SGPR, N 6553, D 8, depth 8, M 500, restarts=4, 500 iterations) loaded
+    with load_oak_model's defaults, float32 on the card: on its seed-4
+    fold-0 test rows (1639), the test RMSE beside out_0.npz's, the B1 gate
+    against the same file in float64 on the card at float32's jitter
+    (b1_gate), and the K1 launches of the path.
+    10.2 that model and heart fold 0 (a Bernoulli SVGP whose binary and
+    categorical dims reach K1 as extra grams) serialized on the card and
+    served at 1, 100 and 1639 rows against the live API (the mean-only
+    artifact against predict, the (mean, std) one against the live mean and
+    latent std or against predict_proba); a served request launches K1
+    once; the export's seconds, the artifacts' bytes, and the host-clock
+    latency of a warm served request against a warm live predict, with the
+    device operations and device time of one of each (torch.profiler).
+    10.3 the torch UCI scripts end to end on the card, each into a temporary
+    --output_dir: uci_regression_train.py --dataset_name autoMPG and
+    uci_classification_train.py --dataset_name heart, both with --k 2
+    --max_iters 30 --restarts 0 (a declared cut of the committed runs' 5
+    folds, 500-1000 iterations and 4 restarts); both exit 0, and every
+    out_<fold>.npz passes artifact_io's invariants.
+    10.4 K1 and K2 against their plain versions (_kernels_at, phase 2's
+    and 2b's rules) at the shapes this phase adds: heart's Kus and Kuf
+    (binary and categorical grams through extra) and autoMPG's square
+    K(X) at depth 7 (_committed_shapes). These launches come after the
+    phase's count is read.
+
+    Returns the K1 and K2 launches of 10.1-10.3."""
+    from oak_tpu_torch import load_oak_model
+    from oak_tpu_torch.models import SGPR, SVGP
+    from oak_tpu_torch.ops import oak_gram as og
+
+    _, artifact_io, _ = _uci_modules()
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    Xtr, _, Xte, yte = pumadyn_fold0()
+    oak = load_oak_model(COMMITTED / "pumadyn" / "model_oak_0.npz")
+    oak64 = load_oak_model(COMMITTED / "pumadyn" / "model_oak_0.npz", dtype=torch.float64)
+    kinds = {(t.dtype, t.device.type) for t in oak.m.parameters()}
+    if not (isinstance(oak.m, SGPR) and tuple(oak.m.X.shape) == (len(Xtr), PUMA_D)
+            and tuple(oak.m.Z.value.shape) == (PUMA_M, PUMA_D)
+            and kinds == {(torch.float32, "cuda")}):
+        raise RuntimeError(f"committed pumadyn: {type(oak.m).__name__}, X "
+                           f"{tuple(oak.m.X.shape)}, Z {tuple(oak.m.Z.value.shape)}, {kinds}")
+    pred, b1_text = b1_gate("committed pumadyn", oak, oak64, Xte, yte)
+    rmse, std = float(np.sqrt(np.mean((pred - yte[:, 0]) ** 2))), float(yte.std())
+    with np.load(COMMITTED / "pumadyn" / "out_0.npz") as f:
+        committed_rmse, committed_nll = float(f["rmse"]), float(f["nll"])
+    nll = -oak.get_loglik(Xte, yte, clip=True)
+    k1 = og.LAUNCHES
+    print(f"phase 10.1 committed pumadyn fold 0 (SGPR, N {len(Xtr)}, D {PUMA_D}, depth "
+          f"{PUMA_DEPTH}, M {PUMA_M}; float32 on the card) on its {len(Xte)} seed-4 test rows "
+          f"in {time.perf_counter() - t0:.3f} s: rmse {rmse:.6g} (out_0.npz {committed_rmse:.6g}, "
+          f"std {std:.6g}), nll {nll:.6g} (out_0.npz {committed_nll:.6g}); {b1_text}; K1 "
+          f"launches {k1}")
+    if not (k1 > 0 and rmse < std and abs(rmse - committed_rmse) < 1e-2 * committed_rmse):
+        raise RuntimeError(f"committed pumadyn: K1 launches {k1}, rmse {rmse} (out_0.npz "
+                           f"{committed_rmse}, std {std})")
+    del oak64
+
+    t0 = time.perf_counter()
+    puma_line, served = _serve_model("pumadyn", oak, Xte, bernoulli=False)
+    heart = load_oak_model(COMMITTED / "heart" / "model_oak_0.npz")
+    Xh, _ = heart_fold0()
+    if not (isinstance(heart.m, SVGP) and og.supports_fused(heart.m.kernel)
+            and heart.binary_index and heart.categorical_index):
+        raise RuntimeError("committed heart: not a fused-route SVGP with binary and "
+                           "categorical dims")
+    heart_line, _ = _serve_model("heart", heart, Xh, bernoulli=True)
+    latency = []
+    for rows in (1, len(Xte)):
+        Xr = Xte[:rows]
+        ms_served = _host_ms(lambda: served(Xr).cpu(), SERVE_REPEATS)
+        ms_live = _host_ms(lambda: oak.predict(Xr, clip=True), SERVE_REPEATS)
+        dev_served, n_served = _device_ms(lambda: served(Xr).cpu(), 1, 1, with_ops=True)
+        dev_live, n_live = _device_ms(lambda: oak.predict(Xr, clip=True), 1, 1, with_ops=True)
+        latency.append(f"{rows} rows served {ms_served:.3f} ms ({n_served} device operations, "
+                       f"{dev_served:.3f} ms on the device), live predict {ms_live:.3f} ms "
+                       f"({n_live} device operations, {dev_live:.3f} ms on the device)")
+    print(f"phase 10.2 serving ({time.perf_counter() - t0:.3f} s): {puma_line}; {heart_line}; "
+          f"warm host-clock latency, numpy in and out (median of {SERVE_REPEATS}; the kernels and "
+          f"copies of one more call, and their device time, from torch.profiler): " + "; ".join(latency))
+
+    t0 = time.perf_counter()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for script, dataset, task in (("uci_regression_train.py", "autoMPG", "regression"),
+                                      ("uci_classification_train.py", "heart",
+                                       "classification")):
+            out = Path(tmp) / dataset
+            t = time.perf_counter()
+            _run_script(script, ["--dataset_name", dataset, "--k", "2", "--max_iters", "30",
+                                 "--restarts", "0", "--output_dir", str(out)])
+            for fold in (0, 1):
+                with np.load(out / f"out_{fold}.npz", allow_pickle=True) as f:
+                    d = {k: f[k] for k in f.files}
+                problems = artifact_io.fold_problems(
+                    task, nll=float(d["nll"]),
+                    sobol_vector=d.get("normalised_sobols", d.get("sobol")),
+                    sobol_order=d["sobol_order"],
+                    classification_error=(float(d["classification_accuracy"])
+                                          if task == "classification" else None),
+                    rmse=float(d["rmse"]) if task == "regression" else None)
+                if problems:
+                    raise RuntimeError(f"{script} fold {fold}: {problems}")
+            runs.append(f"{script} --dataset_name {dataset} {time.perf_counter() - t:.1f} s")
+    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    print(f"phase 10.3 the torch UCI scripts (--k 2 --max_iters 30 --restarts 0) on the card "
+          f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(runs)
+          + "; each exited 0 and its out_0.npz, out_1.npz pass artifact_io's invariants; "
+          f"launches over phase 10: K1 {launches['fwd']}, K2 {launches['bwd']}")
+    if launches["bwd"] == 0:
+        raise RuntimeError("phase 10's training runs did not launch K2")
+
+    t0 = time.perf_counter()
+    text = []
+    for name, args in _committed_shapes(heart, Xh).items():
+        _, lines = _kernels_at(name, args, device)
+        text += [f"{name}, depth {args[-1]}: " + "; ".join(lines[:2])] + lines[2:]
+    print(f"phase 10.4 K1 and K2 vs plain at phase 10's shapes ({time.perf_counter() - t0:.1f} "
+          "s):\n" + "\n".join(text))
+    return launches
+
+
+def _committed_shapes(heart, Xh):
+    """Prescaled kernel inputs at the shapes phase 10 adds, with the
+    committed models' parameters: heart's Kus at the largest served
+    request (5 RBF dims, 8 binary and categorical grams as extra, depth
+    4), heart's Kuf at the classification script's fold-0 training rows
+    (--k 2; the backward with dextra), and autoMPG's square K(X) at the
+    regression script's fold-0 training rows (GPR, depth 7)."""
+    from oak_tpu_torch import load_oak_model
+    from oak_tpu_torch.ops import oak_gram as og
+
+    datasets, _, uci_common = _uci_modules()
+    shapes = {}
+    with torch.no_grad():
+        def add(name, oak, A, B):
+            k = oak.m.kernel
+            if not og.supports_fused(k):
+                raise RuntimeError(f"{name}: the kernel does not take the fused route")
+            args = tuple(t.detach().contiguous() for t in og._prep(k, A, B))
+            shapes[f"{name} {A.shape[0]}x{B.shape[0]}"] = args + (k.max_interaction_depth,)
+
+        Z = heart.m.Z.value
+        served = np.resize(Xh, (max(SERVE_ROWS), Xh.shape[1]))
+        add("heart Kus", heart, Z, heart._tensor(heart._scaled_input(served, True)))
+        X, _, _ = datasets.load_classification("heart")
+        perm, folds = uci_common.kfold_splits(len(X), 2, 4)
+        train = X[perm][folds[0][0]]
+        add("heart Kuf", heart, Z, heart._tensor(heart._scaled_input(train, True)))
+        mpg = load_oak_model(COMMITTED / "autoMPG" / "model_oak_0.npz")
+        X, _, _ = datasets.load_regression("autoMPG")
+        perm, folds = uci_common.kfold_splits(len(X), 2, 4)
+        Xa = mpg._tensor(mpg._scaled_input(X[perm][folds[0][0]], True))
+        add("autoMPG K(X)", mpg, Xa, Xa)
+    return shapes
 
 
 def _host_ms(fn, repeats):
@@ -1353,7 +1655,7 @@ def profile_sobol(model, device, repeats=5):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-9, print where a warm predict_y "
+                        help="instead of phases 2-10, print where a warm predict_y "
                              "request's, a warm training step's and a full Sobol "
                              "decomposition's time goes (host clock and torch.profiler)")
     parser.add_argument("--old", metavar="DIR",
@@ -1394,6 +1696,7 @@ def main():
     gpr_launches = timed("7", phase_gpr, device)
     timed("8", phase_defaults, device)
     oak_launches, oak_kernels = timed("9", phase_oak_model, device)
+    committed_launches = timed("10", phase_committed, device)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
@@ -1416,12 +1719,13 @@ def main():
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:63",
               predict_launches + train_launches["fwd"] + sobol_launches
-              + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"], kernel,
-              oak_kernels["K1"]),
+              + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"]
+              + committed_launches["fwd"], kernel, oak_kernels["K1"]),
         entry("oak_gram_bwd_f32", "oak_tpu_torch/csrc/oak_gram_bwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:158",
               train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"]
-              + oak_launches["bwd"], kernel_bwd, oak_kernels["K2"])]}))
+              + oak_launches["bwd"] + committed_launches["bwd"], kernel_bwd,
+              oak_kernels["K2"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

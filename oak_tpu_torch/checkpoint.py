@@ -6,6 +6,10 @@
 file ("rebuild, then load"), reading it with numpy alone; ``save_params``
 writes the same keys from a port model.
 
+``reference_param_order`` / ``load_reference_npz`` read the reference's
+positional layout (GPflow's parameter order, constrained values) onto a
+model built with the checkpoint's structure.
+
 ``save_oak_model`` / ``load_oak_model`` persist a whole ``oak_model`` in
 ``oak_tpu``'s layout (the JSON ``config``, ``m.*``, ``flow{i}.*``, the
 scalers, ``xmin`` / ``xmax``, the scaled and SVGP training data), so that an
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -71,6 +75,96 @@ def load_params(model: nn.Module, path_or_mapping: Union[str, Mapping],
             raise ValueError(f"{key}: checkpoint shape {arr.shape}, model shape "
                              f"{tuple(t.shape)}")
         t.copy_(torch.as_tensor(arr).to(dtype=t.dtype, device=t.device))
+    return model
+
+
+# --------------------------------------------------------------------------- #
+# The reference's positional layout
+# --------------------------------------------------------------------------- #
+def reference_param_order(model) -> List[str]:
+    """The slot names of the reference checkpoint's positional parameter
+    layout for ``model``, in the order the reference's ``save_model`` writes
+    them (the reference's oak/model_utils.py:44-64; ``oak_tpu.checkpoint``).
+
+    The reference saves ``[p.numpy() for p in model.(trainable_)parameters]``
+    in GPflow 2.2's tf.Module order: attribute names sorted at each level,
+    list attributes in index order. So:
+
+    - GPR/SGPR save *trainable* parameters only; SVGP saves ALL parameters
+      (a fixed inducing ``Z`` appears for SVGP but not for a fixed-Z SGPR).
+    - model level: ``inducing_variable`` < ``kernel`` < ``likelihood`` <
+      ``q_mu`` < ``q_sqrt``.
+    - kernel level: ``kernels[0..D-1]`` then ``variances[0..P]``.
+    - with shared variances the reference replaces the pinned base
+      variances by plain tensors (oak_kernel.py:163-166,178,186), so they
+      are not in the file, except for empirical and GMM RBF dims, whose
+      pinning it skips.
+    - per kernel: RBF ``lengthscales`` < ``variance``; categorical ``W`` <
+      ``kappa`` < ``variance`` ('W' sorts before lowercase); binary just
+      ``variance``."""
+    from .kernels.oak_kernel import UnconstrainedRBF
+    from .kernels.ortho_binary import OrthogonalBinary
+    from .kernels.ortho_categorical import OrthogonalCategorical
+    from .kernels.ortho_rbf import OrthogonalRBF
+    from .measures import GaussianMeasure
+    from .models import SGPR, SVGP
+
+    oak = model.kernel
+    shared = oak.share_var_across_orders
+    slots = []
+    if isinstance(model, SVGP) or (isinstance(model, SGPR) and model.Z.trainable):
+        slots.append("Z")
+    for i, k in enumerate(oak.kernels):
+        if isinstance(k, (OrthogonalRBF, UnconstrainedRBF)):
+            slots.append(f"kernels[{i}].lengthscale")
+            pinned = shared and (isinstance(k, UnconstrainedRBF)
+                                 or isinstance(k.measure, GaussianMeasure))
+            if not pinned:
+                slots.append(f"kernels[{i}].variance")
+        elif isinstance(k, OrthogonalCategorical):
+            slots += [f"kernels[{i}].W", f"kernels[{i}].kappa"]
+            if not shared:
+                slots.append(f"kernels[{i}].variance")
+        elif isinstance(k, OrthogonalBinary):
+            if not shared:
+                slots.append(f"kernels[{i}].variance")
+        else:
+            raise NotImplementedError(type(k))
+    slots += [f"variances[{j}]" for j in range(len(oak.variances))]
+    if hasattr(model.likelihood, "variance"):
+        slots.append("likelihood.variance")
+    if isinstance(model, SVGP):
+        slots += ["q_mu", "q_sqrt"]
+    return slots
+
+
+def _slot_param(model, slot: str) -> Param:
+    if slot.startswith("variances["):
+        return model.kernel.variances[int(slot[len("variances["):-1])]
+    if slot.startswith("kernels["):
+        i = int(slot[len("kernels["):slot.index("]")])
+        return getattr(model.kernel.kernels[i], slot.split(".")[1])
+    if slot == "likelihood.variance":
+        return model.likelihood.variance
+    return getattr(model, slot)  # Z, q_mu, q_sqrt
+
+
+def load_reference_npz(model: nn.Module, path) -> nn.Module:
+    """Fill ``model`` in place from a checkpoint written by the reference's
+    ``save_model`` (a positional ``hyperparams`` object array of
+    *constrained* values) and return it. The caller builds the model with
+    the checkpoint's structure first, as the reference's consumers do
+    (uci_plotting.py:163-200). Each value goes through its ``Param``'s
+    bijector inverse (``Param.assign``); a count that does not match the
+    layout raises with the slot list."""
+    vals = list(np.load(path, allow_pickle=True)["hyperparams"])
+    slots = reference_param_order(model)
+    if len(vals) != len(slots):
+        raise ValueError(f"checkpoint has {len(vals)} parameters but the model layout "
+                         f"expects {len(slots)}: {slots}")
+    for slot, v in zip(slots, vals):
+        p = _slot_param(model, slot)
+        p.assign(torch.as_tensor(np.asarray(v, np.float64).reshape(tuple(p.raw.shape))))
     return model
 
 

@@ -11,8 +11,10 @@ model in place. ``optimise`` therefore copies the untrained model before the
 first fit: the retry after a degenerate or pathological L-BFGS fit restarts
 from that copy, as ``oak_tpu`` restarts from its untouched ``self.m``.
 
-Not ported here: ``mesh=`` / ``data_mesh=`` (ROADMAP P16), ``export_predict``
-(P13) and ``plot`` (P14).
+``export_predict`` gives the predict path as one module over raw inputs,
+which ``serving`` exports with ``torch.export``.
+
+Not ported here: ``mesh=`` / ``data_mesh=`` (ROADMAP P16) and ``plot`` (P14).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import sobol as sobol_mod
 from .config import resolve
@@ -522,6 +525,30 @@ class oak_model:
             return self.m.likelihood.invlink(mu).cpu().numpy().astype(np.float64)[:, 0]
         return self._scale_y_inverse(mu.cpu().numpy())[:, 0]
 
+    def export_predict(self, include_var: bool = False, device=None) -> "ExportedPredict":
+        """The whole predict path over raw inputs as one module, ``f(X)`` for
+        X [S, D] of the model's dtype on ``device`` (default the model's),
+        for ``torch.export``
+        (``serving.serialize_predict``): clip to [xmin, xmax], the per-column
+        flows, the empirical and continuous scalers, ``predict_f`` and the
+        output transform. The factors that do not depend on X (SVGP's
+        escalated Luu, SGPR's L, LB and c, GPR's factor and L⁻¹Y) are
+        computed here, once; the module runs only the X-dependent part
+        (Kus through K1, K_diag, triangular solves) and reads nothing back
+        to the host.
+
+        Gaussian models give the mean in the target's units, and with
+        ``include_var`` also the latent std times the y scale. Bernoulli
+        models give two deliberately different probabilities: without
+        ``include_var`` the plug-in invlink(E[f]), as ``predict``; with it
+        the posterior-predictive E[invlink(f)] and the outcome's std
+        sqrt(p(1-p)), as ``predict_proba``.
+
+        The module holds a copy of the model moved to ``device``, and the
+        factors are computed there, so that a trace of it takes the route
+        of that device: on the card, the fused gram in float32."""
+        return ExportedPredict(self, include_var, device)
+
     @torch.no_grad()
     def predict_f_samples(self, X, num_samples: int = 1, seed=0,
                           clip: bool = False) -> np.ndarray:
@@ -629,3 +656,64 @@ class oak_model:
         from .checkpoint import load_oak_model
 
         return load_oak_model(path, dtype=dtype, device=device)
+
+
+class ExportedPredict(nn.Module):
+    """``oak_model.export_predict``'s function. Its state is the kernel's
+    parameters and buffers, the flows, the input range and the predict
+    factors; the training data stay out, except GPR's inputs, which its
+    K(X, Xnew) needs. Built from a copy of the model on ``device`` (default
+    the model's), with no gradients."""
+
+    def __init__(self, oak: oak_model, include_var: bool = False, device=None):
+        super().__init__()
+        device = oak.device if device is None else torch.device(device)
+        model = copy.deepcopy(oak.m).requires_grad_(False).to(device)
+        with torch.no_grad():
+            factors = model.predict_factors()
+        self.kernel = model.kernel  # the same object the model's predict_f_from reads
+        self._model = (model,)  # a tuple, so that only the kernel is registered state
+        self._factors = list(factors)
+        for name, t in factors.items():
+            self.register_buffer(f"factor_{name}", t.detach().clone())
+        for name in ("xmin", "xmax"):
+            self.register_buffer(name, oak._tensor(getattr(oak, name)).to(device))
+        self.flows = nn.ModuleDict({str(i): copy.deepcopy(f).requires_grad_(False).to(device)
+                                    for i, f in enumerate(oak.input_flows) if f is not None})
+        # each column's scalers in _transform_x's order, as (mean, scale)
+        self._scalers = [[] for _ in range(oak.num_dims)]
+        if oak.empirical_measure is not None:
+            s = oak.scaler_X_empirical
+            for j, i in enumerate(oak.empirical_measure):
+                self._scalers[i].append((float(s.mean_[j]), float(s.scale_[j])))
+        if oak.scaler_X_continuous is not None:
+            s = oak.scaler_X_continuous
+            for j, i in enumerate(oak.continuous_index):
+                self._scalers[i].append((float(s.mean_[j]), float(s.scale_[j])))
+        self._y = (float(oak.scaler_y.mean_[0]), float(oak.scaler_y.scale_[0]))
+        self._bernoulli = oak._is_bernoulli()
+        self.include_var = include_var
+
+    def forward(self, X: torch.Tensor):
+        X = torch.clamp(X, self.xmin, self.xmax)
+        cols = []
+        for i in range(X.shape[1]):
+            c = X[:, i]
+            if str(i) in self.flows:
+                c = self.flows[str(i)](c)
+            for mean, scale in self._scalers[i]:
+                c = (c - mean) / scale
+            cols.append(c)
+        model = self._model[0]
+        factors = {name: getattr(self, f"factor_{name}") for name in self._factors}
+        mu, var = model.predict_f_from(factors, torch.stack(cols, dim=1))
+        if self._bernoulli:
+            if self.include_var:
+                p, pvar = model.likelihood.predict_mean_and_var(mu, var)
+                return p[:, 0], torch.sqrt(torch.clamp_min(pvar, 0.0))[:, 0]
+            return model.likelihood.invlink(mu)[:, 0]
+        y_mean, y_scale = self._y
+        if self.include_var:
+            return (mu[:, 0] * y_scale + y_mean,
+                    torch.sqrt(torch.clamp_min(var, 0.0))[:, 0] * y_scale)
+        return mu[:, 0] * y_scale + y_mean

@@ -12,7 +12,7 @@ paths use the training path's Cholesky and plain triangular solves.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -76,18 +76,31 @@ class GPR(nn.Module):
         return -(self.log_marginal_likelihood() + log_prior_density(self))
 
     # ------------------------------------------------------------------ #
+    def predict_factors(self) -> Dict[str, torch.Tensor]:
+        """What ``predict_f`` needs that does not depend on Xnew: the
+        training inputs X, the N × N factor L and L⁻¹Y."""
+        L = self._chol()
+        return {"X": self.X, "L": L, "LinvY": solve_lower(L, self.Y)}
+
+    def predict_f_from(self, factors: Dict[str, torch.Tensor], Xnew: torch.Tensor,
+                       full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``predict_f`` on ``predict_factors``: K(X, Xnew), K_diag and one
+        triangular solve, with no host synchronisation (``serving`` traces
+        it)."""
+        LinvY = factors["LinvY"]
+        A = solve_lower(factors["L"], self.kernel.K(factors["X"], Xnew))  # [N, S]
+        mean = A.T @ LinvY
+        if full_cov:
+            return mean, self.kernel.K(Xnew) - A.T @ A
+        var = self.kernel.K_diag(Xnew) - torch.sum(A * A, dim=0)
+        return mean, var[:, None].repeat(1, LinvY.shape[1])
+
     def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mean [S, R] and variance [S, R], or covariance [S, S] shared by
         the R outputs with ``full_cov``; triangular solves against the N × N
         factor."""
-        L = self._chol()
-        A = solve_lower(L, self.kernel.K(self.X, Xnew))  # [N, S]
-        mean = A.T @ solve_lower(L, self.Y)
-        if full_cov:
-            return mean, self.kernel.K(Xnew) - A.T @ A
-        var = self.kernel.K_diag(Xnew) - torch.sum(A * A, dim=0)
-        return mean, var[:, None].repeat(1, self.Y.shape[1])
+        return self.predict_f_from(self.predict_factors(), Xnew, full_cov)
 
     def predict_f_samples(self, Xnew: torch.Tensor, num_samples: int = 1,
                           generator_or_seed=0) -> torch.Tensor:

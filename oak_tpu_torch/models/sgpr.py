@@ -16,7 +16,7 @@ exists for the bf16 inside XLA:TPU's solvers and is not needed here.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -96,19 +96,33 @@ class SGPR(nn.Module):
         return -(self.elbo() + log_prior_density(self))
 
     # ------------------------------------------------------------------ #
-    def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Mean [S, R] and variance [S, R], or covariance [S, S] shared by
-        the R outputs with ``full_cov``."""
+    def predict_factors(self) -> Dict[str, torch.Tensor]:
+        """What ``predict_f`` needs that does not depend on Xnew: Z and
+        ``_common``'s L, LB and c (Kuf over the N training rows, two
+        Choleskys)."""
         L, _, LB, c, _ = self._common()
-        tmp1 = solve_lower(L, self.kernel.K(self.Z.value, Xnew))  # [M, S]
-        tmp2 = solve_lower(LB, tmp1)
+        return {"Z": self.Z.value, "L": L, "LB": LB, "c": c}
+
+    def predict_f_from(self, factors: Dict[str, torch.Tensor], Xnew: torch.Tensor,
+                       full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``predict_f`` on ``predict_factors``: Kus, K_diag and two
+        triangular solves, with no host synchronisation (``serving`` traces
+        it)."""
+        c = factors["c"]
+        tmp1 = solve_lower(factors["L"], self.kernel.K(factors["Z"], Xnew))  # [M, S]
+        tmp2 = solve_lower(factors["LB"], tmp1)
         mean = tmp2.T @ c
         if full_cov:
             return mean, self.kernel.K(Xnew) - tmp1.T @ tmp1 + tmp2.T @ tmp2
         var = (self.kernel.K_diag(Xnew) - torch.sum(tmp1 * tmp1, dim=0)
                + torch.sum(tmp2 * tmp2, dim=0))
-        return mean, var[:, None].repeat(1, self.Y.shape[1])
+        return mean, var[:, None].repeat(1, c.shape[1])
+
+    def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean [S, R] and variance [S, R], or covariance [S, S] shared by
+        the R outputs with ``full_cov``."""
+        return self.predict_f_from(self.predict_factors(), Xnew, full_cov)
 
     def predict_f_samples(self, Xnew: torch.Tensor, num_samples: int = 1,
                           generator_or_seed=0) -> torch.Tensor:

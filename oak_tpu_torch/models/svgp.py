@@ -8,7 +8,7 @@ card (``ops.oak_gram.FusedGram``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -96,41 +96,51 @@ class SVGP(nn.Module):
         L, _ = safe_cholesky(self.kernel.K(self.Z.value))
         return L
 
-    def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False,
-                  safe: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Predictive mean [S, R] and variance [S, R] (or covariance
-        [R, S, S] with ``full_cov``). ``safe=False`` (the ELBO's call) uses
-        the single-jitter Cholesky. Both solves are triangular solves
-        against Kus, whatever its width."""
+    def predict_factors(self, safe: bool = True) -> Dict[str, torch.Tensor]:
+        """What ``predict_f`` needs that does not depend on Xnew: Z, Kuu's
+        Cholesky factor (jitter-escalated unless ``safe=False``, the ELBO's
+        single-jitter factor), q_mu and q_sqrt's value."""
         Z = self.Z.value
-        Luu = self._safe_Luu() if safe else cholesky(self.kernel.K(Z))
-        Kus = self.kernel.K(Z, Xnew)  # [M, S]
-        q_mu = self.q_mu.value
+        return {"Z": Z, "Luu": self._safe_Luu() if safe else cholesky(self.kernel.K(Z)),
+                "q_mu": self.q_mu.value, "q_sqrt": self.q_sqrt.value}
+
+    def predict_f_from(self, factors: Dict[str, torch.Tensor], Xnew: torch.Tensor,
+                       full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``predict_f`` on ``predict_factors``: Kus, K_diag and triangular
+        solves, with no host synchronisation (``serving`` traces it)."""
+        Luu, q_mu, q_sqrt = factors["Luu"], factors["q_mu"], factors["q_sqrt"]
+        Kus = self.kernel.K(factors["Z"], Xnew)  # [M, S]
         R = q_mu.shape[1]
         A = solve_lower(Luu, Kus)  # Luu⁻¹ Kus
         W = A if self.whiten else solve_upper(Luu, A)  # Kuu⁻¹ Kus unwhitened
 
         mean = W.T @ q_mu  # [S, R]
         if self.q_diag:
-            q = self.q_sqrt.value  # [M, R]
-            SW2 = (W * W).T @ (q * q)  # [S, R]
+            SW2 = (W * W).T @ (q_sqrt * q_sqrt)  # [S, R]; q_sqrt [M, R]
         else:
-            LqTW = torch.tril(self.q_sqrt.value).mT @ W  # [R, M, S]
+            LqTW = torch.tril(q_sqrt).mT @ W  # [R, M, S]
             SW2 = torch.sum(LqTW * LqTW, dim=1).T  # [S, R]
 
         if full_cov:
             base = self.kernel.K(Xnew) - A.T @ A
             if self.q_diag:
-                q = self.q_sqrt.value
                 covs = torch.stack([
-                    base + (W * (q[:, r] ** 2)[:, None]).T @ W for r in range(R)])
+                    base + (W * (q_sqrt[:, r] ** 2)[:, None]).T @ W for r in range(R)])
             else:
-                Lq = torch.tril(self.q_sqrt.value)
+                Lq = torch.tril(q_sqrt)
                 covs = torch.stack([
                     base + (Lq[r].T @ W).T @ (Lq[r].T @ W) for r in range(R)])
             return mean, covs
         var = (self.kernel.K_diag(Xnew) - torch.sum(A * A, dim=0))[:, None] + SW2
         return mean, var
+
+    def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False,
+                  safe: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Predictive mean [S, R] and variance [S, R] (or covariance
+        [R, S, S] with ``full_cov``). ``safe=False`` (the ELBO's call) uses
+        the single-jitter Cholesky. Both solves are triangular solves
+        against Kus, whatever its width."""
+        return self.predict_f_from(self.predict_factors(safe), Xnew, full_cov)
 
     def predict_y(self, Xnew: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         mu, var = self.predict_f(Xnew)

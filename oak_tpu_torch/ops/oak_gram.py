@@ -17,12 +17,16 @@ Dims that are not RBF-form (binary, categorical) are evaluated here as
 ``extra`` grams [E, N, M] that join the power sums.
 
 ``oak_gram_fused`` takes the plain version, with autograd, for CPU tensors.
-For CUDA tensors it runs ``FusedGram``, a ``torch.autograd.Function`` whose
-forward launches ``csrc/oak_gram_fwd.cu`` and whose backward launches
-``csrc/oak_gram_bwd.cu``, or raises; it never falls back. The forward saves
-only the prescaled inputs, and the backward recomputes the per-dim grams
-(``oak_tpu`` measured that storing the [D, N, M] grams loses,
-oak_gram_pallas.py:523-535).
+For CUDA tensors the forward kernel ``csrc/oak_gram_fwd.cu`` runs behind the
+registered op ``torch.ops.oak_tpu_torch.oak_gram_fwd``, so that
+``torch.export`` traces it (its fake returns the [N, M] output) and an
+exported predict launches the same kernel as a live one; the op's CPU
+implementation is the plain version. When a gradient is taken the op runs
+inside ``FusedGram``, a ``torch.autograd.Function`` whose backward launches
+``csrc/oak_gram_bwd.cu``. A CUDA input launches a kernel or raises; nothing
+falls back. The forward saves only the prescaled inputs, and the backward
+recomputes the per-dim grams (``oak_tpu`` measured that storing the
+[D, N, M] grams loses, oak_gram_pallas.py:523-535).
 """
 
 from __future__ import annotations
@@ -301,6 +305,28 @@ def _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("oak_tpu_torch::oak_gram_fwd", mutates_args=(),
+                         device_types="cuda")
+def oak_gram_fwd_op(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor,
+                    c2: torch.Tensor, extra: torch.Tensor, logb: torch.Tensor,
+                    sig2: torch.Tensor, depth: int) -> torch.Tensor:
+    """The gram [N, M] as a registered op: on CUDA tensors the forward
+    kernel (checked, then launched; ``LAUNCHES`` counts it), on CPU tensors
+    ``oak_gram_plain``. No autograd of its own: ``FusedGram`` gives it one."""
+    _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth)
+    return _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth)
+
+
+@oak_gram_fwd_op.register_kernel("cpu")
+def _oak_gram_fwd_cpu(u1, u2, c1, c2, extra, logb, sig2, depth):
+    return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
+
+
+@oak_gram_fwd_op.register_fake
+def _oak_gram_fwd_fake(u1, u2, c1, c2, extra, logb, sig2, depth):
+    return u1.new_empty((u1.shape[1], u2.shape[1]))
+
+
 def _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
                 with_dextra: bool) -> Grads:
     """``oak_gram_bwd_f32`` on inputs ``_check_cuda_inputs`` accepted: the
@@ -363,17 +389,15 @@ class FusedGram(torch.autograd.Function):
     """The gram with a recompute backward: the forward saves only the
     prescaled inputs, never the [D, N, M] grams, and the backward
     recomputes them (``oak_tpu``'s ``_gram_op``, oak_gram_pallas.py:497-569).
-    On CUDA the forward launches the forward kernel and the backward the
-    backward kernel; on the CPU they are the two plain versions."""
+    The forward is the registered op (the forward kernel on CUDA), the
+    backward the backward kernel; on the CPU they are the two plain
+    versions."""
 
     @staticmethod
     def forward(ctx, u1, u2, c1, c2, extra, logb, sig2, depth):
         ctx.depth = depth
         ctx.save_for_backward(u1, u2, c1, c2, extra, logb, sig2)
-        if not any(t.is_cuda for t in (u1, u2, c1, c2, extra, logb, sig2)):
-            return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
-        _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth)
-        return _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth)
+        return oak_gram_fwd_op(u1, u2, c1, c2, extra, logb, sig2, depth)
 
     @staticmethod
     @once_differentiable
@@ -388,13 +412,17 @@ def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
     """The OAK gram [N, M] from prescaled inputs (see ``_prep``).
 
     CPU tensors go to ``oak_gram_plain`` (with autograd). CUDA tensors go
-    through ``FusedGram``: the forward kernel ``oak_gram_fwd_f32`` and, when
-    a gradient is taken, the backward kernel ``oak_gram_bwd_f32``, or raise.
-    They must be float32, contiguous, on one device, of consistent shapes,
-    with depth >= 1 and ``clamped_depth(depth, D, E) <= MAX_DEPTH``."""
-    if not any(t.is_cuda for t in (u1, u2, c1, c2, extra, logb, sig2)):
-        return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
-    return FusedGram.apply(u1, u2, c1, c2, extra, logb, sig2, depth)
+    to the registered op, the forward kernel ``oak_gram_fwd_f32``, inside
+    ``FusedGram`` when a gradient is taken (the backward kernel
+    ``oak_gram_bwd_f32``), or raise. They must be float32, contiguous, on
+    one device, of consistent shapes, with depth >= 1 and
+    ``clamped_depth(depth, D, E) <= MAX_DEPTH``."""
+    inputs = (u1, u2, c1, c2, extra, logb, sig2)
+    if not any(t.is_cuda for t in inputs):
+        return oak_gram_plain(*inputs, depth)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return FusedGram.apply(*inputs, depth)
+    return oak_gram_fwd_op(*inputs, depth)
 
 
 def oak_gram(oak, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -333,3 +333,74 @@ def test_fit_lbfgs_on_the_card_reaches_the_cpu_f64_loss(cuda):
         fits[dtype] = fit_lbfgs(m, lambda m: m.training_loss(), max_iters=200)
     f32, f64 = fits[torch.float32].fun, fits[torch.float64].fun
     assert np.isfinite(f32) and abs(f32 - f64) < 1e-3 * abs(f64), (f32, f64)
+
+
+def test_exported_predict_on_the_card_matches_live_and_launches_k1(cuda, tmp_path):
+    """A small default-built oak_model (float32 on the card) serialized with
+    serving.serialize_predict and loaded back: every batch size, 1 row
+    included, equals the live predict within 1e-5 of max |live| (the same
+    float32 arithmetic, the scalers in float32 here and float64 in the live
+    path), each served call launches K1, and the (mean, std) artifact's
+    mean equals the mean-only one. The card's artifact moved to the CPU
+    runs the op's plain version, and an artifact traced on the CPU the
+    per-dim route; both launch nothing and agree within 1e-3."""
+    from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict
+
+    X, y = _oak_data(n=200, seed=75)
+    oak = oak_model(max_interaction_depth=2).fit(X, y, optimise=False)
+    oak.optimise(max_iters=10)
+    serialize_predict(oak, tmp_path / "predict.pt2")
+    f = deserialize_predict(tmp_path / "predict.pt2")
+    fv = deserialize_predict(serialize_predict(oak, include_var=True))
+    live = oak.predict(X, clip=True)
+    for rows in (1, 2, 37, 200):
+        before = og.LAUNCHES
+        served = f(X[:rows])
+        torch.cuda.synchronize()
+        assert og.LAUNCHES == before + 1, rows
+        assert served.is_cuda and served.shape == (rows,)
+        err = np.abs(served.cpu().numpy() - live[:rows]).max() / np.abs(live).max()
+        assert err < 1e-5, (rows, err)
+    mean, std = fv(X)
+    assert torch.equal(mean, f(X)) and bool((std > 0).all())
+    # the CPU copy runs the plain gram and LAPACK in float32: the card's
+    # float32 against the CPU's, under phase 3's end-to-end bound of
+    # chip_smoke.py (1e-3 of max |live|)
+    for cpu in (deserialize_predict(tmp_path / "predict.pt2", device="cpu"),
+                deserialize_predict(serialize_predict(oak, device="cpu"))):
+        before = og.LAUNCHES
+        on_cpu = cpu(X).numpy()
+        assert og.LAUNCHES == before
+        assert np.abs(on_cpu - live).max() < 1e-3 * np.abs(live).max()
+
+
+def test_cpu_model_serialized_for_the_card_traces_k1(cuda):
+    """A float32 model on the CPU serialized with device="cuda" is traced on
+    the card from a moved copy: its graph holds the registered op, each
+    served call launches K1, and it agrees with the CPU's live predict
+    within 1e-3 (phase 3's end-to-end bound of chip_smoke.py)."""
+    import io
+
+    from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict
+
+    X, y = _oak_data(n=200, seed=77)
+    oak = oak_model(max_interaction_depth=2, dtype=torch.float32, device="cpu")
+    oak.fit(X, y, optimise=False)
+    blob = serialize_predict(oak, device="cuda")
+    ep = torch.export.load(io.BytesIO(blob))
+    assert torch.ops.oak_tpu_torch.oak_gram_fwd.default in {n.target for n in ep.graph.nodes}
+    f = deserialize_predict(blob)
+    before = og.LAUNCHES
+    served = f(X)
+    torch.cuda.synchronize()
+    assert served.is_cuda and og.LAUNCHES == before + 1
+    live = oak.predict(X, clip=True)
+    assert np.abs(served.cpu().numpy() - live).max() < 1e-3 * np.abs(live).max()
+
+
+def test_registered_forward_op_passes_opcheck_on_the_card(cuda):
+    """torch.library.opcheck of oak_tpu_torch::oak_gram_fwd on CUDA tensors:
+    the schema, the fake against the kernel, and AOT dispatch with dynamic
+    shapes."""
+    args = prescaled_inputs(76, 6, 40, 24, 1, 3, cuda)
+    torch.library.opcheck(og.oak_gram_fwd_op, (*args, 3))
