@@ -84,7 +84,18 @@ non-zero before the result line:
    torch UCI scripts (examples/uci_torch/) run end to end with --k 2
    --max_iters 30 --restarts 0; then K1 and K2 held against their plain
    versions at the shapes the phase adds (heart's Kus and Kuf with 8 extra
-   grams at depth 4, autoMPG's square K(X) at depth 7).
+   grams at depth 4, autoMPG's square K(X) at depth 7);
+11. the rest of the user surface (phase_surface): the effect-plot data
+   (plotting's posterior math on plot_model's grids) of the committed
+   pumadyn fold 0's top 5 components and summed order-1 profile, in float32
+   on the card against float64 (mean within 1e-3 of max |mean|, variance
+   within 1e-3 of the largest prior variance), K1 launched, and the same for
+   heart fold 0 with its binary and categorical effects (no figure is
+   drawn: the card's machine has no matplotlib); Timer, trace_annotation
+   and profile around a warm predict_f; cholesky_health of Kuu, checked()
+   over the loss and gradient (K1 and K2 inside; a NaN raw raises and
+   assert_finite names it); compat's sufficient statistics, Sobol values
+   and compute_L bitwise equal to the canonical calls.
 
 Each phase prints its seconds. Then one JSON line about the kernels, and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
@@ -1476,6 +1487,288 @@ def _committed_shapes(heart, Xh):
     return shapes
 
 
+PLOT_TOP = 5  # plot_model's top_n in examples/uci_torch/uci_plotting.py
+PLOT_TOL = 1e-3  # f32 plot data against f64: mean of max |mean|, variance of the prior
+
+
+def _plot_grids(oak, dims):
+    """The grid columns plot_model evaluates the component ``dims`` on
+    (oak_tpu_torch/plotting.py): 100 points over a continuous dim's data,
+    the two levels of a binary dim, every level of a categorical one, a
+    50 x 50 grid between the 2 % and 98 % quantiles of two continuous dims,
+    100 x 2 for a continuous and a binary dim; i == D, the summed order-1
+    profile, on 100 points of [-3, 3]. None for what plot_model skips
+    (orders above 2, two discrete dims)."""
+    X, cont, binary = oak.X_scaled, oak.continuous_index, oak.binary_index
+    if dims == (oak.num_dims,):
+        return [np.linspace(-3.0, 3.0, 100)]
+    if len(dims) == 1:
+        i = dims[0]
+        if i in cont:
+            return [np.linspace(X[:, i].min(), X[:, i].max(), 100)]
+        if i in binary:
+            return [np.array([0.0, 1.0])]
+        return [np.arange(float(oak.m.kernel.kernels[i].p.shape[0]))]
+    if len(dims) != 2:
+        return None
+    i, j = dims
+    if i in cont and j in cont:
+        lo_i, hi_i = np.percentile(X[:, i], (2, 98))
+        lo_j, hi_j = np.percentile(X[:, j], (2, 98))
+        gx, gy = np.meshgrid(np.linspace(lo_i, hi_i, 50), np.linspace(lo_j, hi_j, 50))
+        return [gx.flatten(), gy.flatten()]
+    if {i, j} <= set(cont) | set(binary) and (i in cont) != (j in cont):
+        c = i if i in cont else j
+        lo, hi = np.percentile(X[:, c], (2, 98))
+        xx, yy = np.mgrid[lo:hi:100j, 0:1:2j]
+        return [xx.flatten(), yy.flatten()] if i == c else [yy.flatten(), xx.flatten()]
+    return None
+
+
+def _plot_data(oak, components):
+    """{dims: (mean, variance, prior variance)} of each component on its
+    plot grid, through the port's posterior math on the model's device
+    (plotting._component_posterior, and _summed_order1_posterior for
+    i == D); the prior v·K_diag is the scale at which float32's variance
+    cancels."""
+    from oak_tpu_torch import plotting
+    from oak_tpu_torch.kernels.oak_kernel import kernel_K_diag
+
+    out = {}
+    m, D = oak.m, oak.num_dims
+    Xc = plotting._conditioning_inputs(m)
+    for dims in components:
+        cols = _plot_grids(oak, dims)
+        if cols is None:
+            continue
+        with torch.no_grad():
+            if dims == (D,):
+                mu, var = plotting._summed_order1_posterior(m, cols[0])
+                s = plotting._on(cols[0], Xc)
+                prior = plotting._order_variance(m, 1, Xc) * sum(
+                    kernel_K_diag(m.kernel.kernels[i], s) for i in oak.continuous_index)
+            else:
+                mu, var = plotting._component_posterior(m, list(dims), cols)
+                prior = plotting._order_variance(m, len(dims), Xc)
+                for d, col in zip(dims, cols):
+                    prior = prior * kernel_K_diag(m.kernel.kernels[d], plotting._on(col, Xc))
+        out[dims] = (mu, var, prior.double().cpu().numpy())
+    return out
+
+
+def _plot_components(oak, extra=()):
+    """The top PLOT_TOP components by normalised Sobol index (oak.get_sobol
+    on the card), the summed order-1 profile (D,) and ``extra``."""
+    oak.get_sobol()
+    order = np.argsort(oak.normalised_sobols)[::-1][:PLOT_TOP]
+    top = [tuple(oak.tuple_of_indices[n]) for n in order]
+    return top + [(oak.num_dims,)] + [c for c in extra if c not in top]
+
+
+def _plot_gate(name, data, data64):
+    """Each component's f32 mean within PLOT_TOL of max |f64 mean| and its
+    variance within PLOT_TOL of the largest f64 prior variance on the grid."""
+    worst, parts = [0.0, 0.0], []
+    for dims, (mu, var, _) in data.items():
+        mu64, var64, prior64 = data64[dims]
+        e_mu = float(np.abs(mu - mu64).max() / max(np.abs(mu64).max(), 1e-300))
+        e_var = float(np.abs(var - var64).max() / prior64.max())
+        worst = [max(worst[0], e_mu), max(worst[1], e_var)]
+        parts.append(f"{dims} {len(mu)} pts mean {e_mu:.2e} var {e_var:.2e}")
+        if not (np.isfinite(mu).all() and np.isfinite(var).all() and e_mu < PLOT_TOL
+                and e_var < PLOT_TOL):
+            raise RuntimeError(f"{name} plot data {dims}: mean {e_mu:.3e} of max |mean|, "
+                               f"variance {e_var:.3e} of the prior (tol {PLOT_TOL})")
+    return worst, parts
+
+
+def phase_surface(device):
+    """Phase 11, the rest of the user surface on the card.
+
+    11.1 effect-plot data: oak_tpu's committed pumadyn fold 0 (SGPR, N 6553,
+    D 8, depth 8, M 500) loaded in float32 on the card, get_sobol, then the
+    posterior mean and variance of its top 5 components and of the summed
+    order-1 profile on plot_model's grids (_plot_grids), against the same
+    computation on the file loaded in float64 on the card (_plot_gate); the
+    same for heart fold 0 (a Bernoulli SVGP) with every binary and
+    categorical single effect added. No figure is drawn: the card's
+    machine has no matplotlib.
+    11.2 profiling: Timer around a warm predict_f of pumadyn's 1639 test
+    rows reads, call by call, no less than CUDA events around the same call
+    (with block_on, and with None); trace_annotation("oak.predict") shows by name
+    in a torch.profiler table of that call; profile() writes a trace into
+    chiprun_out/phase11_trace/.
+    11.3 diagnostics: cholesky_health of pumadyn's Kuu in float32 (through
+    K1) and float64; checked(loss and gradient) of the committed model
+    passes with K1 and K2 launched inside it; with a lengthscale's raw set
+    to NaN on a copy, it raises and assert_finite names that raw's path; an
+    inf made in a backward (autograd's worker thread on the card) raises.
+    11.4 compat: get_model_sufficient_statistics and compute_sobol_oak on
+    the float32 model equal the canonical calls bitwise, and compute_L at
+    each dim equals sobol.compute_L_gaussian bitwise.
+
+    Returns the K1 and K2 launches of the phase."""
+    import copy
+    import importlib.util
+
+    from oak_tpu_torch import compat, load_oak_model, sobol
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.params import trainable_params
+    from oak_tpu_torch.utils import (Timer, assert_finite, checked, cholesky_health, profile,
+                                     trace_annotation)
+
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    path = COMMITTED / "pumadyn" / "model_oak_0.npz"
+    oak = load_oak_model(path)
+    oak64 = load_oak_model(path, dtype=torch.float64)
+    t0 = time.perf_counter()
+    data = _plot_data(oak, _plot_components(oak))
+    torch.cuda.synchronize()
+    plot_s = time.perf_counter() - t0
+    k1_plot = og.LAUNCHES
+    data64 = _plot_data(oak64, list(data))
+    worst, parts = _plot_gate("pumadyn", data, data64)
+    heart_path = COMMITTED / "heart" / "model_oak_0.npz"
+    heart, heart64 = load_oak_model(heart_path), load_oak_model(heart_path, dtype=torch.float64)
+    discrete = [(i,) for i in heart.binary_index + heart.categorical_index]
+    hdata = _plot_data(heart, _plot_components(heart, discrete))
+    hworst, hparts = _plot_gate("heart", hdata, _plot_data(heart64, list(hdata)))
+    k1 = og.LAUNCHES
+    drawn = ("no figure drawn: matplotlib is not installed here"
+             if importlib.util.find_spec("matplotlib") is None
+             else "no figure drawn (drawing runs on the CPU)")
+    print(f"phase 11.1 plot data on the card, f32 vs f64 (tol {PLOT_TOL}: mean of max |mean|, "
+          f"variance of the largest prior variance): pumadyn top {PLOT_TOP} and the summed "
+          f"order-1 profile in {plot_s:.3f} s of host time (get_sobol included; K1 launches "
+          f"{k1_plot}), worst mean {worst[0]:.2e}, variance {worst[1]:.2e} [{'; '.join(parts)}]; "
+          f"heart top {PLOT_TOP}, the profile and its binary and categorical effects: worst "
+          f"mean {hworst[0]:.2e}, variance {hworst[1]:.2e} [{'; '.join(hparts)}]; K1 launches "
+          f"in 11.1 {k1}; {drawn}")
+    if k1_plot == 0:
+        raise RuntimeError("the plot data did not launch K1")
+    del heart64
+
+    t0 = time.perf_counter()
+    Xte = pumadyn_fold0()[2]
+    Xs = oak._tensor(oak._scaled_input(Xte, True))
+    with torch.no_grad():
+        def predict():
+            return oak.m.predict_f(Xs)
+
+        predict()
+        calls = []  # (mode, Timer ms, CUDA-event ms) per call
+        for mode in ("block_on", "every card") * 3:
+            timer, outs = Timer(), []
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with timer(mode, block_on=outs if mode == "block_on" else None):
+                start.record()
+                outs.append(predict()[1])
+                end.record()
+            torch.cuda.synchronize()
+            calls.append((mode, 1e3 * timer.results[mode], start.elapsed_time(end)))
+        t_ms = {m: float(np.mean([t for k, t, _ in calls if k == m])) for m in ("block_on",
+                                                                                "every card")}
+        ev_ms = float(np.mean([e for _, _, e in calls]))
+        margin = min(t - e for _, t, e in calls)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with trace_annotation("oak.predict"):
+                predict()
+            torch.cuda.synchronize()
+        keys = {e.key for e in prof.key_averages()}
+        trace_dir = REPO / "chiprun_out" / "phase11_trace"
+        with profile(trace_dir):
+            with trace_annotation("oak.predict"):
+                predict()
+            torch.cuda.synchronize()
+    traces = sorted(trace_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+    trace_bytes = traces[-1].stat().st_size if traces else 0
+    print(f"phase 11.2 profiling ({time.perf_counter() - t0:.3f} s): Timer around a warm "
+          f"predict_f of {len(Xte)} rows {t_ms['block_on']:.3f} ms with block_on, "
+          f"{t_ms['every card']:.3f} ms waiting for every card, against CUDA events "
+          f"{ev_ms:.3f} ms (means of 3 calls each; Timer - events per call at least "
+          f"{margin:.3f} ms); 'oak.predict' in the torch.profiler table: "
+          f"{'oak.predict' in keys}; profile() wrote {traces[-1].name if traces else 'nothing'} "
+          f"({trace_bytes} bytes) into {trace_dir.relative_to(REPO)}")
+    if not (margin >= 0.0 and "oak.predict" in keys and trace_bytes > 0):
+        raise RuntimeError(f"profiling: Timer vs events per call {calls}, annotation "
+                           f"{'oak.predict' in keys}, trace {trace_bytes} bytes")
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        health = cholesky_health(oak.m.kernel.K(oak.m.Z.value))
+        health64 = cholesky_health(oak64.m.kernel.K(oak64.m.Z.value))
+    del oak64
+
+    def loss_and_grad(model):
+        raws = [p.raw for p in trainable_params(model)]
+        return torch.autograd.grad(model.training_loss(), raws)
+
+    before = (og.LAUNCHES, og.BWD_LAUNCHES)
+    grads = checked(loss_and_grad)(oak.m)
+    inside = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+    broken = copy.deepcopy(oak.m)
+    with torch.no_grad():
+        broken.kernel.kernels[3].lengthscale.raw.fill_(float("nan"))
+    try:
+        checked(loss_and_grad)(broken)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raised = None
+    try:
+        assert_finite(broken, "model")
+    except FloatingPointError as e:
+        named = str(e)
+    else:
+        named = ""
+    # autograd runs a CUDA backward on a worker thread: the mode must reach
+    # it (sqrt is finite at 0, its derivative is not)
+    x = torch.tensor([4.0, 0.0], device=device, requires_grad=True)
+    try:
+        checked(lambda: torch.autograd.grad(torch.sqrt(x).sum(), x))()
+    except FloatingPointError as e:
+        in_backward = str(e)
+    else:
+        in_backward = None
+    print(f"phase 11.3 diagnostics ({time.perf_counter() - t0:.3f} s): cholesky_health of "
+          f"Kuu {PUMA_M}x{PUMA_M}, f32 through K1: eig_min {health['eig_min']:.4g}, eig_max "
+          f"{health['eig_max']:.4g}, condition {health['condition']:.4g}, diag_min "
+          f"{health['diag_min']:.4g}, finite {health['finite']}; f64: eig_min "
+          f"{health64['eig_min']:.4g}, condition {health64['condition']:.4g}; checked(loss and "
+          f"gradient) clean, {len(grads)} gradients, K1 {inside[0]} and K2 {inside[1]} launches "
+          f"inside; with kernels[3].lengthscale.raw NaN it raised: {raised}; assert_finite: "
+          f"{named}; an inf made in a CUDA backward raised: {in_backward}")
+    if not (inside[0] > 0 and inside[1] > 0 and raised is not None and in_backward is not None
+            and ".kernel.kernels[3].lengthscale.raw" in named
+            and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise RuntimeError(f"diagnostics: launches {inside}, raised {raised!r}, named {named!r}")
+    del broken
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        alpha, L = compat.get_model_sufficient_statistics(oak.m)
+        same = [torch.equal(alpha, oak.m.posterior_stats()[0])]
+        tuples, values = compat.compute_sobol_oak(oak.m, 1.0, 0.0)
+        ctuples, cvalues = sobol.compute_sobol_oak(oak.m)
+        same.append(tuples == ctuples and np.array_equal(values, cvalues))
+        Z = oak.m.Z.value
+        for d, k in enumerate(oak.m.kernel.kernels):
+            l, v = k.lengthscale.value, k.variance.value
+            ours = compat.compute_L(Z, l, v, d, 1.0, 0.0)
+            one = torch.ones((), dtype=Z.dtype, device=Z.device)
+            ref = sobol.compute_L_gaussian(Z[:, d], l, v, one, 0.0 * one).cpu().numpy()
+            same.append(np.array_equal(ours, ref))
+    print(f"phase 11.4 compat on the card ({time.perf_counter() - t0:.3f} s): "
+          f"get_model_sufficient_statistics' alpha, compute_sobol_oak's {len(values)} values "
+          f"and compute_L at the {PUMA_D} dims equal the canonical calls bitwise: {same}; L "
+          f"{L.shape}, finite {bool(np.isfinite(L).all())}")
+    if not (all(same) and np.isfinite(L).all()):
+        raise RuntimeError(f"compat on the card: bitwise equal {same}")
+    return {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+
+
 def _host_ms(fn, repeats):
     """Median host-clock ms of fn() with the card synchronized on both ends."""
     times = []
@@ -1655,7 +1948,7 @@ def profile_sobol(model, device, repeats=5):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-10, print where a warm predict_y "
+                        help="instead of phases 2-11, print where a warm predict_y "
                              "request's, a warm training step's and a full Sobol "
                              "decomposition's time goes (host clock and torch.profiler)")
     parser.add_argument("--old", metavar="DIR",
@@ -1697,6 +1990,7 @@ def main():
     timed("8", phase_defaults, device)
     oak_launches, oak_kernels = timed("9", phase_oak_model, device)
     committed_launches = timed("10", phase_committed, device)
+    surface_launches = timed("11", phase_surface, device)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
@@ -1720,11 +2014,12 @@ def main():
               "oak_tpu/ops/oak_gram_pallas.py:63",
               predict_launches + train_launches["fwd"] + sobol_launches
               + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"]
-              + committed_launches["fwd"], kernel, oak_kernels["K1"]),
+              + committed_launches["fwd"] + surface_launches["fwd"], kernel, oak_kernels["K1"]),
         entry("oak_gram_bwd_f32", "oak_tpu_torch/csrc/oak_gram_bwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:158",
               train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"]
-              + oak_launches["bwd"] + committed_launches["bwd"], kernel_bwd,
+              + oak_launches["bwd"] + committed_launches["bwd"] + surface_launches["bwd"],
+              kernel_bwd,
               oak_kernels["K2"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

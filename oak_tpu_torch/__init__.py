@@ -3,10 +3,12 @@ SVGP, SGPR and GPR (Gaussian and Bernoulli likelihoods), trained by L-BFGS,
 scipy, Adam or natural gradients, single- or multi-start; posterior sampling;
 Sobol indices with per-component predictions; normalising flows and input
 preprocessing; ``oak_model``, the user-facing wrapper, with its checkpoint,
-the reference's positional checkpoint layout, the experiment configs and
-the ``torch.export`` serving artifact. The fused OAK gram forward and
-backward are hand-written CUDA kernels for Hopper (``csrc/oak_gram_fwd.cu``,
-``csrc/oak_gram_bwd.cu``).
+the reference's positional checkpoint layout, the experiment configs,
+the ``torch.export`` serving artifact, the effect plots (``plotting``,
+matplotlib imported only to draw), the reference-name layer (``compat``)
+and the timers and numerical diagnostics of ``utils``. The fused OAK gram
+forward and backward are hand-written CUDA kernels for Hopper
+(``csrc/oak_gram_fwd.cu``, ``csrc/oak_gram_bwd.cu``).
 
 Imports torch, numpy and scipy only. Module names follow ``oak_tpu``'s, so
 each module's JAX counterpart has the same path, and this package exports

@@ -12,7 +12,8 @@ Training minimises
 A ``Normalizer`` is an ``nn.Module`` whose fields carry the JAX key paths
 (``.skewness.raw``, ``.tailweight.raw``, ``.scale.raw``, ``.shift.raw``,
 ``.offset``), so that an ``oak_model`` checkpoint's ``flow{i}`` entries load
-in either package. ``plot_flow`` is not ported.
+in either package. ``plot_flow`` (and ``Normalizer.plot``) draws the
+diagnostic figure with matplotlib, imported when it is called.
 """
 
 from __future__ import annotations
@@ -91,6 +92,9 @@ class Normalizer(nn.Module):
         """x as a tensor of the flow's dtype on its device."""
         return torch.as_tensor(x, dtype=self.offset.dtype, device=self.offset.device)
 
+    def plot(self, x, title: str = "Normalising Flow"):
+        return plot_flow(self, x, title=title)
+
 
 def _build(X_cols: np.ndarray, log: bool, dtype, device, scalar: bool) -> Normalizer:
     """A Normalizer initialised from the columns of X_cols [N, K]: vector
@@ -160,6 +164,28 @@ def fit_normalizers(X_cols: np.ndarray, log: bool = True, max_iters: int = 200,
     return [Normalizer(part(n.skewness, k), part(n.tailweight, k), part(n.scale, k),
                        part(n.shift, k), n.offset[k].clone(), log=log)
             for k in range(X_cols.shape[1])]
+
+
+def plot_flow(normalizer: Normalizer, x, title: str = "Normalising Flow"):
+    """The flow's diagnostic figure: x against T(x), with the histograms of
+    both at the margins (the reference's normalising_flow.py:58-71)."""
+    from .plotting import _pyplot
+
+    plt = _pyplot()
+    x = np.asarray(x, np.float64).reshape(-1)
+    with torch.no_grad():
+        y = normalizer.forward(normalizer.as_input(x)).cpu().numpy()
+    f = plt.figure()
+    ax = f.add_axes([0.3, 0.3, 0.65, 0.65])
+    ax.plot(x, y, "k.", label="Gaussian")
+    ax.legend()
+    ax_x = f.add_axes([0.3, 0.05, 0.65, 0.25], sharex=ax)
+    ax_x.hist(x, bins=20)
+    ax_y = f.add_axes([0.05, 0.3, 0.25, 0.65], sharey=ax)
+    ax_y.hist(y, bins=20, orientation="horizontal")
+    ax_y.set_xlim(ax_y.get_xlim()[::-1])
+    ax.set_title(title)
+    return f
 
 
 def kstest(normalizer: Normalizer, x) -> tuple:

@@ -12,9 +12,11 @@ first fit: the retry after a degenerate or pathological L-BFGS fit restarts
 from that copy, as ``oak_tpu`` restarts from its untouched ``self.m``.
 
 ``export_predict`` gives the predict path as one module over raw inputs,
-which ``serving`` exports with ``torch.export``.
+which ``serving`` exports with ``torch.export``. ``plot`` draws the ranked
+effects with ``plotting.plot_model``: the posterior math on the model's
+device, the figures with matplotlib on the CPU.
 
-Not ported here: ``mesh=`` / ``data_mesh=`` (ROADMAP P16) and ``plot`` (P14).
+Not ported here: ``mesh=`` / ``data_mesh=`` (ROADMAP P16).
 """
 
 from __future__ import annotations
@@ -644,6 +646,13 @@ class oak_model:
         inputs when None); with the constant they sum to the mean."""
         X = self.X_scaled if X is None else self._scaled_input(X, clip)
         return sobol_mod.get_prediction_component(self.m, X=self._tensor(X))
+
+    def plot(self, *args, **kwargs):
+        """The top components' effect figures, ranked by Sobol index
+        (``plotting.plot_model``; matplotlib is imported to draw them)."""
+        from . import plotting
+
+        return plotting.plot_model(self, *args, **kwargs)
 
     # ------------------------------------------------------------------ #
     def save(self, path):

@@ -83,16 +83,21 @@ class GPR(nn.Module):
         return {"X": self.X, "L": L, "LinvY": solve_lower(L, self.Y)}
 
     def predict_f_from(self, factors: Dict[str, torch.Tensor], Xnew: torch.Tensor,
-                       full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                       full_cov: bool = False, kernel=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``predict_f`` on ``predict_factors``: K(X, Xnew), K_diag and one
         triangular solve, with no host synchronisation (``serving`` traces
-        it)."""
+        it).
+
+        ``kernel``, if given, takes the model kernel's place in K and K_diag:
+        the posterior of one additive component (``plotting``)."""
+        k = self.kernel if kernel is None else kernel
         LinvY = factors["LinvY"]
-        A = solve_lower(factors["L"], self.kernel.K(factors["X"], Xnew))  # [N, S]
+        A = solve_lower(factors["L"], k.K(factors["X"], Xnew))  # [N, S]
         mean = A.T @ LinvY
         if full_cov:
-            return mean, self.kernel.K(Xnew) - A.T @ A
-        var = self.kernel.K_diag(Xnew) - torch.sum(A * A, dim=0)
+            return mean, k.K(Xnew) - A.T @ A
+        var = k.K_diag(Xnew) - torch.sum(A * A, dim=0)
         return mean, var[:, None].repeat(1, LinvY.shape[1])
 
     def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False

@@ -104,17 +104,22 @@ class SGPR(nn.Module):
         return {"Z": self.Z.value, "L": L, "LB": LB, "c": c}
 
     def predict_f_from(self, factors: Dict[str, torch.Tensor], Xnew: torch.Tensor,
-                       full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                       full_cov: bool = False, kernel=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``predict_f`` on ``predict_factors``: Kus, K_diag and two
         triangular solves, with no host synchronisation (``serving`` traces
-        it)."""
+        it).
+
+        ``kernel``, if given, takes the model kernel's place in K and K_diag:
+        the posterior of one additive component (``plotting``)."""
+        k = self.kernel if kernel is None else kernel
         c = factors["c"]
-        tmp1 = solve_lower(factors["L"], self.kernel.K(factors["Z"], Xnew))  # [M, S]
+        tmp1 = solve_lower(factors["L"], k.K(factors["Z"], Xnew))  # [M, S]
         tmp2 = solve_lower(factors["LB"], tmp1)
         mean = tmp2.T @ c
         if full_cov:
-            return mean, self.kernel.K(Xnew) - tmp1.T @ tmp1 + tmp2.T @ tmp2
-        var = (self.kernel.K_diag(Xnew) - torch.sum(tmp1 * tmp1, dim=0)
+            return mean, k.K(Xnew) - tmp1.T @ tmp1 + tmp2.T @ tmp2
+        var = (k.K_diag(Xnew) - torch.sum(tmp1 * tmp1, dim=0)
                + torch.sum(tmp2 * tmp2, dim=0))
         return mean, var[:, None].repeat(1, c.shape[1])
 

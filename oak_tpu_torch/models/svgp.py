@@ -105,11 +105,16 @@ class SVGP(nn.Module):
                 "q_mu": self.q_mu.value, "q_sqrt": self.q_sqrt.value}
 
     def predict_f_from(self, factors: Dict[str, torch.Tensor], Xnew: torch.Tensor,
-                       full_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                       full_cov: bool = False, kernel=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``predict_f`` on ``predict_factors``: Kus, K_diag and triangular
-        solves, with no host synchronisation (``serving`` traces it)."""
+        solves, with no host synchronisation (``serving`` traces it).
+
+        ``kernel``, if given, takes the model kernel's place in K and K_diag:
+        the posterior of one additive component (``plotting``)."""
+        k = self.kernel if kernel is None else kernel
         Luu, q_mu, q_sqrt = factors["Luu"], factors["q_mu"], factors["q_sqrt"]
-        Kus = self.kernel.K(factors["Z"], Xnew)  # [M, S]
+        Kus = k.K(factors["Z"], Xnew)  # [M, S]
         R = q_mu.shape[1]
         A = solve_lower(Luu, Kus)  # Luu⁻¹ Kus
         W = A if self.whiten else solve_upper(Luu, A)  # Kuu⁻¹ Kus unwhitened
@@ -122,7 +127,7 @@ class SVGP(nn.Module):
             SW2 = torch.sum(LqTW * LqTW, dim=1).T  # [S, R]
 
         if full_cov:
-            base = self.kernel.K(Xnew) - A.T @ A
+            base = k.K(Xnew) - A.T @ A
             if self.q_diag:
                 covs = torch.stack([
                     base + (W * (q_sqrt[:, r] ** 2)[:, None]).T @ W for r in range(R)])
@@ -131,7 +136,7 @@ class SVGP(nn.Module):
                 covs = torch.stack([
                     base + (Lq[r].T @ W).T @ (Lq[r].T @ W) for r in range(R)])
             return mean, covs
-        var = (self.kernel.K_diag(Xnew) - torch.sum(A * A, dim=0))[:, None] + SW2
+        var = (k.K_diag(Xnew) - torch.sum(A * A, dim=0))[:, None] + SW2
         return mean, var
 
     def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False,

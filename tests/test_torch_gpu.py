@@ -404,3 +404,25 @@ def test_registered_forward_op_passes_opcheck_on_the_card(cuda):
     shapes."""
     args = prescaled_inputs(76, 6, 40, 24, 1, 3, cuda)
     torch.library.opcheck(og.oak_gram_fwd_op, (*args, 3))
+
+
+def test_checked_reaches_the_cuda_backward_and_passes_both_kernels(cuda):
+    """utils.checked on the card: an inf made in a backward, which autograd
+    runs on a worker thread for CUDA tensors, raises; a clean forward and
+    backward through K1 and K2 passes, both launched inside."""
+    from oak_tpu_torch.utils import checked
+
+    x = torch.tensor([4.0, 0.0], device=cuda, requires_grad=True)
+    with pytest.raises(FloatingPointError):
+        checked(lambda: torch.autograd.grad(torch.sqrt(x).sum(), x))()
+    args = [t.requires_grad_(True) for t in prescaled_inputs(75, 6, 40, 24, 1, 3, cuda)]
+
+    def gram_and_grads():
+        g = og.oak_gram_fused(*args, 3)
+        return g, torch.autograd.grad(g.sum(), args)
+
+    before = (og.LAUNCHES, og.BWD_LAUNCHES)
+    out, grads = checked(gram_and_grads)()
+    torch.cuda.synchronize()
+    assert og.LAUNCHES > before[0] and og.BWD_LAUNCHES > before[1]
+    assert bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all()) for g in grads)

@@ -16,6 +16,7 @@ oak_tpu's at float64, on small data (N = 120, D = 3, depth 2):
 
 import copy
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,10 +28,21 @@ import oak_tpu.params as jp
 from oak_tpu_torch import checkpoint as tckpt
 from oak_tpu_torch import model as tmodel
 from oak_tpu_torch import params as tp
+from tests.test_torch_uci_artifacts import compiled_jax_predict  # noqa: F401
 
 KW = dict(dtype=torch.float64, device="cpu")
 REL, LOSS_REL, LOAD_REL = 1e-8, 1e-6, 1e-9
 N, DEPTH = 120, 2
+
+
+def _jax_loss(loss_fn, model) -> float:
+    """oak_tpu's loss, compiled once (eager JAX compiles every primitive at
+    every shape)."""
+    return float(jax.jit(loss_fn)(model))
+
+
+def _training_loss(m):
+    return m.training_loss()
 
 
 def _close(a, b, rel):
@@ -111,7 +123,7 @@ def test_fit_without_optimising_builds_the_same_model(built):
     t = copy.deepcopy(t)
     tckpt.load_params(t.m, jarrays)
     with torch.no_grad():
-        assert float(t._loss_fn()(t.m)) == pytest.approx(float(j._loss_fn()(j.m)), rel=REL)
+        assert float(t._loss_fn()(t.m)) == pytest.approx(_jax_loss(j._loss_fn(), j.m), rel=REL)
     assert t.summary() == j.summary()
 
 
@@ -131,7 +143,7 @@ def test_fit_reaches_the_jax_training_loss(trained):
     j, t = trained
     with torch.no_grad():
         ours = float(t.m.training_loss())
-    assert ours == pytest.approx(float(j.m.training_loss()), rel=LOSS_REL)
+    assert ours == pytest.approx(_jax_loss(_training_loss, j.m), rel=LOSS_REL)
     assert np.isfinite(ours) and t.timings["optimise"] > 0
 
 
@@ -156,7 +168,7 @@ def _agree(a, b, X, rel=LOAD_REL):
         _close(a.predict_proba(X), b.predict_proba(X), rel)
 
 
-def test_jax_saved_model_loads_into_the_port(tmp_path, built):
+def test_jax_saved_model_loads_into_the_port(tmp_path, built, compiled_jax_predict):
     kind, j, _, X, _ = built
     j = _perturb_jax_q(copy.copy(j)) if kind == "bernoulli" else j
     path = tmp_path / "jax_model.npz"
@@ -174,7 +186,7 @@ def test_jax_saved_model_loads_into_the_port(tmp_path, built):
                 _close(b[key], a[key], 0.0)
 
 
-def test_port_saved_model_loads_into_jax(tmp_path, trained):
+def test_port_saved_model_loads_into_jax(tmp_path, trained, compiled_jax_predict):
     j, t = trained
     path = tmp_path / "port_model.npz"
     tckpt.save_oak_model(t, path)
@@ -196,7 +208,9 @@ def test_retry_starts_from_the_untrained_parameters(monkeypatch):
 
     def spy(model, *args, **kwargs):
         calls.append((model, tp.flatten_trainable(model).detach().clone(), kwargs))
-        return real(model, *args, **kwargs)
+        # the arguments are what this test reads: the real multistart runs
+        # with 3 of its 300 warm Adam steps per lane
+        return real(model, *args, **{**kwargs, "warm_adam_steps": 3})
 
     monkeypatch.setattr(tmodel, "fit_lbfgs_multistart", spy)
     res = t.optimise(max_iters=5)
@@ -220,7 +234,7 @@ def test_create_model_oak_matches_jax(sparse):
     t = tmodel.create_model_oak((X, y), **kw, **KW)
     assert type(t).__name__ == type(j).__name__ == ("SGPR" if sparse else "GPR")
     with torch.no_grad():
-        assert float(t.training_loss()) == pytest.approx(float(j.training_loss()),
+        assert float(t.training_loss()) == pytest.approx(_jax_loss(_training_loss, j),
                                                          rel=LOSS_REL)
 
 
@@ -265,7 +279,7 @@ def test_scipy_optimizer_matches_jax():
     j = jmodel.oak_model(max_interaction_depth=DEPTH, optimizer="scipy").fit(X, y)
     t = tmodel.oak_model(max_interaction_depth=DEPTH, optimizer="scipy", **KW).fit(X, y)
     with torch.no_grad():
-        assert float(t.m.training_loss()) == pytest.approx(float(j.m.training_loss()),
+        assert float(t.m.training_loss()) == pytest.approx(_jax_loss(_training_loss, j.m),
                                                            rel=LOSS_REL)
 
 

@@ -17,7 +17,7 @@ from oak_tpu_torch.model import oak_model
 from oak_tpu_torch.ops import oak_gram as og
 from oak_tpu_torch.serving import deserialize_predict, serialize_predict
 from oak_tpu_torch.testing import prescaled_inputs
-from tests.test_torch_uci_artifacts import CASES, committed_pair
+from tests.test_torch_uci_artifacts import CASES, committed_pair, compiled_jax_predict  # noqa: F401
 
 KW = dict(dtype=torch.float64, device="cpu")
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -27,8 +27,10 @@ def _fit(likelihood="gaussian"):
     rng = np.random.default_rng(0)
     X = rng.normal(size=(60, 3))
     if likelihood == "bernoulli":
+        # 25 Adam steps move q(u) off its start; what is served is the point
+        # (L-BFGS on an SVGP would first take 300 warm-up Adam steps)
         y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(float).reshape(-1, 1)
-        oak = oak_model(max_interaction_depth=2, likelihood="bernoulli", **KW)
+        oak = oak_model(max_interaction_depth=2, likelihood="bernoulli", optimizer="adam", **KW)
         oak.fit(X, y, optimise=False)
         oak.optimise(max_iters=25)
     else:
@@ -172,7 +174,8 @@ def test_torch_unflowed_scalers_serving():
 
 
 @pytest.mark.parametrize("dataset,task", CASES, ids=[c[0] for c in CASES])
-def test_torch_artifact_of_committed_model_matches_oak_tpu_live(dataset, task):
+def test_torch_artifact_of_committed_model_matches_oak_tpu_live(dataset, task,
+                                                              compiled_jax_predict):
     """The committed fold-0 model, loaded into the port at float64 and
     served from its artifact, against oak_tpu's live predict of the same
     file (and, for heart, the (p, std) artifact against predict_proba) on
@@ -207,15 +210,19 @@ def _graph_ops(blob):
     return {n.target for n in ep.graph.nodes if n.op == "call_function"}
 
 
-def _float32_cpu_model():
+@pytest.fixture(scope="module")
+def float32_cpu():
+    """A float32 model on the CPU, its rows and its artifact (one export,
+    shared by the two tests below)."""
     rng = np.random.default_rng(3)
     X = rng.normal(size=(40, 3))
     y = (np.sin(X[:, 0]) + 0.3 * X[:, 1]).reshape(-1, 1)
     oak = oak_model(max_interaction_depth=2, dtype=torch.float32, device="cpu")
-    return oak.fit(X, y, optimise=False), X
+    oak.fit(X, y, optimise=False)
+    return oak, X, serialize_predict(oak)
 
 
-def test_torch_card_route_traces_the_registered_op(monkeypatch):
+def test_torch_card_route_traces_the_registered_op(monkeypatch, float32_cpu):
     """The graph holds the route of the device it was traced on. On the CPU
     a float32 model takes the per-dim route, so its graph has no
     oak_tpu_torch::oak_gram_fwd node. The card's route, forced here onto
@@ -226,8 +233,8 @@ def test_torch_card_route_traces_the_registered_op(monkeypatch):
     from oak_tpu_torch.kernels.oak_kernel import OAKKernel
 
     node = torch.ops.oak_tpu_torch.oak_gram_fwd.default
-    oak, X = _float32_cpu_model()
-    assert node not in _graph_ops(serialize_predict(oak))
+    oak, X, cpu_blob = float32_cpu
+    assert node not in _graph_ops(cpu_blob)
 
     plain_K = OAKKernel.K
 
@@ -247,9 +254,9 @@ def test_torch_card_route_traces_the_registered_op(monkeypatch):
     np.testing.assert_allclose(served, live, rtol=1e-5, atol=1e-5 * np.abs(live).max())
 
 
-def test_torch_cpu_float32_artifact_refuses_the_card():
+def test_torch_cpu_float32_artifact_refuses_the_card(float32_cpu):
     # a float32 artifact traced on the CPU holds the per-dim route: moving it
     # onto the card would serve without K1, so the loader refuses
-    oak, _ = _float32_cpu_model()
+    _, _, cpu_blob = float32_cpu
     with pytest.raises(ValueError, match="serialize the model with device='cuda'"):
-        deserialize_predict(serialize_predict(oak), device="cuda")
+        deserialize_predict(cpu_blob, device="cuda")

@@ -9,7 +9,9 @@ Models are bridged from oak_tpu through the keypath npz (tests/
 test_torch_regression.py, tests/test_torch_svgp.py)."""
 
 import warnings
+from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +39,12 @@ from tests.test_torch_svgp import _close, _model_pair
 
 L_REL = 1e-10
 SOBOL_REL = 1e-9
+
+# oak_tpu's L builders, compiled: called eagerly, JAX compiles every
+# primitive at every shape, once per kernel and measure here
+JL = SimpleNamespace(**{name: jax.jit(getattr(jsb, name)) for name in (
+    "compute_L_for_kernel", "factor_form", "compute_L_quadrature", "compute_L_gaussian",
+    "compute_L_binary", "compute_L_categorical", "compute_L_empirical")})
 
 # the port builds on the CUDA card in float32 by default; these tests hold it
 # against oak_tpu at float64 on the CPU
@@ -181,16 +189,16 @@ KERNEL_IDS = ["binary", "categorical", "gaussian", "empirical", "mog", "uniform"
 def test_L_and_factor_form_match_jax(mixed_kernels, i):
     jk, tk, x = mixed_kernels[i]
     tx, jx = torch.as_tensor(x), jnp.asarray(x)
-    _close(sb.compute_L_for_kernel(tk, tx), jsb.compute_L_for_kernel(jk, jx), L_REL)
-    (F, w), (jF, jw) = sb.factor_form(tk, tx), jsb.factor_form(jk, jx)
+    _close(sb.compute_L_for_kernel(tk, tx), JL.compute_L_for_kernel(jk, jx), L_REL)
+    (F, w), (jF, jw) = sb.factor_form(tk, tx), JL.factor_form(jk, jx)
     _close(F, jF, L_REL)
     _close(w, jw, L_REL)
     assert _routings([jk], [tk]) == ((True,), (True,))
     if KERNEL_IDS[i] in ("gaussian", "mog", "uniform"):
-        _close(sb.compute_L_quadrature(tk, tx), jsb.compute_L_quadrature(jk, jx), L_REL)
+        _close(sb.compute_L_quadrature(tk, tx), JL.compute_L_quadrature(jk, jx), L_REL)
     for name in ("binary", "categorical", "empirical"):
         if KERNEL_IDS[i] == name:
-            fn, jfn = getattr(sb, f"compute_L_{name}"), getattr(jsb, f"compute_L_{name}")
+            fn, jfn = getattr(sb, f"compute_L_{name}"), getattr(JL, f"compute_L_{name}")
             _close(fn(tk, tx), jfn(jk, jx), L_REL)
 
 
@@ -219,13 +227,13 @@ def test_gaussian_switch_and_routing_match_jax(ratio):
     jk, tk = _gaussian_pair(ratio)
     x = np.linspace(-1.6, 1.6, 7)
     tx, jx = torch.as_tensor(x), jnp.asarray(x)
-    _close(sb.compute_L_for_kernel(tk, tx), jsb.compute_L_for_kernel(jk, jx), L_REL)
+    _close(sb.compute_L_for_kernel(tk, tx), JL.compute_L_for_kernel(jk, jx), L_REL)
     _close(sb.compute_L_for_kernel(tk, tx, delta=1.0, mu=0.0),
-           jsb.compute_L_for_kernel(jk, jx, delta=1.0, mu=0.0), L_REL)
-    _close(sb.compute_L_quadrature(tk, tx), jsb.compute_L_quadrature(jk, jx), L_REL)
+           JL.compute_L_for_kernel(jk, jx, delta=1.0, mu=0.0), L_REL)
+    _close(sb.compute_L_quadrature(tk, tx), JL.compute_L_quadrature(jk, jx), L_REL)
     if ratio < 10:  # the closed form cancels to noise at large l in both packages
         _close(sb.compute_L_gaussian(tx, tk.lengthscale.value, 1.2, delta, mu),
-               jsb.compute_L_gaussian(jx, jk.lengthscale.value, 1.2, delta, mu), L_REL)
+               JL.compute_L_gaussian(jx, jk.lengthscale.value, 1.2, delta, mu), L_REL)
     assert _routings([jk], [tk]) == ((ratio > 0.5,), (ratio > 0.5,))
 
 

@@ -13,6 +13,7 @@ by oak_tpu in float32 with restarts=4 and 500-1000 iterations):
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -69,6 +70,22 @@ def committed_pair(dataset: str, task: str):
     return _COMMITTED[dataset]
 
 
+_PREDICT_F = {}
+
+
+@pytest.fixture
+def compiled_jax_predict(monkeypatch):
+    """oak_tpu's committed models predict through their predict_f; called
+    eagerly, JAX compiles every primitive at every shape, so the reference
+    runs the same method compiled, once per model class."""
+    from oak_tpu.models import GPR, SGPR, SVGP
+
+    for cls in (GPR, SGPR, SVGP):
+        if cls not in _PREDICT_F:
+            _PREDICT_F[cls] = jax.jit(cls.predict_f, static_argnames=("full_cov",))
+        monkeypatch.setattr(cls, "predict_f", _PREDICT_F[cls])
+
+
 def _close(ours, ref):
     ours, ref = np.asarray(ours), np.asarray(ref)
     assert ours.shape == ref.shape, (ours.shape, ref.shape)
@@ -80,7 +97,7 @@ CASES = [("autoMPG", "regression"), ("heart", "classification")]
 
 
 @pytest.mark.parametrize("dataset,task", CASES, ids=[c[0] for c in CASES])
-def test_committed_model_agrees_with_oak_tpu_at_f64(dataset, task):
+def test_committed_model_agrees_with_oak_tpu_at_f64(dataset, task, compiled_jax_predict):
     j, t, X, y = committed_pair(dataset, task)
     assert type(t.m).__name__ == {"autoMPG": "GPR", "heart": "SVGP"}[dataset]
     assert {p.dtype for p in t.m.parameters()} == {torch.float64}
