@@ -96,6 +96,19 @@ non-zero before the result line:
    over the loss and gradient (K1 and K2 inside; a NaN raw raises and
    assert_finite names it); compat's sufficient statistics, Sobol values
    and compute_L bitwise equal to the canonical calls.
+12. the multi-device layer (phase_parallel): oak_tpu_torch.parallel on
+   torch.distributed, one process per rank on this one card: world 1 on
+   NCCL, worlds 2 and 4 on gloo (NCCL refuses two ranks on one card; the
+   sharded functions' code is the same under both). The bench SVGP's
+   (config 5) sharded loss and gradient, data-parallel Adam steps, sharded
+   predict_f and Sobol; phase 6's SGPR through fit_lbfgs_sharded and, at
+   world 4, a 2 x 2 (restart x data) fit_lbfgs_multistart_sharded; phase
+   7's GPR through the sharded Sobol (its peak memory per rank); oak_tpu's
+   committed heart fold 0 through oak_model.get_sobol(mesh=) and
+   optimise_minibatch(mesh=) at worlds 1 and 2. All against the same
+   models in one process on the card (gates in phase_parallel). The
+   world-2 job's ranks build the kernels at once into an empty directory.
+   Then K1 and K2 against plain at the 2-rank shard's Kus.
 
 Each phase prints its seconds. Then one JSON line about the kernels, and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
@@ -1769,6 +1782,384 @@ def phase_surface(device):
     return {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: the multi-device layer (oak_tpu_torch.parallel)
+# --------------------------------------------------------------------------- #
+# (world, backend) of the three jobs, one after another on cuda:0: NCCL at
+# world 1 (it refuses two ranks on one card), gloo at 2 and 4 ranks sharing it
+PAR_JOBS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+PAR_STEPS, PAR_LBFGS_ITERS, PAR_MS_ITERS = 5, 5, 3
+PAR_MB_BATCH, PAR_MB_STEPS = 64, 10
+PAR_LOSS_TOL, PAR_GRAD_TOL, PAR_PRED_TOL, PAR_SOBOL_TOL, PAR_FIT_TOL = (
+    1e-5, 1e-4, 1e-5, 1e-5, 1e-3)
+PAR_JOB_TIMEOUT_S = 240
+
+
+def _bench_y():
+    return synth_pumadyn(N, D)[1]
+
+
+def _heart(device):
+    from oak_tpu_torch import load_oak_model
+
+    return load_oak_model(COMMITTED / "heart" / "model_oak_0.npz", device=device)
+
+
+def _normalised(values):
+    from oak_tpu_torch.sobol import normalize_sobol
+
+    return normalize_sobol(np.asarray(values, np.float64))
+
+
+def _parallel_references(device):
+    """The single-process values phase 12's ranks are held against, on the
+    same card in float32, and the single-process times."""
+    from oak_tpu_torch import sobol as sb
+    from oak_tpu_torch.optim import fit_adam, fit_lbfgs, fit_lbfgs_multistart
+    from oak_tpu_torch.optim.fit import value_and_grad
+    from oak_tpu_torch.params import flatten_trainable
+
+    ref, ms = {}, {}
+    model, Xh = build_model(device)
+    X, Y = (torch.as_tensor(a, device=device) for a in (Xh, _bench_y()))
+    ref["loss"], ref["grad"] = value_and_grad(model, lambda m: m.training_loss(X, Y),
+                                              flatten_trainable(model).detach())
+    # the same Adam steps in one process (no mask, as the data-parallel step)
+    step_model = copy.deepcopy(model)
+    fit_adam(step_model, lambda m, a, b: m.training_loss(a, b), steps=1,
+             batch_fn=lambda i: (X, Y))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_adam(step_model, lambda m, a, b: m.training_loss(a, b), steps=PAR_STEPS,
+             batch_fn=lambda i: (X, Y))
+    torch.cuda.synchronize()
+    ms["step"] = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
+    with torch.no_grad():
+        model.predict_f(X)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, var = model.predict_f(X)
+        ref["mean"], ref["var"] = mean.cpu(), var.cpu()
+        ms["predict"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref["svgp_sobol"] = _normalised(sb.compute_sobol_oak(model)[1])
+    ms["sobol"] = 1e3 * (time.perf_counter() - t0)
+    del model, step_model
+
+    ref["lbfgs_fun"] = fit_lbfgs(build_sgpr_model(device), lambda m: m.training_loss(),
+                                 max_iters=PAR_LBFGS_ITERS).fun
+    ref["ms_fun"] = fit_lbfgs_multistart(build_sgpr_model(device), lambda m: m.training_loss(),
+                                         n_starts=2, seed=0, max_iters=PAR_MS_ITERS).fun
+    gpr = build_gpr_model(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref["gpr_sobol"] = _normalised(sb.compute_sobol_oak(gpr)[1])
+    ms["gpr_sobol_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ref["gpr_by_order"] = _normalised(sb.compute_sobol_by_order(gpr))
+    ms["gpr_by_order_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del gpr
+    # the per-order totals cancel in float32 (Newton-Girard over the [N, N]
+    # L matrices): their own error against float64 sets their gate
+    ref["gpr_by_order_drift"] = float(np.abs(ref["gpr_by_order"] - _normalised(
+        sb.compute_sobol_by_order(build_gpr_model(device, dtype=torch.float64)))).max())
+    heart = _heart(device)
+    ref["heart_sobol"] = heart.get_sobol()
+    ref["heart_fun"] = heart.optimise_minibatch(batch_size=PAR_MB_BATCH, steps=PAR_MB_STEPS,
+                                                seed=0).fun
+    torch.cuda.empty_cache()
+    return ref, ms
+
+
+def parallel_rank(rank, world, folder, backend):
+    """One rank of a phase-12 job, on cuda:0: the multi-device main path
+    through the user's entry points (make_mesh, data_parallel_elbo_step,
+    sharded_predict_f, compute_sobol_oak(mesh=), fit_lbfgs_sharded, the
+    2 x 2 fit_lbfgs_multistart_sharded at world 4, the GPR's sharded Sobol,
+    oak_model.optimise_minibatch(mesh=) and get_sobol(mesh=) at worlds 1
+    and 2), with the kernel counts set to 0 just before it and read just
+    after. Writes rank<R>.npz (values) and rank<R>.json (times, launches,
+    memory, the build)."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    folder = Path(folder)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    dist.init_process_group(backend, init_method=f"file://{folder / 'store'}", rank=rank,
+                            world_size=world)
+    info = {"rank": rank, "world": world, "backend": backend}
+    from oak_tpu_torch import _build
+
+    if os.environ.get("OAK_TPU_TORCH_BUILD_DIR"):
+        dist.barrier()  # every rank reaches the empty build directory at once
+        t0 = time.perf_counter()
+        b = _build.build()
+        _build.library()
+        info["build"] = {"path": str(b.path), "compiled_s": b.seconds,
+                         "wall_s": time.perf_counter() - t0}
+    from oak_tpu_torch import sobol as sb
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.optim.fit import value_and_grad
+    from oak_tpu_torch.parallel import (data_parallel_elbo_step, fit_lbfgs_multistart_sharded,
+                                        fit_lbfgs_sharded, make_mesh, shard_batch,
+                                        sharded_predict_f)
+    from oak_tpu_torch.parallel.mesh import Axis
+    from oak_tpu_torch.parallel.sharding import mesh_loss
+    from oak_tpu_torch.params import flatten_trainable
+
+    mesh = make_mesh()
+    model, Xh = build_model(device)
+    X, Y = (torch.as_tensor(a, device=device) for a in (Xh, _bench_y()))
+    sgpr, gpr = build_sgpr_model(device), build_gpr_model(device)
+    heart = _heart(device) if world <= 2 else None
+    mesh2d = (init_device_mesh("cpu", (2, 2), mesh_dim_names=("restart", "data"))
+              if world == 4 else None)
+    out, ms = {}, {}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    sync()
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    t_path = time.perf_counter()
+    out["loss"], out["grad"] = value_and_grad(
+        model, mesh_loss(model, Axis.of(mesh, "data"), X, Y), flatten_trainable(model).detach())
+    step, (vec, opt_state, _) = data_parallel_elbo_step(model, mesh, learning_rate=1e-2)
+    Xs, Ys = shard_batch(mesh, X, Y)
+    vec, opt_state, _ = step(vec, opt_state, Xs, Ys)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        vec, opt_state, loss = step(vec, opt_state, Xs, Ys)
+    sync()
+    ms["step"] = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
+    predict = sharded_predict_f(model, mesh)
+    predict(Xh)
+    sync()
+    t0 = time.perf_counter()
+    out["mean"], out["var"] = (t.cpu() for t in predict(Xh))
+    ms["predict"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["svgp_sobol"] = _normalised(sb.compute_sobol_oak(model, mesh=mesh)[1])
+    ms["sobol"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["lbfgs_fun"] = fit_lbfgs_sharded(sgpr, mesh, max_iters=PAR_LBFGS_ITERS).fun
+    ms["lbfgs"] = 1e3 * (time.perf_counter() - t0)
+    if mesh2d is not None:
+        t0 = time.perf_counter()
+        out["ms_fun"] = fit_lbfgs_multistart_sharded(build_sgpr_model(device), mesh2d,
+                                                     n_starts=2, seed=0,
+                                                     max_iters=PAR_MS_ITERS).fun
+        ms["multistart_2x2"] = 1e3 * (time.perf_counter() - t0)
+    sync()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["gpr_sobol"] = _normalised(sb.compute_sobol_oak(gpr, mesh=mesh)[1])
+    info["gpr_sobol_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out["gpr_by_order"] = _normalised(sb.compute_sobol_by_order(gpr, mesh=mesh))
+    info["gpr_by_order_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms["gpr_sobol"] = 1e3 * (time.perf_counter() - t0)
+    if heart is not None:
+        t0 = time.perf_counter()
+        out["heart_sobol"] = heart.get_sobol(mesh=mesh)
+        out["heart_fun"] = heart.optimise_minibatch(batch_size=PAR_MB_BATCH,
+                                                    steps=PAR_MB_STEPS, seed=0, mesh=mesh).fun
+        out["heart_trained_sobol"] = heart.get_sobol(mesh=mesh)
+        ms["heart"] = 1e3 * (time.perf_counter() - t0)
+    sync()
+    info["path_s"] = time.perf_counter() - t_path
+    info["launches"] = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    info["ms"] = ms
+    np.savez(folder / f"rank{rank}.npz", **{k: np.asarray(v.detach().cpu() if isinstance(
+        v, torch.Tensor) else v, np.float64) for k, v in out.items()})
+    (folder / f"rank{rank}.json").write_text(json.dumps(info))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_job(world, backend, folder, cold_build=None):
+    """Start the ranks of one job, wait for all of them within the time
+    limit, and kill every rank if one fails or the limit passes."""
+    import os
+
+    env = dict(os.environ, LOCAL_RANK="0", PYTHONUNBUFFERED="1")
+    if cold_build is not None:
+        env["OAK_TPU_TORCH_BUILD_DIR"] = str(cold_build)
+    logs = [open(folder / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--parallel-rank",
+                               str(r), str(world), str(folder), backend],
+                              stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+             for r, log in enumerate(logs)]
+    try:
+        deadline = time.monotonic() + PAR_JOB_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"rank {r} (exit {p.returncode}):\n"
+                          + (folder / f"rank{r}.log").read_text()[-2500:]
+                          for r, p in enumerate(procs))
+        raise RuntimeError(f"phase 12: the {world}-rank {backend} job failed or passed its "
+                           f"{PAR_JOB_TIMEOUT_S} s limit:\n{tails}")
+    results, infos = [], []
+    for r in range(world):
+        with np.load(folder / f"rank{r}.npz") as f:
+            results.append({k: f[k] for k in f.files})
+        infos.append(json.loads((folder / f"rank{r}.json").read_text()))
+    return results, infos
+
+
+def _parallel_gates(world, backend, res, infos, ref):
+    """Hold rank 0 against the single-process references (and every rank
+    against rank 0); returns (the gates missed, the phase line's
+    findings)."""
+    r0 = res[0]
+    for r, other in enumerate(res[1:], 1):
+        for k in ("loss", "grad", "mean", "svgp_sobol", "lbfgs_fun"):
+            if not np.array_equal(other[k], r0[k]):
+                raise RuntimeError(f"phase 12 world {world}: rank {r}'s {k} differs from rank 0's")
+    g_ref = ref["grad"].double().cpu().numpy()
+    errs = {
+        "loss": abs(float(r0["loss"]) - float(ref["loss"])) / abs(float(ref["loss"])),
+        "grad": float(np.abs(r0["grad"] - g_ref).max() / np.abs(g_ref).max()),
+        "predict": max(rel_err(r0["mean"], ref["mean"].double().numpy()),
+                       rel_err(r0["var"], ref["var"].double().numpy())),
+        "svgp_sobol": float(np.abs(r0["svgp_sobol"] - ref["svgp_sobol"]).max()),
+        "gpr_sobol": float(np.abs(r0["gpr_sobol"] - ref["gpr_sobol"]).max()),
+        "gpr_by_order": float(np.abs(r0["gpr_by_order"] - ref["gpr_by_order"]).max()),
+        "lbfgs": abs(float(r0["lbfgs_fun"]) - ref["lbfgs_fun"]) / abs(ref["lbfgs_fun"])}
+    tols = {"loss": PAR_LOSS_TOL, "grad": PAR_GRAD_TOL, "predict": PAR_PRED_TOL,
+            "svgp_sobol": PAR_SOBOL_TOL, "gpr_sobol": PAR_SOBOL_TOL,
+            "gpr_by_order": max(PAR_SOBOL_TOL, 2 * ref["gpr_by_order_drift"]),
+            "lbfgs": PAR_FIT_TOL}
+    if "ms_fun" in r0:
+        errs["multistart_2x2"] = abs(float(r0["ms_fun"]) - ref["ms_fun"]) / abs(ref["ms_fun"])
+        tols["multistart_2x2"] = PAR_FIT_TOL
+    if "heart_sobol" in r0:
+        errs["heart_sobol"] = float(np.abs(r0["heart_sobol"] - ref["heart_sobol"]).max())
+        errs["heart_minibatch"] = (abs(float(r0["heart_fun"]) - ref["heart_fun"])
+                                   / abs(ref["heart_fun"]))
+        tols["heart_sobol"], tols["heart_minibatch"] = PAR_SOBOL_TOL, PAR_FIT_TOL
+        if not np.isfinite(r0["heart_trained_sobol"]).all():
+            raise RuntimeError(f"phase 12 world {world}: heart's trained Sobol not finite")
+    bad = [k for k, v in errs.items() if not v < tols[k]]
+    return bad, ", ".join(f"{k} {v:.2e} (tol {tols[k]:.3g})" for k, v in errs.items())
+
+
+def phase_parallel(device):
+    """Phase 12, the multi-device layer on one card.
+
+    The references come first, in this process on the same card (float32):
+    the bench SVGP's (config 5: N 8192, D 32, M 512, depth 3, seeded
+    parameters) loss and gradient at the start, PAR_STEPS Adam steps timed,
+    predict_f over its 8192 rows, its full Sobol; phase 6's SGPR after
+    PAR_LBFGS_ITERS L-BFGS iterations and after a 2-start multistart of
+    PAR_MS_ITERS; phase 7's GPR (N 8192, D 8, depth 2) Sobol values and
+    per-order totals with their peak memory; oak_tpu's committed heart fold 0
+    (a Bernoulli SVGP) Sobol, then PAR_MB_STEPS minibatch steps. The GPR's
+    per-order totals cancel in float32, so their gate is twice their
+    float32 error against float64 (at least 1e-5), phase 2's drift rule.
+    Then three jobs, one after another, each rank a process on cuda:0 (parallel_rank):
+    world 1 on NCCL, world 2 on gloo (whose two ranks first build the
+    kernels at once into an empty directory: one compiles, the other waits
+    on the file lock and loads the same library), world 4 on gloo (also the
+    2 x 2 (restart x data) multistart). Each job's ranks are joined within
+    PAR_JOB_TIMEOUT_S, and a rank's failure fails the phase. Gates, rank 0
+    against the references (every rank holds rank 0's bits): loss 1e-5
+    relative, gradient 1e-4 of max |g|, predictions 1e-5 of max |value|,
+    normalised Sobol 1e-5, the fits' final losses 1e-3 relative. Then K1
+    and K2 against their plain versions at the 2-rank shard's Kus
+    (512 x 4096), after the counts were read.
+
+    Returns the K1 and K2 launches summed over every rank of every job."""
+    from oak_tpu_torch.ops import oak_gram as og
+
+    t0 = time.perf_counter()
+    ref, ref_ms = _parallel_references(device)
+    ref_s = time.perf_counter() - t0
+    launches = {"fwd": 0, "bwd": 0}
+    lines, failed = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, backend in PAR_JOBS:
+            folder = Path(tmp) / f"world{world}"
+            folder.mkdir()
+            cold = Path(tmp) / "cold_build" if world == 2 else None
+            t_job = time.perf_counter()
+            res, infos = _run_job(world, backend, folder, cold)
+            job_s = time.perf_counter() - t_job
+            missed, gates = _parallel_gates(world, backend, res, infos, ref)
+            failed += [f"world {world}: {k}" for k in missed]
+            for info in infos:
+                for k in launches:
+                    launches[k] += info["launches"][k]
+            if min(i["launches"]["fwd"] for i in infos) == 0 or min(
+                    i["launches"]["bwd"] for i in infos) == 0:
+                raise RuntimeError(f"phase 12 world {world}: a rank launched no K1 or no K2")
+            build = ""
+            if cold is not None:
+                builds = [i["build"] for i in infos]
+                compiled = [b["compiled_s"] > 0 for b in builds]
+                if len({b["path"] for b in builds}) != 1 or sorted(compiled) != [False, True]:
+                    raise RuntimeError(f"phase 12: the cold build from 2 ranks: {builds}")
+                build = (f"; cold build from 2 ranks at once: one compiled in "
+                         f"{max(b['compiled_s'] for b in builds):.1f} s, the other waited "
+                         f"{min(b['wall_s'] for b in builds if b['compiled_s'] == 0):.1f} s "
+                         f"on the lock and loaded the same library")
+            m0 = infos[0]["ms"]
+            lines.append(
+                f"phase 12.{len(lines) + 1} world {world} ({backend}, {job_s:.1f} s, main path "
+                f"{infos[0]['path_s']:.1f} s): {gates}; data-parallel Adam step "
+                f"{m0['step']:.1f} ms, sharded predict_f of {N} rows {m0['predict']:.1f} ms, "
+                f"sharded Sobol {m0['sobol']:.1f} ms, fit_lbfgs_sharded {PAR_LBFGS_ITERS} "
+                f"iterations {m0['lbfgs']:.0f} ms"
+                + (f", 2x2 multistart {m0['multistart_2x2']:.0f} ms"
+                   if "multistart_2x2" in m0 else "")
+                + f", GPR Sobol and per-order totals {m0['gpr_sobol']:.0f} ms"
+                + (f", heart Sobol, {PAR_MB_STEPS} minibatch steps and Sobol {m0['heart']:.0f} ms"
+                   if "heart" in m0 else "")
+                + f"; GPR Sobol peak per rank {max(i['gpr_sobol_peak_gb'] for i in infos):.3f} "
+                f"GB, per-order totals {max(i['gpr_by_order_peak_gb'] for i in infos):.3f} GB; "
+                f"launches K1 {sum(i['launches']['fwd'] for i in infos)}, K2 "
+                f"{sum(i['launches']['bwd'] for i in infos)}{build}")
+    print(f"phase 12.0 single-process references on the card ({ref_s:.1f} s): Adam step "
+          f"{ref_ms['step']:.1f} ms, predict_f of {N} rows {ref_ms['predict']:.1f} ms, Sobol "
+          f"{ref_ms['sobol']:.1f} ms; GPR Sobol peak {ref_ms['gpr_sobol_peak_gb']:.3f} GB, "
+          f"per-order totals {ref_ms['gpr_by_order_peak_gb']:.3f} GB, their float32 error "
+          f"against float64 {ref['gpr_by_order_drift']:.2e} (twice it, at least "
+          f"{PAR_SOBOL_TOL}, is their gate)")
+    print("\n".join(lines))
+    if failed:
+        raise RuntimeError(f"phase 12 over its gates: {', '.join(failed)}")
+
+    model, Xh = build_model(device)
+    with torch.no_grad():
+        X = torch.as_tensor(Xh[:N // 2], device=device)
+        args = tuple(t.detach().contiguous() for t in og._prep(
+            model.kernel, model.Z.value, X)) + (DEPTH,)
+    name = f"Kus {M}x{N // 2}"
+    _, text = _kernels_at(name, args, device)
+    print(f"phase 12.4 kernels at the 2-rank shard's {name}, depth {DEPTH}, vs plain: "
+          + "; ".join(text[:2]) + "\n" + "\n".join(text[2:]))
+    return launches
+
+
 def _host_ms(fn, repeats):
     """Median host-clock ms of fn() with the card synchronized on both ends."""
     times = []
@@ -1911,14 +2302,14 @@ def profile_sobol(model, device, repeats=5):
         pairs = [t for t in tuples if len(t) == 2]
         Fs, Ws = sb._factor_stack(oak, Z)
         Lstack = sb._dim_L_stack(oak, Z)
-        parts = sb._factor_quadforms(Fs, Ws, a, pairs)
+        parts = sb._factor_quadforms(sb._factor_sums(Fs, a, pairs), Ws, pairs)
         parts["RH"] = sb._ladder_quadforms(Lstack, a, D, DEPTH)[3]
         steps = {"compute_sobol_oak": lambda: sb.compute_sobol_oak(model),
                  "posterior_alpha": lambda: model.posterior_alpha(),
                  "routing (one host read)": lambda: sb._factor_routing(oak),
                  "factor forms build (_factor_stack)": lambda: sb._factor_stack(oak, Z),
                  "orders 1-2 factor quadratic forms": lambda: sb._factor_quadforms(
-                     Fs, Ws, a, pairs),
+                     sb._factor_sums(Fs, a, pairs), Ws, pairs),
                  "L stack build (_dim_L_stack)": lambda: sb._dim_L_stack(oak, Z),
                  "order 3, prefix ladder": lambda: sb._ladder_quadforms(
                      Lstack, a, D, DEPTH),
@@ -1956,7 +2347,13 @@ def main():
                              "interface before the redesign (git show "
                              "ef6e3b3:oak_tpu_torch/csrc/oak_gram_fwd.cu, and _bwd.cu): "
                              "phases 2 and 2b time those kernels in turns with these")
+    parser.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD", "DIR", "BACKEND"),
+                        help="run one rank of a phase-12 job (phase_parallel starts them)")
     args = parser.parse_args()
+    if args.parallel_rank:
+        rank, world, folder, backend = args.parallel_rank
+        parallel_rank(int(rank), int(world), folder, backend)
+        return
     t0 = time.perf_counter()
     phase_device()
     device = torch.device("cuda", 0)
@@ -1991,6 +2388,7 @@ def main():
     oak_launches, oak_kernels = timed("9", phase_oak_model, device)
     committed_launches = timed("10", phase_committed, device)
     surface_launches = timed("11", phase_surface, device)
+    parallel_launches = timed("12", phase_parallel, device)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
@@ -2014,11 +2412,13 @@ def main():
               "oak_tpu/ops/oak_gram_pallas.py:63",
               predict_launches + train_launches["fwd"] + sobol_launches
               + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"]
-              + committed_launches["fwd"] + surface_launches["fwd"], kernel, oak_kernels["K1"]),
+              + committed_launches["fwd"] + surface_launches["fwd"] + parallel_launches["fwd"],
+              kernel, oak_kernels["K1"]),
         entry("oak_gram_bwd_f32", "oak_tpu_torch/csrc/oak_gram_bwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:158",
               train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"]
-              + oak_launches["bwd"] + committed_launches["bwd"] + surface_launches["bwd"],
+              + oak_launches["bwd"] + committed_launches["bwd"] + surface_launches["bwd"]
+              + parallel_launches["bwd"],
               kernel_bwd,
               oak_kernels["K2"])]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ Sobol indices with per-component predictions; normalising flows and input
 preprocessing; ``oak_model``, the user-facing wrapper, with its checkpoint,
 the reference's positional checkpoint layout, the experiment configs,
 the ``torch.export`` serving artifact, the effect plots (``plotting``,
-matplotlib imported only to draw), the reference-name layer (``compat``)
-and the timers and numerical diagnostics of ``utils``. The fused OAK gram
+matplotlib imported only to draw), the reference-name layer (``compat``),
+the timers and numerical diagnostics of ``utils``, and the multi-device layer
+(``parallel``: data- and restart-sharded training, sharded prediction and
+Sobol on ``torch.distributed``, one process per device). The fused OAK gram
 forward and backward are hand-written CUDA kernels for Hopper
 (``csrc/oak_gram_fwd.cu``, ``csrc/oak_gram_bwd.cu``).
 

@@ -7,12 +7,19 @@ directory is git-ignored). The library's file name carries a hash of the
 sources, headers and flags, so an edited source builds anew and an unchanged
 one is reused. It is loaded with ``ctypes``; nothing here includes PyTorch's
 headers. A failed build raises with the compiler's output.
+
+Processes that build at once (the ranks of one ``torchrun`` job reaching a
+cold build directory together) take turns on a file lock in the directory:
+one compiles, the others wait and load its library. The library is written
+beside its final name and renamed into place, so no process ever loads a
+partial file. ``OAK_TPU_TORCH_BUILD_DIR`` names another build directory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -24,7 +31,8 @@ from typing import List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / ".kernel_build"
+BUILD_DIR = Path(os.environ.get("OAK_TPU_TORCH_BUILD_DIR")
+                 or PACKAGE_DIR.parent / ".kernel_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -90,6 +98,15 @@ def _compile() -> Build:
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{out.stem}.lock", "w") as lock:
+        # one process compiles; the others wait here and find its library
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return Build(out, 0.0, "")
+        return _compile_to(out)
+
+
+def _compile_to(out: Path) -> Build:
     stem = f"{out.stem}.{os.getpid()}"
     tmp = out.with_name(f"{stem}.tmp.so")
     nvcc = _nvcc()

@@ -6,8 +6,9 @@ checkpoints, with ``oak_tpu``'s fields, defaults and JSON, so that a
 ``ModelConfig`` mirrors the ``oak_model`` constructor's arguments,
 ``FitConfig`` the optimise and minibatch options, ``ExperimentConfig`` the
 script-level choices. ``build`` and ``run`` also take the port's ``dtype``
-and ``device`` (float32 on the CUDA card when None). ``oak_tpu``'s ``mesh=``
-waits for the port's multi-GPU slice (ROADMAP P16).
+and ``device`` (float32 on the CUDA card when None). ``run``'s and
+``run_fold``'s ``mesh`` (a ``DeviceMesh``, every process making the same
+call) goes to ``optimise_minibatch`` only, as in ``oak_tpu``.
 """
 
 from __future__ import annotations
@@ -61,16 +62,17 @@ class FitConfig:
     learning_rate: float = 1e-2
     seed: int = 0
 
-    def run(self, oak, X, Y):
+    def run(self, oak, X, Y, mesh=None):
         """fit + optimise an oak_model according to this config.
         ``optimise`` is the train/no-train switch for BOTH modes; with it
-        off, ``minibatch`` is ignored."""
+        off, ``minibatch`` is ignored. ``mesh`` makes the minibatch mode
+        data-parallel."""
         oak.fit(X, Y, optimise=False)
         if not self.optimise:
             return oak
         if self.minibatch:
             oak.optimise_minibatch(batch_size=self.batch_size, steps=self.steps,
-                                   lr=self.learning_rate, seed=self.seed)
+                                   lr=self.learning_rate, seed=self.seed, mesh=mesh)
         else:
             oak.optimise(max_iters=self.max_iters, compile=self.compile,
                          restarts=self.restarts)
@@ -149,6 +151,8 @@ class ExperimentConfig:
     def build_model(self, dtype: Optional[torch.dtype] = None, device=None):
         return self.model.build(dtype=dtype, device=device)
 
-    def run_fold(self, X_train, y_train, dtype: Optional[torch.dtype] = None, device=None):
+    def run_fold(self, X_train, y_train, mesh=None, dtype: Optional[torch.dtype] = None,
+                 device=None):
         """Build + train one fold's model."""
-        return self.fit.run(self.build_model(dtype=dtype, device=device), X_train, y_train)
+        return self.fit.run(self.build_model(dtype=dtype, device=device), X_train, y_train,
+                            mesh=mesh)

@@ -16,7 +16,11 @@ which ``serving`` exports with ``torch.export``. ``plot`` draws the ranked
 effects with ``plotting.plot_model``: the posterior math on the model's
 device, the figures with matplotlib on the CPU.
 
-Not ported here: ``mesh=`` / ``data_mesh=`` (ROADMAP P16).
+Several devices (``parallel``, one process per device, every process
+making the same calls): ``optimise(mesh=)`` shards a multistart's lanes,
+``optimise(data_mesh=)`` the rows of one L-BFGS fit (with a 2-D
+(restart, data) mesh, both), ``optimise_minibatch(mesh=)`` each minibatch
+and ``get_sobol(mesh=)`` the Sobol work's rows.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from .models.gpr import as_data
 from .optim import (fit_adam, fit_adam_multistart, fit_adam_scan, fit_lbfgs,
                     fit_lbfgs_multistart, fit_natgrad_adam, fit_natgrad_multistart,
                     fit_natgrad_scan, fit_scipy)
-from .params import flatten_trainable
+from .params import assign_trainable, flatten_trainable
 from .preprocessing import (StandardScaler, calculate_features,
                             empirical_measure_from_column, estimate_one_dim_gmm,
                             get_kmeans_centers, initialize_kmeans_with_categorical)
@@ -317,7 +321,8 @@ class oak_model:
         return lambda m: m.training_loss()
 
     def optimise(self, max_iters: int = 1000, compile: bool = True, restarts: int = 0,
-                 checkpoint_path=None, checkpoint_every: int = 100, verbose: bool = False):
+                 mesh=None, data_mesh=None, checkpoint_path=None,
+                 checkpoint_every: int = 100, verbose: bool = False):
         """Train ``self.m`` with the constructor's optimizer: 'lbfgs'
         (default), 'scipy' (BFGS on the host; ``compile`` is accepted and
         does nothing, the port is eager), 'adam' or 'natgrad' (SVGP only).
@@ -332,13 +337,36 @@ class oak_model:
         ``checkpoint_path``: training state written every
         ``checkpoint_every`` iterations (L-BFGS, multistart included, Adam,
         natgrad); a rerun resumes to the same trajectory. Not with 'scipy'.
-        ``verbose`` prints the parameter table before and after."""
+        ``verbose`` prints the parameter table before and after.
+
+        ``mesh`` (a ``DeviceMesh``) shards the restarts' lanes over its
+        ranks. ``data_mesh`` shards the rows of one full-batch L-BFGS fit
+        (``parallel.fit_lbfgs_sharded``; an SVGP first takes its 300 Adam
+        steps data-parallel); with ``restarts > 0`` it must be a 2-D mesh
+        with a 'data' axis, the restarts sharded over the other
+        (``parallel.fit_lbfgs_multistart_sharded``). Every rank makes the
+        same call and ends with the same model."""
         if verbose:
             print("Model prior to optimisation")
             print(self.summary())
         t0 = time.time()
         self.alpha = None
         loss = self._loss_fn()
+        if data_mesh is not None:
+            if self.optimizer != "lbfgs":
+                raise ValueError("data_mesh requires optimizer='lbfgs' (use "
+                                 "optimise_minibatch(mesh=) for data-parallel adam/natgrad)")
+            if checkpoint_path is not None:
+                raise ValueError("data_mesh does not support checkpoint_path= (use the "
+                                 "single-device or mesh= multistart paths for resumable "
+                                 "fits)")
+            axes = list(data_mesh.mesh_dim_names or ())
+            if restarts > 0 and ("data" not in axes or len(axes) != 2):
+                raise ValueError(
+                    "restarts with data_mesh need a 2-D mesh with a 'data' axis plus a "
+                    "restarts axis, e.g. init_device_mesh(device, (K, W // K), "
+                    "mesh_dim_names=('restart', 'data')): the restarts shard over one "
+                    f"axis and each fit's data over the other (got axes {axes})")
         if restarts > 0 and self.optimizer == "scipy":
             raise ValueError("restarts > 0 requires an on-device optimizer "
                              "(lbfgs/adam/natgrad); optimizer='scipy' is a "
@@ -356,7 +384,7 @@ class oak_model:
             if restarts > 0:
                 res = fit_adam_multistart(self.m, loss, n_starts=restarts, jitter=0.3,
                                           seed=0, steps=max_iters, include_init=True,
-                                          accept_fn=accept)
+                                          accept_fn=accept, mesh=mesh)
             elif checkpoint_path is not None:
                 res = fit_adam_scan(self.m, loss, steps=max_iters,
                                     checkpoint_path=checkpoint_path,
@@ -371,7 +399,7 @@ class oak_model:
             if restarts > 0:
                 res = fit_natgrad_multistart(self.m, loss, n_starts=restarts, jitter=0.3,
                                              seed=0, steps=max_iters, gamma=gamma,
-                                             include_init=True, accept_fn=accept)
+                                             include_init=True, accept_fn=accept, mesh=mesh)
             elif checkpoint_path is not None:
                 res = fit_natgrad_scan(self.m, loss, steps=max_iters, gamma=gamma,
                                        checkpoint_path=checkpoint_path,
@@ -379,8 +407,8 @@ class oak_model:
             else:
                 res = fit_natgrad_adam(self.m, loss, steps=max_iters, gamma=gamma)
         else:
-            res = self._optimise_lbfgs(loss, max_iters, restarts, checkpoint_path,
-                                       checkpoint_every)
+            res = self._optimise_lbfgs(loss, max_iters, restarts, mesh, data_mesh,
+                                       checkpoint_path, checkpoint_every)
         self.m = res.model
         self.timings["optimise"] = time.time() - t0
         if verbose:
@@ -388,7 +416,8 @@ class oak_model:
             print(f"Training took {self.timings['optimise']:.1f} seconds.")
         return res
 
-    def _optimise_lbfgs(self, loss, max_iters, restarts, checkpoint_path, checkpoint_every):
+    def _optimise_lbfgs(self, loss, max_iters, restarts, mesh, data_mesh, checkpoint_path,
+                        checkpoint_every):
         # the untrained model, which the retry below restarts from: the fits
         # write into self.m in place
         init = copy.deepcopy(self.m)
@@ -401,11 +430,32 @@ class oak_model:
         def bad_fit(m, fun=0.0) -> bool:
             return self._degenerate_noise_fit(m) or self._pathological_fit(m, fun)
 
+        data = self._train_tensors if is_svgp else (None, None)
+        if restarts > 0 and data_mesh is not None:
+            from .parallel import fit_lbfgs_multistart_sharded
+
+            return fit_lbfgs_multistart_sharded(
+                self.m, data_mesh, *data, n_starts=restarts, jitter=0.3, seed=0,
+                max_iters=max_iters, warm_adam_steps=warm_steps, include_init=True,
+                accept_fn=lambda m: not bad_fit(m))
         if restarts > 0:
             return fit_lbfgs_multistart(
                 self.m, loss, n_starts=restarts, jitter=0.3, seed=0, max_iters=max_iters,
-                warm_adam_steps=warm_steps, include_init=True,
+                warm_adam_steps=warm_steps, include_init=True, mesh=mesh,
                 checkpoint_path=checkpoint_path, accept_fn=lambda m: not bad_fit(m))
+        if data_mesh is not None:
+            from .parallel import (data_parallel_elbo_step, fit_lbfgs_sharded,
+                                   shard_batch)
+
+            if is_svgp:
+                # the warm-up run data-parallel, each step on the full batch
+                step, (vec, opt_state, _) = data_parallel_elbo_step(
+                    self.m, data_mesh, learning_rate=2e-2)
+                Xs, Ys = shard_batch(data_mesh, *data)
+                for _ in range(warm_steps):
+                    vec, opt_state, _ = step(vec, opt_state, Xs, Ys)
+                assign_trainable(self.m, vec)
+            return fit_lbfgs_sharded(self.m, data_mesh, *data, max_iters=max_iters)
         if is_svgp:
             fit_adam(self.m, loss, steps=warm_steps, lr=2e-2)
         res = fit_lbfgs(self.m, loss, max_iters=max_iters, checkpoint_path=checkpoint_path,
@@ -417,7 +467,7 @@ class oak_model:
             # own checkpoint file
             retry = fit_lbfgs_multistart(
                 init, loss, n_starts=2, jitter=0.3, seed=0, max_iters=max_iters,
-                warm_adam_steps=300, include_init=False,
+                warm_adam_steps=300, include_init=False, mesh=mesh,
                 checkpoint_path=f"{checkpoint_path}.retry" if checkpoint_path else None,
                 accept_fn=lambda m: not bad_fit(m))
             # an all-diverged retry returns the untrained model with fun=inf,
@@ -462,15 +512,21 @@ class oak_model:
         return float(np.sum(_host_values(model.kernel.variances[1:]))) < 1e-4
 
     def optimise_minibatch(self, batch_size: int = 256, steps: int = 2000,
-                           lr: float = 1e-2, seed: int = 0, checkpoint_path=None,
-                           checkpoint_every: int = 0, optimizer: Optional[str] = None,
-                           gamma: float = 0.1):
+                           lr: float = 1e-2, seed: int = 0, mesh=None,
+                           checkpoint_path=None, checkpoint_every: int = 0,
+                           optimizer: Optional[str] = None, gamma: float = 0.1):
         """Minibatched Adam, or natgrad steps on q(u) with Adam(lr) on the
-        hyperparameters, on the SVGP's ELBO on one device. The minibatches
-        are ``oak_tpu``'s stream (``default_rng(seed).choice`` per step).
+        hyperparameters, on the SVGP's ELBO. The minibatches are
+        ``oak_tpu``'s stream (``default_rng(seed).choice`` per step).
         ``optimizer`` None inherits 'adam' / 'natgrad' from the constructor,
         else Adam. ``checkpoint_path`` + ``checkpoint_every``: resumable on
-        the same stream."""
+        the same stream.
+
+        ``mesh`` (a ``DeviceMesh`` with a 'data' axis): data-parallel, each
+        rank drawing the same stream and computing its block of every batch
+        (``batch_size`` divisible by the mesh size); the trajectory is the
+        single-device one up to reduction order, and the mesh's first rank
+        writes the checkpoints."""
         if not isinstance(self.m, SVGP):
             raise ValueError("minibatch training requires likelihood='bernoulli' "
                              "or an SVGP model")
@@ -482,12 +538,19 @@ class oak_model:
         n = X.shape[0]
         rng = np.random.default_rng(seed)
         batch_size = min(batch_size, n)
+        if mesh is not None and batch_size % mesh.size():
+            raise ValueError(f"batch_size={batch_size} must be divisible by the mesh size "
+                             f"{mesh.size()}")
         idx = torch.as_tensor(np.stack([rng.choice(n, batch_size, replace=False)
                                         for _ in range(steps)]), device=X.device)
 
         def loss_fn(m, ib):
             return m.training_loss(X[ib], Y[ib])
 
+        if mesh is not None:
+            from .parallel.sharding import minibatch_loss
+
+            loss_fn = minibatch_loss(mesh, X, Y, batch_size)
         t0 = time.time()
         if optimizer == "natgrad":
             res = fit_natgrad_scan(self.m, loss_fn, steps=steps, gamma=gamma, hyper_lr=lr,
@@ -623,9 +686,11 @@ class oak_model:
         return None
 
     # ------------------------------------------------------------------ #
-    def get_sobol(self, likelihood_variance: bool = False) -> np.ndarray:
-        """Normalised Sobol index per component."""
-        tuples, sobols = sobol_mod.compute_sobol_oak(self.m)
+    def get_sobol(self, likelihood_variance: bool = False, mesh=None) -> np.ndarray:
+        """Normalised Sobol index per component. ``mesh``: the O(N²) Sobol
+        work sharded over its ranks (``sobol.compute_sobol_oak``), for
+        models whose [D, N, N] L stack is too large for one card."""
+        tuples, sobols = sobol_mod.compute_sobol_oak(self.m, mesh=mesh)
         lik_var = None
         if likelihood_variance and not isinstance(self.m, SVGP):
             lik_var = _host_values([self.m.likelihood.variance])[0]

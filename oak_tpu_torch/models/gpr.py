@@ -55,15 +55,21 @@ class GPR(nn.Module):
                    X, Y)
 
     # ------------------------------------------------------------------ #
-    def _chol(self) -> torch.Tensor:
-        """Cholesky factor of K(X) + σ² I, no jitter beyond the noise."""
-        K = self.kernel.K(self.X)
+    def _chol(self, K: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Cholesky factor of K + σ² I, K = K(X) by default, no jitter
+        beyond the noise."""
+        K = self.kernel.K(self.X) if K is None else K
         Ky = K + self.likelihood.variance.value * torch.eye(
             K.shape[0], dtype=K.dtype, device=K.device)
         return cholesky(Ky, jitter=0.0)
 
     def log_marginal_likelihood(self) -> torch.Tensor:
-        L = self._chol()
+        return self.lml_from_gram(self.kernel.K(self.X))
+
+    def lml_from_gram(self, K: torch.Tensor) -> torch.Tensor:
+        """The log marginal likelihood given the gram K(X) (a data-sharded
+        fit gathers its rows from the shards, ``parallel``)."""
+        L = self._chol(K)
         N, R = self.Y.shape
         alpha = cholesky_solve(L, self.Y)
         # yᵀ K⁻¹ y >= 0 in exact arithmetic: enforced, so that a factor broken
@@ -73,7 +79,10 @@ class GPR(nn.Module):
 
     def training_loss(self) -> torch.Tensor:
         """-(log marginal likelihood + log priors)."""
-        return -(self.log_marginal_likelihood() + log_prior_density(self))
+        return self.training_loss_from_gram(self.kernel.K(self.X))
+
+    def training_loss_from_gram(self, K: torch.Tensor) -> torch.Tensor:
+        return -(self.lml_from_gram(K) + log_prior_density(self))
 
     # ------------------------------------------------------------------ #
     def predict_factors(self) -> Dict[str, torch.Tensor]:

@@ -9,8 +9,10 @@ One set of factors (``_common``: L = chol(Kuu + jitter), A = L⁻¹Kuf/σ,
 LB = chol(I + AAᵀ), c = LB⁻¹AY/σ) and one solve route, triangular solves,
 serve the bound, ``predict_f`` and ``posterior_alpha`` / ``posterior_stats``,
 so that the per-component predictions of ``sobol.get_prediction_component``
-sum to ``predict_f``'s mean. ``oak_tpu``'s refined variant of the factors
-exists for the bf16 inside XLA:TPU's solvers and is not needed here.
+sum to ``predict_f``'s mean. The bound takes them from its sums over rows
+(``elbo_terms``), which the shards of a data-sharded fit add. ``oak_tpu``'s
+refined variant of the factors exists for the bf16 inside XLA:TPU's solvers
+and is not needed here.
 """
 
 from __future__ import annotations
@@ -67,9 +69,24 @@ class SGPR(nn.Module):
         c = solve_lower(LB, A @ self.Y) / sigma  # [M, R]
         return L, A, LB, c, sigma2
 
-    def elbo(self) -> torch.Tensor:
-        """The Titsias bound with its exact-arithmetic inequalities enforced
-        (PARITY_NOTES 9):
+    def elbo_terms(self, X: torch.Tensor, Y: torch.Tensor,
+                   sigma: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+        """The bound's sums over the rows of (X, Y), with A = L⁻¹Kuf/σ
+        [M, n]: (AAᵀ, AY, Σ y², Σ K_diag, Σ A²). The shards of a
+        data-sharded fit add their terms (``parallel``); LB, c and the
+        clamps come from the sums (``elbo_from_terms``), never per shard."""
+        if sigma is None:
+            sigma = torch.sqrt(self.likelihood.variance.value)
+        Z = self.Z.value
+        L = cholesky(self.kernel.K(Z))
+        A = solve_lower(L, self.kernel.K(Z, X)) / sigma  # [M, n]
+        return (A @ A.T, A @ Y, torch.sum(Y * Y), torch.sum(self.kernel.K_diag(X)),
+                torch.sum(A * A))
+
+    def elbo_from_terms(self, terms, num_rows: int, sigma2: Optional[torch.Tensor] = None,
+                        sigma: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The Titsias bound from ``elbo_terms`` over ``num_rows`` rows,
+        with its exact-arithmetic inequalities enforced (PARITY_NOTES 9):
 
             ||c||² <= yᵀy / σ²              (Aᵀ B⁻¹ A is a contraction),
             tr(AAᵀ) <= Σ K_diag / σ²        (the Nyström Q_ff ⪯ K_ff),
@@ -78,12 +95,18 @@ class SGPR(nn.Module):
         A float32 fit in the interpolation-collapse basin (noise at its
         floor, a near-singular jittered Kuu) breaks all three by orders of
         magnitude and an optimizer then maximizes the error; the clamps are
-        inactive at healthy parameters."""
-        _, A, LB, c, sigma2 = self._common()
-        N, R = self.Y.shape
-        kdiag_sum = torch.sum(self.kernel.K_diag(self.X))
-        trace_term = torch.sum(A * A)
-        ydata = 0.5 * torch.sum(self.Y * self.Y) / sigma2
+        inactive at healthy parameters. ``sigma2`` and ``sigma``, when given,
+        are the nodes the terms were made with (one autograd graph, as one
+        device's bound has)."""
+        AAT, AY, yy, kdiag_sum, trace_term = terms
+        if sigma2 is None:
+            sigma2 = self.likelihood.variance.value
+            sigma = torch.sqrt(sigma2)
+        LB = cholesky(AAT + torch.eye(AAT.shape[0], dtype=AAT.dtype, device=AAT.device),
+                      jitter=0.0)
+        c = solve_lower(LB, AY) / sigma  # [M, R]
+        N, R = num_rows, AY.shape[1]
+        ydata = 0.5 * yy / sigma2
         one = torch.ones((), dtype=LB.dtype, device=LB.device)
         return (-0.5 * N * R * _LOG2PI
                 - R * torch.sum(torch.log(torch.maximum(torch.diagonal(LB), one)))
@@ -91,6 +114,15 @@ class SGPR(nn.Module):
                 - ydata
                 + torch.minimum(0.5 * torch.sum(c * c), ydata)
                 - 0.5 * R * torch.clamp_min(kdiag_sum / sigma2 - trace_term, 0.0))
+
+    def elbo(self) -> torch.Tensor:
+        sigma2 = self.likelihood.variance.value
+        sigma = torch.sqrt(sigma2)
+        return self.elbo_from_terms(self.elbo_terms(self.X, self.Y, sigma), self.Y.shape[0],
+                                    sigma2, sigma)
+
+    def training_loss_from_terms(self, terms, num_rows: int) -> torch.Tensor:
+        return -(self.elbo_from_terms(terms, num_rows) + log_prior_density(self))
 
     def training_loss(self) -> torch.Tensor:
         return -(self.elbo() + log_prior_density(self))

@@ -158,16 +158,30 @@ class SVGP(nn.Module):
         return torch.sum(self.likelihood.predict_log_density(mu, var, Ynew), dim=-1)
 
     # ------------------------------------------------------------------ #
-    def elbo(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    def elbo_terms(self, X: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Tensor]:
+        """The ELBO's sum over the rows of (X, Y): the variational
+        expectations' total, as a 1-tuple. The shards of a data-sharded
+        batch add their terms (``parallel``)."""
         if Y.dim() == 1:
             Y = Y[:, None]
         fmu, fvar = self.predict_f(X, safe=False)
-        ve = self.likelihood.variational_expectations(fmu, fvar, Y)
-        scale = 1.0 if self.num_data is None else self.num_data / X.shape[0]
-        return torch.sum(ve) * scale - self.prior_kl()
+        return (torch.sum(self.likelihood.variational_expectations(fmu, fvar, Y)),)
+
+    def elbo_from_terms(self, terms, num_rows: int) -> torch.Tensor:
+        """The ELBO from ``elbo_terms`` summed over a batch of ``num_rows``
+        rows, the global batch when it is sharded: the expectations scaled
+        to ``num_data``, less the KL."""
+        scale = 1.0 if self.num_data is None else self.num_data / num_rows
+        return terms[0] * scale - self.prior_kl()
+
+    def elbo(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        return self.elbo_from_terms(self.elbo_terms(X, Y), X.shape[0])
+
+    def training_loss_from_terms(self, terms, num_rows: int) -> torch.Tensor:
+        return -(self.elbo_from_terms(terms, num_rows) + log_prior_density(self))
 
     def training_loss(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-        return -(self.elbo(X, Y) + log_prior_density(self))
+        return self.training_loss_from_terms(self.elbo_terms(X, Y), X.shape[0])
 
     def predict_f_samples(self, Xnew: torch.Tensor, num_samples: int = 1,
                           generator_or_seed=0) -> torch.Tensor:

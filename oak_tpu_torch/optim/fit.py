@@ -57,14 +57,29 @@ def _leaf(model) -> torch.Tensor:
     return flatten_trainable(model).detach().clone().requires_grad_(True)
 
 
+def loss_and_grads(model, loss_fn: Callable, raws: Dict[str, torch.Tensor],
+                   inputs: Sequence[torch.Tensor], args: Sequence = ()
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """(detached loss, gradients w.r.t. ``inputs``) of ``loss_fn(model,
+    *args)`` with the raws of ``raws`` (``params.call_with``). A loss with a
+    ``loss_and_grads`` method of its own (``parallel.mesh.MeshLoss``, a sum
+    over data shards held by several processes) computes both itself."""
+    own = getattr(loss_fn, "loss_and_grads", None)
+    if own is not None:
+        return own(model, raws, inputs, tuple(args))
+    loss = call_with(model, raws, loss_fn, *args)
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
+    return loss.detach(), grads
+
+
 def value_and_grad(model, loss_fn: Callable, vec: torch.Tensor,
                    *args) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, d loss / d vec) of ``loss_fn(model, *args)`` at the trainable
     vector ``vec``; the loss is detached and stays on the device."""
     vec = vec.detach().requires_grad_(True)
-    loss = call_with(model, unflatten_trainable(model, vec), loss_fn, *args)
-    (grad,) = torch.autograd.grad(loss, vec, allow_unused=True, materialize_grads=True)
-    return loss.detach(), grad
+    loss, (grad,) = loss_and_grads(model, loss_fn, unflatten_trainable(model, vec),
+                                   [vec], args)
+    return loss, grad
 
 
 def finite_or_zero(g: torch.Tensor) -> torch.Tensor:
@@ -206,14 +221,15 @@ def _numpy(t) -> np.ndarray:
 def scan_checkpoint_driver(one_step: Callable, opt: torch.optim.Adam,
                            vec: torch.Tensor, steps: int, batch_args,
                            checkpoint_path, checkpoint_every: int,
-                           resume: bool) -> Tuple[torch.Tensor, int, bool]:
+                           resume: bool, write: bool = True) -> Tuple[torch.Tensor, int, bool]:
     """Run ``one_step(*args) -> loss`` (which updates ``vec`` and ``opt`` in
     place) for steps start..steps-1, in chunks of ``checkpoint_every``, and
     write (vec, Adam's state, step) after each chunk. With ``resume`` and an
     existing file, ``vec`` and Adam continue from the recorded step and step
     i gets the same ``batch_args`` slice, so the resumed trajectory is the
     uninterrupted one. Returns (last loss, start, ran); ``ran`` is False when
-    the checkpoint already covered ``steps``."""
+    the checkpoint already covered ``steps``. ``write=False`` reads the file
+    but leaves the writing to another process of the same run."""
     start = 0
     if checkpoint_path is not None and resume and os.path.exists(checkpoint_path):
         saved, leaves, start = load_train_state(checkpoint_path, vec.dtype, vec.device)
@@ -232,9 +248,15 @@ def scan_checkpoint_driver(one_step: Callable, opt: torch.optim.Adam,
         for k in range(i, i + n):
             v = one_step(*(() if batch_args is None else tuple(a[k] for a in batch_args)))
         i += n
-        if checkpoint_path is not None:
+        if checkpoint_path is not None and write:
             save_train_state(checkpoint_path, vec, adam_state(opt, vec), i)
     return v, start, True
+
+
+def writes_checkpoints(loss_fn: Callable) -> bool:
+    """False for a loss whose process leaves checkpoints to another
+    (``MeshLoss`` on any rank but its axis's first)."""
+    return getattr(loss_fn, "writes_checkpoints", True)
 
 
 def fit_adam_scan(model, loss_fn: Callable, steps: int = 1000, lr: float = 1e-2,
@@ -257,7 +279,8 @@ def fit_adam_scan(model, loss_fn: Callable, steps: int = 1000, lr: float = 1e-2,
         return _adam_step(model, loss_fn, vec, opt, args)
 
     v, start, ran = scan_checkpoint_driver(one_step, opt, vec, steps, batch_args,
-                                           checkpoint_path, checkpoint_every, resume)
+                                           checkpoint_path, checkpoint_every, resume,
+                                           writes_checkpoints(loss_fn))
     assign_trainable(model, vec.detach())
     if not ran:
         # the checkpoint already covers the requested run: nothing to do,

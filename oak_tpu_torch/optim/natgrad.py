@@ -26,8 +26,9 @@ import numpy as np
 import torch
 
 from ..ops.psd import chol_of_inv, cholesky_lower, tri_inv_lower
-from ..params import assign_trainable, call_with, unflatten_trainable
-from .fit import FitResult, _leaf, _stack, adam, finite_or_zero, scan_checkpoint_driver
+from ..params import assign_trainable, unflatten_trainable
+from .fit import (FitResult, _leaf, _stack, adam, finite_or_zero, loss_and_grads,
+                  scan_checkpoint_driver, writes_checkpoints)
 
 _VAR_FLOOR = 1e-10
 _Q = ("q_mu", "q_sqrt")
@@ -121,11 +122,10 @@ def _eta_grads(model, raws: Dict[str, torch.Tensor], loss_fn: Callable, args,
     q_diag = model.q_diag
     q_mu, q_sqrt = (t.detach() for t in _q_values(model, raws))
     e1, e2 = (t.detach().requires_grad_(True) for t in _eta_params(q_mu, q_sqrt, q_diag))
-    loss = call_with(model, {**raws, **_q_raws(model, *_q_from_eta(e1, e2, q_diag))},
-                     loss_fn, *args)
     inputs = [e1, e2] if wrt_vec is None else [e1, e2, wrt_vec]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
-    return loss.detach(), grads, (q_mu, q_sqrt)
+    loss, grads = loss_and_grads(
+        model, loss_fn, {**raws, **_q_raws(model, *_q_from_eta(e1, e2, q_diag))}, inputs, args)
+    return loss, grads, (q_mu, q_sqrt)
 
 
 def _replace_q(model, raws: Dict[str, torch.Tensor], q_mu, q_sqrt) -> torch.Tensor:
@@ -159,10 +159,8 @@ def natgrad_adam_step(opt: torch.optim.Adam, vec: torch.Tensor, model,
             new_vec = _replace_q(model, raws, *q_new).detach().requires_grad_(True)
             new_raws = unflatten_trainable(model, new_vec)
             q_raws = {k: v.detach() for k, v in _q_raws(model, *q_new).items()}
-            loss = call_with(model, {**new_raws, **q_raws}, loss_fn, *args)
-            (gvec,) = torch.autograd.grad(loss, new_vec, allow_unused=True,
-                                          materialize_grads=True)
-            loss = loss.detach()
+            loss, (gvec,) = loss_and_grads(model, loss_fn, {**new_raws, **q_raws},
+                                           [new_vec], args)
         else:
             leaf = vec.detach().requires_grad_(True)
             loss, (g1, g2, gvec), q = _eta_grads(
@@ -215,7 +213,8 @@ def fit_natgrad_scan(model, loss_fn: Callable, steps: int = 200, gamma: float = 
     opt = adam(vec, hyper_lr)
     step = natgrad_adam_step(opt, vec, model, loss_fn, gamma, staggered=staggered)
     v, start, ran = scan_checkpoint_driver(step, opt, vec, steps, batch_args,
-                                           checkpoint_path, checkpoint_every, resume)
+                                           checkpoint_path, checkpoint_every, resume,
+                                           writes_checkpoints(loss_fn))
     assign_trainable(model, vec.detach())
     if not ran:
         return FitResult(model=model, fun=float("nan"), num_iters=0, success=True,

@@ -21,8 +21,15 @@ otherwise the base variances are inside each L.
 
 The quadratic forms are GEMMs, einsums and elementwise products in torch, as
 ``oak_tpu`` computes them outside any Pallas kernel; the CUDA kernels serve
-the grams that give alpha. ``oak_tpu``'s ``mesh=`` arguments wait for the
-multi-GPU item (ROADMAP P16).
+the grams that give alpha.
+
+``mesh=`` (a ``DeviceMesh``; its first axis) shards the O(N²) work over
+processes, as ``oak_tpu`` shards its intermediates: each rank builds its
+block of rows of the L stack, of the factor forms and of the ladder's
+prefix products, and the partial sums the values are made of (the factor
+forms' contractions, the per-order value vectors) are all-reduced. alpha
+(for a GPR, through its [N, N] Cholesky) is computed on every rank. For
+components, the rows of X are split and the blocks gathered.
 """
 
 from __future__ import annotations
@@ -77,13 +84,14 @@ def f4(x, y, sigma, l, delta, mu):
             * torch.exp(-((x - mu) ** 2 + (y - mu) ** 2) / (2 * (l ** 2 + delta ** 2))))
 
 
-def compute_L_gaussian(x: torch.Tensor, lengthscale, variance, delta, mu) -> torch.Tensor:
+def compute_L_gaussian(x: torch.Tensor, lengthscale, variance, delta, mu,
+                       rows: slice = slice(None)) -> torch.Tensor:
     """[N, N] L of an OrthogonalRBF dim under N(mu, delta²), by
-    broadcasting; the scalars may be tensors or floats."""
+    broadcasting (its ``rows`` only); the scalars may be tensors or floats."""
     l, variance, delta, mu = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
                               for v in (lengthscale, variance, delta, mu))
     sigma = torch.sqrt(variance)
-    xi, yj = x[:, None], x[None, :]
+    xi, yj = x[rows, None], x[None, :]
     return (f1(xi, yj, sigma, l, delta, mu) - f2(xi, yj, sigma, l, delta, mu)
             - f3(xi, yj, sigma, l, delta, mu) + f4(xi, yj, sigma, l, delta, mu))
 
@@ -91,28 +99,31 @@ def compute_L_gaussian(x: torch.Tensor, lengthscale, variance, delta, mu) -> tor
 # --------------------------------------------------------------------------- #
 # Quadrature / matmul L matrices
 # --------------------------------------------------------------------------- #
-def compute_L_empirical(kernel: OrthogonalRBF, x: torch.Tensor) -> torch.Tensor:
-    """L = Kxuᵀ diag(w) Kxu over the empirical locations."""
+def compute_L_empirical(kernel: OrthogonalRBF, x: torch.Tensor,
+                        rows: slice = slice(None)) -> torch.Tensor:
+    """L = Kxuᵀ diag(w) Kxu over the empirical locations (its ``rows``)."""
     m: EmpiricalMeasure = kernel.measure
     kxu = ortho_rbf.K(kernel, m.location[:, 0], x)  # [E, N]
-    return (m.weights[:, 0][:, None] * kxu).T @ kxu
+    return (m.weights[:, 0][:, None] * kxu[:, rows]).T @ kxu
 
 
 def _binary_p(kernel: OrthogonalBinary) -> torch.Tensor:
     return torch.stack([kernel.p0, 1.0 - kernel.p0])
 
 
-def compute_L_binary(kernel: OrthogonalBinary, x: torch.Tensor) -> torch.Tensor:
+def compute_L_binary(kernel: OrthogonalBinary, x: torch.Tensor,
+                     rows: slice = slice(None)) -> torch.Tensor:
     """L = B_x diag(p) B_xᵀ with the full-variance table B (PARITY_NOTES:
     the reference scales binary components by σ² instead of σ⁴)."""
     Bx = ortho_binary.output_covariance(kernel)[x.long()]  # [N, 2]
-    return (Bx * _binary_p(kernel)[None, :]) @ Bx.T
+    return (Bx[rows] * _binary_p(kernel)[None, :]) @ Bx.T
 
 
-def compute_L_categorical(kernel: OrthogonalCategorical, x: torch.Tensor) -> torch.Tensor:
+def compute_L_categorical(kernel: OrthogonalCategorical, x: torch.Tensor,
+                          rows: slice = slice(None)) -> torch.Tensor:
     """L = B_x diag(p) B_xᵀ with B_x the gathered rows of the table."""
     Bx = ortho_categorical.output_covariance(kernel)[x.long()]  # [N, C]
-    return (Bx * kernel.p[:, 0][None, :]) @ Bx.T
+    return (Bx[rows] * kernel.p[:, 0][None, :]) @ Bx.T
 
 
 def _gauss_hermite_grid(means: torch.Tensor, variances: torch.Tensor,
@@ -129,18 +140,20 @@ def _gauss_hermite_grid(means: torch.Tensor, variances: torch.Tensor,
 
 
 def compute_L_quadrature(kernel: OrthogonalRBF, x: torch.Tensor,
-                         num_points: int = 64) -> torch.Tensor:
+                         num_points: int = 64, rows: slice = slice(None)) -> torch.Tensor:
     """L = G diag(w) Gᵀ with G = K(x, grid), for any measure with a factor
     form (MOG and uniform, and Gaussian as a check on the closed form)."""
     fw = factor_form(kernel, x, num_points)
     if fw is None:
         raise NotImplementedError(type(kernel.measure))
     G, w = fw
-    return (G * w[None, :]) @ G.T
+    return (G[rows] * w[None, :]) @ G.T
 
 
-def compute_L_for_kernel(kernel, x: torch.Tensor, delta=None, mu=None) -> torch.Tensor:
-    """The L of one constituent kernel on its sliced column ``x``.
+def compute_L_for_kernel(kernel, x: torch.Tensor, delta=None, mu=None,
+                         rows: slice = slice(None)) -> torch.Tensor:
+    """The L of one constituent kernel on its sliced column ``x``; its
+    ``rows`` only (a shard's block, all columns) when given.
 
     A Gaussian measure takes the closed form for l <= 0.5·δ and 64-point
     Gauss–Hermite quadrature above: the closed form's four terms are each
@@ -151,30 +164,30 @@ def compute_L_for_kernel(kernel, x: torch.Tensor, delta=None, mu=None) -> torch.
     flows through Sobol). ``delta`` (a standard deviation) and ``mu``
     override the kernel's own measure."""
     if isinstance(kernel, OrthogonalBinary):
-        return compute_L_binary(kernel, x)
+        return compute_L_binary(kernel, x, rows)
     if isinstance(kernel, OrthogonalCategorical):
-        return compute_L_categorical(kernel, x)
+        return compute_L_categorical(kernel, x, rows)
     if isinstance(kernel, OrthogonalRBF):
         m = kernel.measure
         if isinstance(m, EmpiricalMeasure):
-            return compute_L_empirical(kernel, x)
+            return compute_L_empirical(kernel, x, rows)
         if isinstance(m, GaussianMeasure):
             kw = dict(dtype=x.dtype, device=x.device)
             d = torch.sqrt(m.var) if delta is None else torch.as_tensor(delta, **kw)
             mean = m.mu if mu is None else torch.as_tensor(mu, **kw)
             l = kernel.lengthscale.value
-            Lc = compute_L_gaussian(x, l, kernel.variance.value, d, mean)
+            Lc = compute_L_gaussian(x, l, kernel.variance.value, d, mean, rows)
             if delta is None and mu is None:
-                Lq = compute_L_quadrature(kernel, x)
+                Lq = compute_L_quadrature(kernel, x, rows=rows)
             else:
                 # the quadrature grid under the override measure too
                 s, w = _gauss_hermite_grid(mean.reshape(1), (d * d).reshape(1),
                                            torch.ones(1, **kw), 64)
                 G = ortho_rbf.K(kernel, x, s)
-                Lq = (G * w[None, :]) @ G.T
+                Lq = (G[rows] * w[None, :]) @ G.T
             return torch.where(l > 0.5 * d, Lq, Lc)
         if isinstance(m, (MOGMeasure, UniformMeasure)):
-            return compute_L_quadrature(kernel, x)
+            return compute_L_quadrature(kernel, x, rows=rows)
     raise NotImplementedError(type(kernel))
 
 
@@ -215,10 +228,11 @@ def factor_form(kernel, x: torch.Tensor, num_points: int = 64
 # --------------------------------------------------------------------------- #
 # Routing
 # --------------------------------------------------------------------------- #
-def _dim_L_stack(oak: OAKKernel, X: torch.Tensor, delta=None, mu=None) -> torch.Tensor:
-    """[D, N, N] per-dim L matrices."""
+def _dim_L_stack(oak: OAKKernel, X: torch.Tensor, delta=None, mu=None,
+                 rows: slice = slice(None)) -> torch.Tensor:
+    """[D, N, N] per-dim L matrices (their ``rows``: [D, n_rows, N])."""
     return torch.stack(per_dim_batched(
-        oak.kernels, X, lambda k, x: compute_L_for_kernel(k, x, delta, mu)))
+        oak.kernels, X, lambda k, x: compute_L_for_kernel(k, x, delta, mu, rows)))
 
 
 def _order_scales(oak: OAKKernel, orders: torch.Tensor, dtype) -> torch.Tensor:
@@ -368,7 +382,7 @@ def _index(idx, device) -> torch.Tensor:
 
 
 def _ladder_quadforms(Lstack: torch.Tensor, a: torch.Tensor, D: int,
-                      max_order: int) -> Dict[int, torch.Tensor]:
+                      max_order: int, rows: slice = slice(None)) -> Dict[int, torch.Tensor]:
     """alphaᵀ (⊙ of the L_d) alpha for every combination of every order
     1..max_order, batched: {order: values in itertools.combinations order}.
 
@@ -376,42 +390,50 @@ def _ladder_quadforms(Lstack: torch.Tensor, a: torch.Tensor, D: int,
     Q_1 = Lf ⊙ vec(a aᵀ); for each next order the values of every one-dim
     extension are one GEMM ext = Q_{k-1} Lfᵀ [C_{k-1}, D], and Q_k gathers
     the surviving (prefix, last) rows. Extending prefixes lexicographically
-    keeps the combinations order."""
-    N = Lstack.shape[1]
+    keeps the combinations order.
+
+    ``Lstack`` may hold only the ``rows`` of each L ([D, n_rows, N], a
+    shard's block): the values are then this block's share of the sums.
+    The routes are chosen on the whole N², so every shard takes the
+    unsharded route."""
+    N = Lstack.shape[2]
     X = N * N
     itemsize = Lstack.element_size()
     if D * X * itemsize > _LADDER_BYTES_CAP:
         # even Q_1 [D, N²] is over the cap (dense large-N GPR)
-        return _chunked_quadforms(Lstack, a, D, 1, max_order)
-    Lf = Lstack[:D].reshape(D, X)
-    Q = Lf * (a[:, None] * a[None, :]).reshape(X)[None, :]  # [D, X]
-    vals = {1: torch.sum(Q, dim=1)}
+        return _chunked_quadforms(Lstack, a, D, 1, max_order, rows)
+    Lf = Lstack[:D].reshape(D, -1)
+    Q = Lf * (a[rows, None] * a[None, :]).reshape(-1)[None, :]  # [D, X]
+    # N² signed terms, which cancel on near-noiseless fits: summed in float64
+    vals = {1: torch.sum(Q, dim=1, dtype=torch.float64)}
     prefixes = [(d,) for d in range(D)]
     for k in range(2, max_order + 1):
         ext = Q @ Lf.T  # [C_{k-1}, D]
-        rows, lasts, new_prefixes = [], [], []
+        heads, lasts, new_prefixes = [], [], []
         for r, t in enumerate(prefixes):
             for last in range(t[-1] + 1, D):
-                rows.append(r)
+                heads.append(r)
                 lasts.append(last)
                 new_prefixes.append(t + (last,))
-        rows_t, lasts_t = _index(rows, Lf.device), _index(lasts, Lf.device)
-        vals[k] = ext[rows_t, lasts_t]
+        heads_t, lasts_t = _index(heads, Lf.device), _index(lasts, Lf.device)
+        vals[k] = ext[heads_t, lasts_t]
         if k == max_order:
             break
         if len(new_prefixes) * X * itemsize > _LADDER_BYTES_CAP:
-            vals.update(_chunked_quadforms(Lstack, a, D, k + 1, max_order))
+            vals.update(_chunked_quadforms(Lstack, a, D, k + 1, max_order, rows))
             break
-        Q = Q[rows_t] * Lf[lasts_t]
+        Q = Q[heads_t] * Lf[lasts_t]
         prefixes = new_prefixes
     return vals
 
 
 def _chunked_quadforms(Lstack: torch.Tensor, a: torch.Tensor, D: int,
-                       order_from: int, order_to: int) -> Dict[int, torch.Tensor]:
+                       order_from: int, order_to: int,
+                       rows: slice = slice(None)) -> Dict[int, torch.Tensor]:
     """The memory-bounded route: Hadamard products of B components at a
-    time, B chosen so that the [B, N, N] product stays at 2²⁷ elements."""
-    N = Lstack.shape[1]
+    time, B chosen so that the [B, N, N] product stays at 2²⁷ elements
+    (``Lstack`` may hold the ``rows`` of each L only, as in the ladder)."""
+    N = Lstack.shape[2]
     B = max(1, min(256, int(2 ** 27 // max(N * N, 1))))
     out = {}
     for k in range(order_from, order_to + 1):
@@ -423,7 +445,7 @@ def _chunked_quadforms(Lstack: torch.Tensor, a: torch.Tensor, D: int,
             L = Lstack[ci[:, 0]]
             for j in range(1, k):
                 L = L * Lstack[ci[:, j]]
-            parts.append(torch.einsum("n,bnm,m->b", a, L, a))
+            parts.append(torch.einsum("n,bnm,m->b", a[rows], L, a))
         out[k] = torch.cat(parts) if parts else Lstack.new_zeros((0,))
     return out
 
@@ -438,43 +460,77 @@ def _factor_stack(oak: OAKKernel, X: torch.Tensor) -> Tuple[torch.Tensor, torch.
             torch.stack([pad(w, (0, Qmax - w.shape[0])) for _, w in factors]))
 
 
-def _factor_quadforms(Fs: torch.Tensor, Ws: torch.Tensor, a: torch.Tensor,
-                      pairs: List[List[int]]) -> Dict[str, torch.Tensor]:
-    """{"R1": the D order-1 values, "R2": the values of ``pairs``} from the
-    factor forms: Σ_q w_q (Fᵀa)_q² and Σ_qp w_q w_p (F_iᵀ diag(a) F_j)_qp²,
-    all pairs in one batched contraction."""
-    V = torch.einsum("dnq,n->dq", Fs, a)
-    out = {"R1": torch.sum(Ws * V * V, dim=1)}
+def _factor_sums(Fs: torch.Tensor, a: torch.Tensor,
+                 pairs: List[List[int]]) -> List[torch.Tensor]:
+    """The contractions over N the factor forms' values are made of: Fᵀa
+    [D, Q] and, for ``pairs``, F_iᵀ diag(a) F_j [C2, Q, Q] (all pairs in one
+    batched contraction). Over a block of rows they are that block's share."""
+    out = [torch.einsum("dnq,n->dq", Fs, a)]
     if pairs:
         pidx = _index(pairs, Fs.device)
         Fi = (Fs * a[None, :, None])[pidx[:, 0]]  # [C2, N, Q]
-        T = torch.einsum("cnq,cnp->cqp", Fi, Fs[pidx[:, 1]])
+        out.append(torch.einsum("cnq,cnp->cqp", Fi, Fs[pidx[:, 1]]))
+    return out
+
+
+def _factor_quadforms(sums: List[torch.Tensor], Ws: torch.Tensor,
+                      pairs: List[List[int]]) -> Dict[str, torch.Tensor]:
+    """{"R1": the D order-1 values, "R2": the values of ``pairs``} from
+    ``_factor_sums``: Σ_q w_q (Fᵀa)_q² and Σ_qp w_q w_p (F_iᵀ diag(a)
+    F_j)_qp²."""
+    V = sums[0]
+    out = {"R1": torch.sum(Ws * V * V, dim=1)}
+    if pairs:
+        pidx = _index(pairs, Ws.device)
+        T = sums[1]
         out["R2"] = torch.einsum("cq,cqp,cp->c", Ws[pidx[:, 0]], T * T, Ws[pidx[:, 1]])
     return out
 
 
-def _sobol_values(model, depth: int, routing: Sequence[bool]) -> torch.Tensor:
+def _reduced(axis, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``parts`` summed over the axis in one all-reduce (as they are
+    without one)."""
+    if axis is None or not parts:
+        return parts
+    from .parallel.mesh import _flat, _unflat
+
+    return _unflat(axis.all_reduce(_flat(parts)), parts)
+
+
+def _sobol_values(model, depth: int, routing: Sequence[bool], axis=None) -> torch.Tensor:
     """Every component's Sobol value (component order, the constant
     skipped). Orders 1-2 use the factor forms when every dim's is usable;
-    the other orders, or all of them, the ladder over the L stack."""
+    the other orders, or all of them, the ladder over the L stack. With an
+    ``axis`` (``parallel.mesh.Axis``) each rank works on its block of rows
+    and the partial sums are all-reduced once."""
     oak: OAKKernel = model.kernel
     X = _model_X(model)
     a = model.posterior_alpha()[:, 0]
+    rows = slice(None) if axis is None else axis.rows(X.shape[0])
     tuples = component_index_tuples(oak.num_dims, depth)[1:]
     all_factor = all(routing)
 
-    parts = {}
+    sums: List[torch.Tensor] = []
+    pairs: List[List[int]] = []
     if all_factor:
-        Fs, Ws = _factor_stack(oak, X)
-        parts = _factor_quadforms(Fs, Ws, a, [t for t in tuples if len(t) == 2])
+        Fs, Ws = _factor_stack(oak, X[rows])
+        pairs = [t for t in tuples if len(t) == 2]
+        sums = _factor_sums(Fs, a[rows], pairs)
         hadamard = [t for t in tuples if len(t) > 2]
     else:
         hadamard = tuples
     if hadamard:
         orders = sorted({len(t) for t in hadamard})
-        ladder = _ladder_quadforms(_dim_L_stack(oak, X), a, oak.num_dims, orders[-1])
+        ladder = _ladder_quadforms(_dim_L_stack(oak, X, rows=rows), a, oak.num_dims,
+                                   orders[-1], rows)
         # hadamard holds, per order, every combination in combinations order
-        parts["RH"] = torch.cat([ladder[k] for k in orders])
+        sums.append(torch.cat([ladder[k] for k in orders]))
+    sums = [s.to(a.dtype) for s in _reduced(axis, sums)]
+    parts = {}
+    if all_factor:
+        parts = _factor_quadforms(sums, Ws, pairs)
+    if hadamard:
+        parts["RH"] = sums[-1]
     return _assemble(parts, tuples, all_factor, oak, X.device)
 
 
@@ -540,51 +596,67 @@ def _check_measure_override(oak: OAKKernel, delta, mu) -> None:
                     "carry their measure")
 
 
+def _axis(mesh):
+    from .parallel.mesh import first_axis
+
+    return first_axis(mesh)
+
+
 @torch.no_grad()
 def compute_sobol_oak(model, delta=None, mu=None,
                       max_interaction_depth: Optional[int] = None,
-                      latent: Optional[int] = None
+                      latent: Optional[int] = None, mesh=None
                       ) -> Tuple[List[List[int]], np.ndarray]:
     """(tuples, values): the Sobol index of every additive component, the
     constant skipped, in the reference's component order, values as numpy.
     ``delta``/``mu`` must match the kernels' own measure; ``latent`` picks
-    one latent of a multi-latent model (required there)."""
+    one latent of a multi-latent model (required there). ``mesh``: the
+    O(N²) work sharded over the mesh's first axis (module docstring); every
+    rank returns all the values."""
     oak: OAKKernel = model.kernel
     model = resolve_latent(model, latent)
     _check_measure_override(oak, delta, mu)
     depth = _check_depth_override(oak, max_interaction_depth)
     tuples = component_index_tuples(oak.num_dims, depth)[1:]
-    values = _sobol_values(model, depth, _factor_routing(oak))
+    values = _sobol_values(model, depth, _factor_routing(oak), _axis(mesh))
     return tuples, values.cpu().numpy()
 
 
 @torch.no_grad()
 def compute_sobol_by_order(model, delta=None, mu=None,
                            max_depth: Optional[int] = None,
-                           latent: Optional[int] = None) -> np.ndarray:
+                           latent: Optional[int] = None, mesh=None) -> np.ndarray:
     """Total unnormalised Sobol mass per order 1..P in O(D·P), by
     Newton–Girard over the L matrices, with no tuple enumeration. Shares the
     Hadamard form's conditioning: prefer sums of ``compute_sobol_oak`` on
-    near-noiseless fits."""
+    near-noiseless fits. ``mesh``: each rank takes a block of rows of the L
+    matrices, and the per-order values are all-reduced."""
     model = resolve_latent(model, latent)
     oak: OAKKernel = model.kernel
     _check_measure_override(oak, delta, mu)
     depth = _check_depth_override(oak, max_depth)
     a = model.posterior_alpha()[:, 0]
-    mats = per_dim_batched(oak.kernels, _model_X(model), compute_L_for_kernel)
+    axis = _axis(mesh)
+    rows = slice(None) if axis is None else axis.rows(a.shape[0])
+    mats = per_dim_batched(oak.kernels, _model_X(model),
+                           lambda k, x: compute_L_for_kernel(k, x, rows=rows))
     e = newton_girard(mats, depth)[1:]
     orders = torch.arange(1, depth + 1, device=a.device)
-    values = torch.stack([a @ En @ a for En in e]) * _order_scales(oak, orders, a.dtype)
-    return values.cpu().numpy()
+    # the sum over rows cancels on near-noiseless fits: taken in float64
+    partial = torch.stack([torch.dot((En @ a).double(), a[rows].double()) for En in e])
+    (values,) = _reduced(axis, [partial])
+    return (values.to(a.dtype) * _order_scales(oak, orders, a.dtype)).cpu().numpy()
 
 
 @torch.no_grad()
 def get_prediction_component(model, alpha=None, X: Optional[torch.Tensor] = None,
                              max_interaction_depth: Optional[int] = None,
-                             latent: Optional[int] = None) -> np.ndarray:
+                             latent: Optional[int] = None, mesh=None) -> np.ndarray:
     """Per-component predictive means [C, N] in component order; with the
     constant term σ²_0 Σ alpha they sum to the predictive mean. ``alpha``
-    is accepted for the reference's API and recomputed from the model."""
+    is accepted for the reference's API and recomputed from the model.
+    ``mesh``: each rank computes a block of the rows of X, and the blocks
+    are gathered."""
     oak: OAKKernel = model.kernel
     model = resolve_latent(model, latent)
     if X is None:
@@ -592,6 +664,10 @@ def get_prediction_component(model, alpha=None, X: Optional[torch.Tensor] = None
     depth = _check_depth_override(oak, max_interaction_depth)
     Xc = _model_X(model)
     X = torch.as_tensor(X, dtype=Xc.dtype, device=Xc.device)
+    axis = _axis(mesh)
+    n_rows = X.shape[0]
+    if axis is not None:
+        X = X[axis.rows(n_rows)]
     a = model.posterior_alpha()[:, 0]
     tuples = component_index_tuples(oak.num_dims, depth)[1:]
 
@@ -621,7 +697,10 @@ def get_prediction_component(model, alpha=None, X: Optional[torch.Tensor] = None
         for j in range(1, P):
             Kc = Kc * G[ci[:, j]]
         out.append(scales[c0:c0 + B, None] * (Kc @ a))
-    return torch.cat(out).cpu().numpy()
+    out = torch.cat(out)
+    if axis is not None:
+        out = axis.gather_rows(out.T.contiguous(), n_rows).T
+    return out.cpu().numpy()
 
 
 def normalize_sobol(sobol: np.ndarray, likelihood_variance: Optional[float] = None

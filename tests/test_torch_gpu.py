@@ -426,3 +426,90 @@ def test_checked_reaches_the_cuda_backward_and_passes_both_kernels(cuda):
     torch.cuda.synchronize()
     assert og.LAUNCHES > before[0] and og.BWD_LAUNCHES > before[1]
     assert bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+DP_RANK = """
+import sys
+import numpy as np, torch, torch.distributed as dist
+rank, folder = int(sys.argv[1]), sys.argv[2]
+sys.path.insert(0, sys.argv[3])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{folder}/store", rank=rank, world_size=2)
+from oak_tpu_torch.optim.fit import value_and_grad
+from oak_tpu_torch.parallel import data_parallel_elbo_step, make_mesh, shard_batch
+from oak_tpu_torch.parallel.mesh import Axis
+from oak_tpu_torch.parallel.sharding import mesh_loss
+from oak_tpu_torch.params import flatten_trainable
+with np.load(f"{folder}/data.npz") as f:
+    X, Y, Z = (torch.as_tensor(f[k], device="cuda") for k in ("X", "Y", "Z"))
+sys.path.insert(0, sys.argv[4])
+from test_torch_gpu import _dp_model
+model = _dp_model(X, Y, Z)
+mesh = make_mesh()
+loss, grad = value_and_grad(model, mesh_loss(model, Axis.of(mesh, "data"), X, Y),
+                            flatten_trainable(model).detach())
+step, (vec, opt_state, _) = data_parallel_elbo_step(model, mesh)
+vec1, _, step_loss = step(vec, opt_state, *shard_batch(mesh, X, Y))
+np.savez(f"{folder}/rank{rank}.npz", loss=loss.cpu().numpy(), grad=grad.cpu().numpy(),
+         step_loss=step_loss.cpu().numpy(), vec1=vec1.cpu().numpy())
+dist.destroy_process_group()
+"""
+
+
+def _dp_model(X, Y, Z):
+    """A float32 SVGP on the card with seeded parameters (q_mu N(0, 1))."""
+    model = SVGP.create(OAKKernel.create(num_dims=X.shape[1], max_interaction_depth=2,
+                                         use_sparsity_prior=True, dtype=torch.float32,
+                                         device=X.device),
+                        Gaussian.create(0.05, dtype=torch.float32, device=X.device), Z,
+                        num_data=X.shape[0])
+    model.q_mu.assign(np.random.default_rng(3).normal(size=(Z.shape[0], 1)))
+    return model
+
+
+def test_data_parallel_step_on_two_gloo_ranks_matches_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card: the sharded loss and gradient (K1
+    and K2 at the shard's Kuf) and one data-parallel Adam step against one
+    process, the loss within 1e-5 relative and the gradient within 1e-4 of
+    max |g|; the ranks are killed if either fails or runs past 300 s."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from oak_tpu_torch.optim.fit import value_and_grad
+    from oak_tpu_torch.params import flatten_trainable
+
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(2048, 8)).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.normal(size=(2048, 1))).astype(np.float32)
+    np.savez(tmp_path / "data.npz", X=X, Y=Y, Z=X[:64])
+    here = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c", DP_RANK, str(r), str(tmp_path),
+                               str(here.parent), str(here)],
+                              env=dict(os.environ, LOCAL_RANK="0"),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    deadline = time.monotonic() + 300
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    logs = [p.communicate()[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    Xc, Yc = torch.as_tensor(X, device=cuda), torch.as_tensor(Y, device=cuda)
+    model = _dp_model(Xc, Yc, Xc[:64])
+    loss, grad = value_and_grad(model, lambda m: m.training_loss(Xc, Yc),
+                                flatten_trainable(model).detach())
+    g = grad.double().cpu().numpy()
+    for r in range(2):
+        with np.load(tmp_path / f"rank{r}.npz") as f:
+            assert abs(float(f["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+            assert np.abs(f["grad"] - g).max() <= 1e-4 * np.abs(g).max()
+            assert abs(float(f["step_loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
