@@ -30,10 +30,10 @@ non-zero before the result line:
    q_diag, whitened, float32) on the card answers predict_y requests of 1,
    100, 2048 and 8192 rows; the outputs are finite, the kernel was launched,
    and the 8192 request agrees with the same model in float64 on the CPU
-   (the plain per-dim route) within 1e-3 relative to max magnitude;
+   (the plain route) within 1e-3 relative to max magnitude;
 4. training path: the bench's SVGP as bench.py builds it (create defaults):
    the training-loss gradient at the start point against the same model in
-   float64 on the card (the per-dim route; loss within 1e-3 relative,
+   float64 on the card (the plain route; loss within 1e-3 relative,
    gradient within 1e-2 of max |g|); 50 fit_adam steps;
    20 Adam steps of the bench's Bernoulli variant; 20 fit_natgrad_adam steps
    (γ 0.1) on a q_diag=False copy. Every loss is finite, each best loss is
@@ -55,7 +55,7 @@ non-zero before the result line:
    gram K(X) and K2 in training;
 8. defaults and depth: a kernel and an SVGP built with no dtype or device
    are float32 on the card and launch K1 and K2; depth 9 over 10 dims and
-   32 over 32 run through both kernels and agree with the per-dim route;
+   32 over 32 run through both kernels and agree with the plain route;
 9. the oak_model user path at the UCI pumadyn configuration's full width
    (examples/uci/outputs/pumadyn/config.json: depth 8, M = 500, flows, the
    sparsity prior, L-BFGS; float32, built with no dtype or device) on fold
@@ -67,7 +67,7 @@ non-zero before the result line:
    loaded in float64 on the card, factoring at float32's jitter, agrees at
    matched parameters (the B1 gate: NLL and the 255 normalised Sobol values
    within 1e-3; predictions within 1e-3 or, where the same float32 model on
-   the per-dim route is further off, within twice its error); the
+   the plain route is further off, within twice its error); the
    per-component predictions plus the
    constant against the mean, within the UCI regression script's float32
    budget 1e-2 + 2e-2 |mean| per point; a float32 save loads back to
@@ -109,6 +109,16 @@ non-zero before the result line:
    models in one process on the card (gates in phase_parallel). The
    world-2 job's ranks build the kernels at once into an empty directory.
    Then K1 and K2 against plain at the 2-rank shard's Kus.
+13. the grouped evaluation of the per-dim forms (phase_grouped): at the
+   bench SVGP's full width (one group of 32 dims), _prep(Z, X), K_diag(X),
+   the training loss and its gradient and the full Sobol on the grouped
+   route against the same through a per-dim loop written here
+   (_per_dim_route), within 1e-4 (forward) or 1e-3 (gradient) of max
+   |per-dim| or the drift rule; one _prep and one K_diag launch as many
+   kernels at D 8 as at D 32; then the launches, host ms and device ms of a
+   warm fit_adam step, predict_y of 1 and 8192 rows, a full Sobol and a
+   warm served request of phase 10.2's artifact, and the peak memory of
+   phase 5's Sobol calls.
 
 Each phase prints its seconds. Then one JSON line about the kernels, and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
@@ -121,13 +131,20 @@ with these in phases 2 and 2b.
     python3 chip_smoke.py --profile
 
 runs phases 0-1 and then, in place of the checks, the breakdown of a warm
-predict_y request, of a warm training step and of a full Sobol decomposition
-(PERF.md "Where the time goes"); it prints no result line.
+predict_y request, of a warm training step, of a full Sobol decomposition
+and of a warm served request, and the peak memory of phases 5's and 12's
+Sobol calls (PERF.md "Where the time goes"); it prints no result line.
+
+    python3 chip_smoke.py --profile --package DIR
+
+does the same for the oak_tpu_torch of an earlier tree unpacked in DIR
+(git archive), so that two trees are profiled by one script in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import re
@@ -662,7 +679,7 @@ def _grad_at_start(model, loss_fn):
 
 def _check_grad_against_f64(name, model, loss_fn, to64=None):
     """The loss and its gradient at the start point, f32 through the kernels
-    against the same model in f64 on the card (the per-dim route, which must
+    against the same model in f64 on the card (the plain route, which must
     launch neither kernel), each factoring at its dtype's default jitter.
     ``to64`` maps the loss function's arguments to f64."""
     from oak_tpu_torch.ops import oak_gram as og
@@ -709,7 +726,7 @@ def phase_training(device):
 
     og.LAUNCHES = og.BWD_LAUNCHES = 0
     model, X, Y = build_bench_model(device)
-    # 4.1: f32 through the kernels against f64 through the per-dim route, on
+    # 4.1: f32 through the kernels against f64 through the plain route, on
     # the card, each factoring Kuu at its dtype's default jitter (1e-5 and
     # 1e-6 relative to the mean diagonal)
     line = _check_grad_against_f64("SVGP", model, lambda m: m.training_loss(X, Y),
@@ -821,8 +838,11 @@ def phase_sobol(model, X):
     launches = og.LAUNCHES
     if launches == 0:
         raise RuntimeError("Sobol did not launch the forward kernel")
+    peak = _peak_gb(lambda: (sb.compute_sobol_oak(model), sb.compute_sobol_by_order(model),
+                             sb.get_prediction_component(model, X=X[:COMPONENT_ROWS])))
     print(f"phase 5 Sobol of the trained bench SVGP: {line}; full Sobol host ms "
-          f"(sync, median of 3) {sobol_ms:.3f}; forward launches {launches}")
+          f"(sync, median of 3) {sobol_ms:.3f}; forward launches {launches}; peak memory of "
+          f"its Sobol calls {peak:.3f} GB")
     return launches
 
 
@@ -894,8 +914,8 @@ def phase_gpr(device):
     return launches
 
 
-def _per_dim_K(k, X, X2=None):
-    """OAKKernel.K's per-dim route, whatever the dtype and device."""
+def _plain_K(k, X, X2=None):
+    """OAKKernel.K's plain route, whatever the dtype and device."""
     from oak_tpu_torch.ops.newton_girard import newton_girard
 
     return k._combine(newton_girard(k.dim_grams(X, X2), k.max_interaction_depth))
@@ -906,7 +926,7 @@ def phase_defaults(device):
     or device are float32 on the card, and K and the training gradient
     launch K1 and K2. Then models deeper than 8 (depth 9 over 10 dims, 32
     over 32, create defaults: every order's variance 1) through the kernels:
-    K and its gradient against the per-dim route in f32 and f64 on the card
+    K and its gradient against the plain route in f32 and f64 on the card
     under kernel_error's rule (tol 1e-4 and 1e-3)."""
     from oak_tpu_torch.kernels import OAKKernel
     from oak_tpu_torch.models import SVGP, Gaussian
@@ -953,8 +973,8 @@ def phase_defaults(device):
         torch.cuda.synchronize()
         if (og.LAUNCHES, og.BWD_LAUNCHES) != (before[0] + 1, before[1] + 1):
             raise RuntimeError(f"depth {depth} over {d} dims did not run through K1 and K2")
-        plain = value_and_grads(k, _per_dim_K, Xd)
-        plain64 = value_and_grads(copy.deepcopy(k).double(), _per_dim_K, Xd.double())
+        plain = value_and_grads(k, _plain_K, Xd)
+        plain64 = value_and_grads(copy.deepcopy(k).double(), _plain_K, Xd.double())
         errs = []
         for what, o, p32, p64 in zip(["K", "dX"] + [f"d{n}" for n in
                                                    range(len(ours) - 2)], ours, plain, plain64):
@@ -963,7 +983,7 @@ def phase_defaults(device):
             if not ok:
                 raise RuntimeError(f"depth {depth} over {d} dims: {what} {text}")
         lines.append(f"depth {depth} over {d} dims (create defaults) through K1 and K2 vs "
-                     f"the per-dim route f32 / f64: " + ", ".join(errs[:3])
+                     f"the plain route f32 / f64: " + ", ".join(errs[:3])
                      + f", {len(errs) - 3} more gradients: worst "
                      + max(errs[3:], key=lambda t: float(t.split()[1])))
     print("phase 8 defaults and depth: " + "; ".join(lines))
@@ -1078,7 +1098,7 @@ def b1_gate(name, oak, oak64, X, y):
     alone moves the float64 model by more than the gate. The float64
     reference therefore factors at float32's jitter; its own jitter's
     numbers are printed beside. Predictions pass within 1e-3, or within
-    twice the error of the same float32 model on the per-dim route (no
+    twice the error of the same float32 model on the plain route (no
     kernel), the drift rule of oak_tpu_torch.testing.kernel_error; NLL and
     the Sobol values, bench.py's B1 quantities, within 1e-3."""
     from oak_tpu_torch import config
@@ -1100,9 +1120,9 @@ def b1_gate(name, oak, oak64, X, y):
         og.supports_fused = supports_fused
     text = (f"B1 at matched parameters (f64 at f32's jitter), f32 through the kernels vs "
             f"f64: predictions {errs[0]:.2e} of max |f64| (tol {E2E_TOL}, or twice the f32 "
-            f"per-dim route's), nll |diff| {errs[1]:.2e} (tol {E2E_TOL}), "
+            f"plain route's), nll |diff| {errs[1]:.2e} (tol {E2E_TOL}), "
             f"{len(kernels[2])} normalised Sobol values max |diff| {errs[2]:.2e} (tol "
-            f"{SOBOL_TOL}); the f32 per-dim route vs f64: "
+            f"{SOBOL_TOL}); the f32 plain route vs f64: "
             + ", ".join(f"{e:.2e}" for e in plain)
             + "; the kernels vs f64 at its own jitter: "
             + ", ".join(f"{e:.2e}" for e in _b1_errors(kernels, own))
@@ -1123,7 +1143,7 @@ def phase_oak_model(device):
     restarts, predict, NLL and RMSE, a save loaded back in float64 on the
     card (the B1 gate at matched parameters and jitter: predictions, NLL
     and the 255 normalised Sobol values, predictions also against float32's
-    own error on the per-dim route), the per-component predictions against the
+    own error on the plain route), the per-component predictions against the
     mean (the UCI regression script's float32 budget), and a float32 save
     loaded back to bitwise-equal predictions. Each part prints its line. The
     launch counts cover exactly that path; then K1 and K2 at its Kuf
@@ -1462,7 +1482,7 @@ def phase_committed(device):
         text += [f"{name}, depth {args[-1]}: " + "; ".join(lines[:2])] + lines[2:]
     print(f"phase 10.4 K1 and K2 vs plain at phase 10's shapes ({time.perf_counter() - t0:.1f} "
           "s):\n" + "\n".join(text))
-    return launches
+    return launches, lambda rows: served(Xte[:rows]).cpu()
 
 
 def _committed_shapes(heart, Xh):
@@ -2160,6 +2180,229 @@ def phase_parallel(device):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 13: the grouped per-dim evaluation
+# --------------------------------------------------------------------------- #
+GROUPED_REPEATS = 5
+
+
+def _per_dim_prep(oak, X, X2):
+    """ops.oak_gram._prep as a per-dim loop: each constituent kernel's
+    closed forms on its own column, one call per dim (shared variances)."""
+    from oak_tpu_torch.kernels import ortho_rbf
+    from oak_tpu_torch.kernels.oak_kernel import UnconstrainedRBF, kernel_K
+    from oak_tpu_torch.kernels.ortho_rbf import OrthogonalRBF
+    from oak_tpu_torch.ops import oak_gram as og
+
+    rbf, extras = [], []
+    for k in oak.kernels:
+        col1, col2 = X[:, k.active_dim], X2[:, k.active_dim]
+        if not isinstance(k, (OrthogonalRBF, UnconstrainedRBF)):
+            extras.append(kernel_K(k, col1, col2))
+            continue
+        ls2 = k.lengthscale.value * og._SQRT2
+        c1, c2 = torch.zeros_like(col1), torch.zeros_like(col2)
+        if isinstance(k, OrthogonalRBF):
+            rs = torch.rsqrt(torch.clamp_min(ortho_rbf.var_s(k), og._RSQRT_FLOOR))
+            c1, c2 = ortho_rbf.cov_x_s(k, col1) * rs, ortho_rbf.cov_x_s(k, col2) * rs
+        logb = torch.log(torch.clamp_min(k.variance.value.reshape(()), og._VARIANCE_FLOOR))
+        rbf.append((col1 / ls2, col2 / ls2, c1, c2, logb))
+    u1, u2, c1, c2, logb = (torch.stack(t) for t in zip(*rbf))
+    extra = torch.stack(extras) if extras else X.new_zeros((0, X.shape[0], X2.shape[0]))
+    sig2 = torch.stack([v.value.reshape(()) for v in oak.variances])
+    return u1, u2, c1, c2, extra, logb, sig2
+
+
+def _per_dim_group(kernels, X, fn, X2=None, dim_elements=0):
+    """kernels.per_group as a per-dim loop: fn on each kernel and its own
+    column, its result given a group axis of one."""
+    for i, k in enumerate(kernels):
+        cols = [X[:, k.active_dim]] + ([] if X2 is None else [X2[:, k.active_dim]])
+        out = fn(k, *cols)
+        yield [i], (tuple(t[None] for t in out) if isinstance(out, tuple) else out[None])
+
+
+@contextlib.contextmanager
+def _per_dim_route():
+    """Within the block every grouped evaluation of the per-dim forms (the
+    gram's prescale, K's and K_diag's power sums, Sobol's L and factor
+    stacks) runs the per-dim loop instead."""
+    from oak_tpu_torch import sobol as sb
+    from oak_tpu_torch.kernels import oak_kernel as ok
+    from oak_tpu_torch.ops import oak_gram as og
+
+    saved = og._prep, ok.per_group, sb.per_group
+    og._prep, ok.per_group, sb.per_group = _per_dim_prep, _per_dim_group, _per_dim_group
+    try:
+        yield
+    finally:
+        og._prep, ok.per_group, sb.per_group = saved
+
+
+def _launches_and_device_ms(events):
+    """(kernel launches, device ms) in torch.profiler's key_averages():
+    cudaLaunchKernel / cuLaunchKernel calls, and the CUDA operations'
+    time."""
+    from torch.autograd import DeviceType
+
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return launches, device_ms
+
+
+def _launches_device_ms(fn):
+    """(kernel launches, device ms) of one call of fn after a warm-up."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _launches_and_device_ms(prof.key_averages())
+
+
+def _peak_gb(fn):
+    """Peak device memory fn allocates above what was allocated before, GB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _held(name, grouped, per_dim, f64, tols):
+    """The grouped route's tensors against the per-dim loop's, each within
+    its ``tols`` entry of max |per-dim|, or, where float32 itself drifts,
+    within twice the per-dim loop's error against ``f64()``
+    (testing.kernel_error). Returns the largest error."""
+    from oak_tpu_torch.testing import kernel_error
+
+    worst, ref64 = 0.0, None
+    for i, (g, p, tol) in enumerate(zip(grouped, per_dim, tols)):
+        if g.shape != p.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"{name}[{i}]: shape {tuple(g.shape)} vs {tuple(p.shape)}, or "
+                               "non-finite")
+        if not p.numel():
+            continue
+        err = float((g - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+        if not err < tol:
+            ref64 = f64() if ref64 is None else ref64
+            ok, err, text = kernel_error(g, p, ref64[i], tol)
+            if not ok:
+                raise RuntimeError(f"{name}[{i}] grouped vs per-dim: {text} (tol {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_grouped(device, served):
+    """Phase 13, the grouped evaluation of the per-dim forms at the bench
+    SVGP's full width (N 8192, D 32, M 512, depth 3, float32, one group of
+    32 OrthogonalRBF dims; phase 3's seeded parameters).
+
+    13.1 grouped against the per-dim loop (_per_dim_route): _prep(Z, X),
+    K_diag(X), the training loss and its gradient, and the full Sobol,
+    within KERNEL_TOL (forward) or GRAD_TOL (gradient) of max |per-dim|, or
+    twice the per-dim loop's own error against float64; the launches of
+    one _prep and one K_diag at D 8 and D 32, which must be equal.
+    13.2 launches, host ms (synchronised, median of GROUPED_REPEATS) and
+    device ms of a warm fit_adam step, predict_y of 1 and 8192 rows, a full
+    Sobol, and a warm served request of phase 10.2's pumadyn artifact
+    (``served``: rows -> its callable's output on the host), and the peak
+    memory of phase 5's Sobol calls. Returns the phase's K1 and K2
+    launches."""
+    from oak_tpu_torch import sobol as sb
+    from oak_tpu_torch.kernels import stackable_groups
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.params import flatten_trainable
+
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    model, Xh = build_model(device)
+    X, Y = (torch.as_tensor(a, device=device) for a in (Xh, _bench_y()))
+    if stackable_groups(model.kernel.kernels) != [list(range(D))]:
+        raise RuntimeError("the bench kernel is not one group of its dims")
+    model64 = copy.deepcopy(model).to(dtype=torch.float64)
+
+    @torch.no_grad()
+    def prep(m):
+        return list(og._prep(m.kernel, m.Z.value, X.to(m.Z.value.dtype)))
+
+    @torch.no_grad()
+    def k_diag(m):
+        return [m.kernel.K_diag(X.to(m.Z.value.dtype))]
+
+    def loss_grad(m):
+        x, y = (t.to(m.Z.value.dtype) for t in (X, Y))
+        loss, g = fit.value_and_grad(m, lambda mm: mm.training_loss(x, y),
+                                     flatten_trainable(m).detach())
+        return [loss.detach().reshape(1), g]
+
+    def sobol(m):
+        return [torch.as_tensor(sb.compute_sobol_oak(m)[1], device=device)]
+
+    t0 = time.perf_counter()
+    errs = {}
+    for name, fn, tols in (("_prep(Z, X)", prep, [KERNEL_TOL] * 7),
+                           ("K_diag(X)", k_diag, [KERNEL_TOL]),
+                           ("loss, gradient", loss_grad, [KERNEL_TOL, GRAD_TOL]),
+                           ("Sobol", sobol, [KERNEL_TOL])):
+        grouped = [t.detach() for t in fn(model)]
+        with _per_dim_route():
+            per_dim = [t.detach() for t in fn(model)]
+        errs[name] = _held(name, grouped, per_dim,
+                           lambda: [t.detach() for t in fn(model64)], tols)
+    counts = {}
+    for d in (8, D):
+        kern = bench_kernel(device, torch.float32, d, DEPTH)
+        Xd, Zd = X[:, :d].contiguous(), model.Z.value.detach()[:, :d].contiguous()
+        with torch.no_grad():
+            counts[d] = (_launches_device_ms(lambda: og._prep(kern, Zd, Xd))[0],
+                         _launches_device_ms(lambda: kern.K_diag(Xd))[0])
+    if counts[8] != counts[D]:
+        raise RuntimeError(f"launches of one _prep, K_diag: {counts[8]} at D 8, "
+                           f"{counts[D]} at D {D}")
+    print(f"phase 13.1 grouped vs per-dim loop at N {N}, D {D}, M {M}, depth {DEPTH} "
+          f"({time.perf_counter() - t0:.1f} s): largest error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {KERNEL_TOL}, gradient {GRAD_TOL}, of max |per-dim|); launches of one "
+          f"_prep / K_diag: D 8 {counts[8][0]} / {counts[8][1]}, D {D} {counts[D][0]} / "
+          f"{counts[D][1]}")
+
+    t0 = time.perf_counter()
+    bmodel, bX, bY = build_bench_model(device)
+    vec = fit._leaf(bmodel)
+    opt = fit.adam(vec)
+    Xr = {b: X[:b] for b in (1, N)}
+    calls = {"fit_adam step": lambda: fit._adam_step(
+                 bmodel, lambda m: m.training_loss(bX, bY), vec, opt),
+             "predict_y 1 row": lambda: model.predict_y(Xr[1]),
+             f"predict_y {N} rows": lambda: model.predict_y(Xr[N]),
+             "full Sobol": lambda: sb.compute_sobol_oak(model)}
+    calls.update({f"served request {r} rows": (lambda r=r: served(r)) for r in (1, 1639)})
+    lines = []
+    for name, fn in calls.items():
+        with contextlib.nullcontext() if name == "fit_adam step" else torch.no_grad():
+            launches, device_ms = _launches_device_ms(fn)
+            host_ms = _host_ms(fn, GROUPED_REPEATS)
+        lines.append(f"phase 13.2 {name}: {launches} kernel launches, host {host_ms:.3f} ms "
+                     f"(sync, median of {GROUPED_REPEATS}), device {device_ms:.3f} ms")
+    peak = _peak_gb(lambda: (sb.compute_sobol_oak(model), sb.compute_sobol_by_order(model),
+                             sb.get_prediction_component(model, X=X[:COMPONENT_ROWS])))
+    print("\n".join(lines) + f"\nphase 13.2 phase 5's Sobol calls (compute_sobol_oak, "
+          f"compute_sobol_by_order, {COMPONENT_ROWS} rows' components) peak memory "
+          f"{peak:.3f} GB ({time.perf_counter() - t0:.1f} s)")
+    return {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+
+
+# prefixed "package_" to the names of --profile's tables under --package
+PROFILE_PREFIX = ""
+
+
 def _host_ms(fn, repeats):
     """Median host-clock ms of fn() with the card synchronized on both ends."""
     times = []
@@ -2177,7 +2420,6 @@ def profile(model, X, device, rows=(1, 8192), repeats=7):
     the host clock (median of ``repeats``) over the request and its parts,
     then torch.profiler over one request for its kernel launches and the
     device time. The profiler's tables go to chiprun_out/."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -2200,7 +2442,7 @@ def profile(model, X, device, rows=(1, 8192), repeats=7):
                      "K(Z) (Kuu, fused)": lambda: kern.K(Z),
                      "K(Z, X) (Kus, fused)": lambda: kern.K(Z, Xb),
                      "_prep(Z, X)": lambda: og._prep(kern, Z, Xb),
-                     "K_diag(X) (per-dim)": lambda: kern.K_diag(Xb),
+                     "K_diag(X)": lambda: kern.K_diag(Xb),
                      "safe_cholesky(Kuu)": lambda: safe_cholesky(Kuu),
                      "solve_lower(Luu, Kus)": lambda: solve_lower(Luu, Kus)}
             for fn in parts.values():  # warm-up
@@ -2211,16 +2453,13 @@ def profile(model, X, device, rows=(1, 8192), repeats=7):
                 model.predict_y(Xb)
                 torch.cuda.synchronize()
             events = prof.key_averages()
-            launches = sum(e.count for e in events
-                           if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-            device_ms = sum(e.self_device_time_total for e in events
-                            if e.device_type == DeviceType.CUDA) / 1e3
+            launches, device_ms = _launches_and_device_ms(events)
             table = events.table(sort_by="count", row_limit=60)
-            (out_dir / f"profile_predict_{b}.txt").write_text(table)
+            (out_dir / f"{PROFILE_PREFIX}profile_predict_{b}.txt").write_text(table)
             print(f"profile {b} rows (host ms, median of {repeats}): "
                   + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
                   + f"; profiled request: {launches} kernel launches, device time "
-                  f"{device_ms:.3f} ms; table in chiprun_out/profile_predict_{b}.txt")
+                  f"{device_ms:.3f} ms; table in {out_dir.name}/{PROFILE_PREFIX}profile_predict_{b}.txt")
 
 
 def profile_training(device, repeats=7):
@@ -2264,21 +2503,18 @@ def profile_training(device, repeats=7):
         fit._adam_step(model, loss_fn, vec, opt)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    launches, device_ms = _launches_and_device_ms(events)
     ours = {e.key: e.self_device_time_total / 1e3 for e in events
             if e.device_type == DeviceType.CUDA and "oak_gram" in e.key}
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_train_step.txt").write_text(events.table(sort_by="count",
-                                                                 row_limit=80))
+    (out_dir / f"{PROFILE_PREFIX}profile_train_step.txt").write_text(
+        events.table(sort_by="count", row_limit=80))
     print(f"profile training step (host ms, median of {repeats}): "
           + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
           + f"; profiled step: {launches} kernel launches, device time {device_ms:.3f} ms, "
           + "of which " + ", ".join(f"{k.split('<')[0]} {v:.3f} ms" for k, v in ours.items())
-          + "; table in chiprun_out/profile_train_step.txt")
+          + f"; table in {out_dir.name}/{PROFILE_PREFIX}profile_train_step.txt")
 
 
 def profile_sobol(model, device, repeats=5):
@@ -2287,7 +2523,6 @@ def profile_sobol(model, device, repeats=5):
     and order 3 the ladder): the host clock (median of ``repeats``,
     synchronised) over the whole and its parts, then torch.profiler over one
     decomposition. The profiler's table goes to chiprun_out/profile_sobol.txt."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -2322,31 +2557,93 @@ def profile_sobol(model, device, repeats=5):
             sb.compute_sobol_oak(model)
             torch.cuda.synchronize()
     events = prof.key_averages()
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    launches, device_ms = _launches_and_device_ms(events)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_sobol.txt").write_text(events.table(sort_by="self_cuda_time_total",
-                                                            row_limit=60))
+    (out_dir / f"{PROFILE_PREFIX}profile_sobol.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60))
     print(f"profile Sobol, {len(tuples)} components (host ms, median of {repeats}): "
           + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
           + f"; profiled decomposition: {launches} kernel launches, device time "
-          f"{device_ms:.3f} ms; table in chiprun_out/profile_sobol.txt")
+          f"{device_ms:.3f} ms; table in {out_dir.name}/{PROFILE_PREFIX}profile_sobol.txt")
+
+
+def profile_serving(repeats=7):
+    """Where a warm served request's time goes: phase 10.2's artifact of
+    oak_tpu's committed pumadyn fold 0 at 1 and 1639 of its test rows, numpy
+    in and out: host ms (synchronised, median of ``repeats``), kernel
+    launches and device ms of one request (torch.profiler)."""
+    from oak_tpu_torch import deserialize_predict, load_oak_model, serialize_predict
+
+    oak = load_oak_model(COMMITTED / "pumadyn" / "model_oak_0.npz")
+    _, _, Xte, _ = pumadyn_fold0()
+    served = deserialize_predict(serialize_predict(oak))
+    for rows in (1, len(Xte)):
+        def request():
+            return served(Xte[:rows]).cpu()
+
+        launches, device_ms = _launches_device_ms(request)
+        print(f"profile served request, {rows} rows: host {_host_ms(request, repeats):.3f} ms "
+              f"(sync, median of {repeats}); {launches} kernel launches, device time "
+              f"{device_ms:.3f} ms")
+
+
+class _RankRows:
+    """Rank 0 of a world of ``size`` in one process: its block of rows
+    (parallel.mesh.Axis.rows) and an all-reduce that returns its input, so
+    the sharded Sobol allocates what one rank of phase 12 allocates."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def rows(self, n):
+        q, r = divmod(n, self.size)
+        return slice(0, q + (r > 0))
+
+    def all_reduce(self, t):
+        return t.detach().clone()
+
+
+def profile_sobol_memory(model, X, device):
+    """Peak device memory of phase 5's Sobol calls (compute_sobol_oak,
+    compute_sobol_by_order and COMPONENT_ROWS rows' components, on the
+    predict phase's model) and of phase 12's GPR Sobol and per-order totals
+    per rank at worlds 1, 2 and 4 (rank 0's share, _RankRows)."""
+    from oak_tpu_torch import sobol as sb
+
+    Xd = torch.as_tensor(X[:COMPONENT_ROWS], device=device)
+    p5 = _peak_gb(lambda: (sb.compute_sobol_oak(model), sb.compute_sobol_by_order(model),
+                           sb.get_prediction_component(model, X=Xd)))
+    gpr = build_gpr_model(device)
+    axis, parts = sb._axis, []
+    try:
+        sb._axis = lambda world: None if world is None else _RankRows(world)
+        for world in (None, 2, 4):
+            full = _peak_gb(lambda: sb.compute_sobol_oak(gpr, mesh=world))
+            by_order = _peak_gb(lambda: sb.compute_sobol_by_order(gpr, mesh=world))
+            parts.append(f"world {world or 1} Sobol {full:.3f} GB, per-order totals "
+                         f"{by_order:.3f} GB")
+    finally:
+        sb._axis = axis
+    print(f"profile Sobol peak memory: phase 5's calls {p5:.3f} GB; phase 12's GPR per rank: "
+          + "; ".join(parts))
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-11, print where a warm predict_y "
-                             "request's, a warm training step's and a full Sobol "
-                             "decomposition's time goes (host clock and torch.profiler)")
+                        help="instead of phases 2-13, print where a warm predict_y "
+                             "request's, a warm training step's, a full Sobol "
+                             "decomposition's and a served request's time goes (host "
+                             "clock and torch.profiler), and the Sobol calls' peak memory")
     parser.add_argument("--old", metavar="DIR",
                         help="a directory holding an earlier tree's csrc/*.cu with the C "
                              "interface before the redesign (git show "
                              "ef6e3b3:oak_tpu_torch/csrc/oak_gram_fwd.cu, and _bwd.cu): "
                              "phases 2 and 2b time those kernels in turns with these")
+    parser.add_argument("--package", metavar="DIR",
+                        help="with --profile: import oak_tpu_torch from DIR (an earlier "
+                             "tree unpacked there), to profile it with this script")
     parser.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD", "DIR", "BACKEND"),
                         help="run one rank of a phase-12 job (phase_parallel starts them)")
     args = parser.parse_args()
@@ -2354,15 +2651,26 @@ def main():
         rank, world, folder, backend = args.parallel_rank
         parallel_rank(int(rank), int(world), folder, backend)
         return
+    if args.package:
+        if not args.profile:
+            parser.error("--package goes with --profile")
+        sys.path.insert(0, str(Path(args.package).resolve()))
+        global PROFILE_PREFIX
+        PROFILE_PREFIX = "package_"
     t0 = time.perf_counter()
     phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     model, X = build_model(device)
     if args.profile:
+        import oak_tpu_torch
+
+        print(f"profile of {Path(oak_tpu_torch.__file__).parent}")
         profile(model, X, device)
         profile_training(device)
         profile_sobol(model, device)
+        profile_serving()
+        profile_sobol_memory(model, X, device)
         return
     seconds = {"0-1": time.perf_counter() - t0}
 
@@ -2386,9 +2694,10 @@ def main():
     gpr_launches = timed("7", phase_gpr, device)
     timed("8", phase_defaults, device)
     oak_launches, oak_kernels = timed("9", phase_oak_model, device)
-    committed_launches = timed("10", phase_committed, device)
+    committed_launches, served = timed("10", phase_committed, device)
     surface_launches = timed("11", phase_surface, device)
     parallel_launches = timed("12", phase_parallel, device)
+    grouped_launches = timed("13", phase_grouped, device, served)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
@@ -2412,13 +2721,14 @@ def main():
               "oak_tpu/ops/oak_gram_pallas.py:63",
               predict_launches + train_launches["fwd"] + sobol_launches
               + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"]
-              + committed_launches["fwd"] + surface_launches["fwd"] + parallel_launches["fwd"],
+              + committed_launches["fwd"] + surface_launches["fwd"] + parallel_launches["fwd"]
+              + grouped_launches["fwd"],
               kernel, oak_kernels["K1"]),
         entry("oak_gram_bwd_f32", "oak_tpu_torch/csrc/oak_gram_bwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:158",
               train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"]
               + oak_launches["bwd"] + committed_launches["bwd"] + surface_launches["bwd"]
-              + parallel_launches["bwd"],
+              + parallel_launches["bwd"] + grouped_launches["bwd"],
               kernel_bwd,
               oak_kernels["K2"])]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 from .oak_kernel import (KernelComponenent, KernelComponent, OAKKernel,
                          UnconstrainedRBF, component_index_tuples,
                          get_list_representation, kernel_K, kernel_K_diag,
-                         per_dim_batched)
+                         per_dim_batched, stack_group, stackable_groups)
 from .ortho_binary import OrthogonalBinary
 from .ortho_categorical import OrthogonalCategorical
 from .ortho_rbf import OrthogonalRBF
@@ -19,4 +19,6 @@ __all__ = [
     "kernel_K",
     "kernel_K_diag",
     "per_dim_batched",
+    "stack_group",
+    "stackable_groups",
 ]

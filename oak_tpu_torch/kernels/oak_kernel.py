@@ -6,12 +6,21 @@ One constrained 1-D kernel per input dimension plus per-order variances
     K = Σ_n σ²_n e_n(k_1, ..., k_D)
 
 with e_n the elementary symmetric polynomials from Newton–Girard.
+
+The per-dim forms are evaluated by group: the constituent kernels that stack
+(``stackable_groups``: the same class, measure class, static Param fields
+and shapes) are evaluated as one kernel of their class whose fields carry a
+leading group axis (``stack_group``), in one batched call per group
+(``per_group``), so a call dispatches as many ops at D = 32 as at D = 4.
+Consumers that keep the batched layout (the power sums of ``K`` and
+``K_diag``, the prescaled gram inputs, the Sobol stacks) reduce over or
+scatter the group axis; ``per_dim_batched`` slices it back into dim order.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Callable, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -19,9 +28,8 @@ from torch import nn
 from ..config import resolve
 from ..measures import EmpiricalMeasure, GaussianMeasure, MOGMeasure
 from ..ops import oak_gram as og
-from ..ops.newton_girard import (newton_girard, newton_girard_from_power_sums,
-                                 power_sums)
-from ..params import Gamma, Param, bounded, positive
+from ..ops.newton_girard import newton_girard_from_power_sums, power_sums_stacked
+from ..params import Gamma, Param, StackedParam, bounded, positive
 from ..utils.diagnostics import check_matrix_input
 from . import ortho_binary, ortho_categorical, ortho_rbf
 from .ortho_binary import OrthogonalBinary
@@ -55,7 +63,8 @@ class UnconstrainedRBF(nn.Module):
 
 
 def kernel_K(k, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gram of one constituent 1-D kernel on already-sliced columns."""
+    """Gram of one constituent 1-D kernel on already-sliced columns [N],
+    [M], or of a stacked group on its columns [G, N], [G, M]."""
     if isinstance(k, OrthogonalRBF):
         return ortho_rbf.K(k, x, x2)
     if isinstance(k, OrthogonalBinary):
@@ -79,13 +88,112 @@ def kernel_K_diag(k, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(type(k))
 
 
-def per_dim_batched(kernels: Sequence[nn.Module], X: torch.Tensor,
-                    fn: Callable) -> List:
-    """``fn(kernel, column)`` for every constituent kernel, in dim order.
+def _structure(node):
+    """What members of a group must share: the class, and recursively (the
+    Params and the measure) each Param's bijector with its constants,
+    trainable flag, prior and shape, and each buffer's shape; plain
+    attributes such as ``active_dim`` are left out."""
+    if isinstance(node, Param):
+        return (node.bij, node.trainable, node.prior, node._parameters["raw"].shape)
+    return (type(node), tuple(_structure(m) for m in node._modules.values()),
+            tuple(b.shape for b in node._buffers.values()))
 
-    A plain loop: ``oak_tpu`` vmaps each group of same-typed kernels to save
-    TPU launches; batching the per-dim forms is ROADMAP H1."""
-    return [fn(k, X[:, k.active_dim]) for k in kernels]
+
+def _field_names(node) -> tuple:
+    return getattr(type(node), "_fields", ())
+
+
+def stackable_groups(kernels: Sequence[nn.Module]) -> List[List[int]]:
+    """Indices of the constituent kernels grouped by what stacks (the same
+    class and measure class, the same static Param fields and the same leaf
+    shapes), groups in order of first appearance, each in dim order. Each
+    group is evaluated as one batched call (``per_dim_batched``), and
+    consumers that keep the batched layout reduce over its group axis."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, k in enumerate(kernels):
+        groups.setdefault(_structure(k), []).append(i)
+    return list(groups.values())
+
+
+def _stacked(nodes: Sequence):
+    """One node standing for ``nodes`` (equal ``_structure``): a
+    ``StackedParam`` for Params, ``torch.stack`` for buffers, and for modules
+    an instance of their class that is never initialised or registered, whose
+    fields are the stacked ones: the closed forms dispatch on its class and
+    broadcast over the leading group axis."""
+    first = nodes[0]
+    if isinstance(first, Param):
+        return StackedParam(list(nodes))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(nodes))
+    view = object.__new__(type(first))
+    view.__dict__.update({f: _stacked([getattr(n, f) for n in nodes])
+                          for f in _field_names(first)})
+    return view
+
+
+def stack_group(kernels: Sequence[nn.Module], idx: Sequence[int]):
+    """The kernels ``idx`` (one of ``stackable_groups``) as one kernel of
+    their class whose parameters and buffers carry a leading group axis
+    [G, ...], ``active_dim`` 0. Its raws are stacks of the members' raws, so
+    gradients reach the members; the module tree is not changed."""
+    view = _stacked([kernels[i] for i in idx])
+    view.__dict__["active_dim"] = 0
+    return view
+
+
+def _columns(X: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """X's columns ``dims`` as a contiguous [G, N]: a strided slice when the
+    dims are evenly spaced, else a gather."""
+    step = dims[1] - dims[0] if len(dims) > 1 else 1
+    if step > 0 and all(b - a == step for a, b in zip(dims, dims[1:])):
+        return X.T[dims[0]:dims[-1] + 1:step].contiguous()
+    return X.T.index_select(0, torch.tensor(dims, device=X.device))
+
+
+# Largest stacked result, in elements, that ``per_group`` builds at once when
+# told a dim's size: 2²⁶ is one 8192 x 8192 L matrix (256 MiB in float32), so
+# a group's L stack at that N is built one dim at a time, and at M = 512 a
+# 32-dim group in one call.
+_CHUNK_ELEMENTS = 2 ** 26
+
+
+def per_group(kernels: Sequence[nn.Module], X: torch.Tensor, fn: Callable,
+              X2: Optional[torch.Tensor] = None,
+              dim_elements: int = 0) -> Iterator[Tuple[List[int], object]]:
+    """(idx, fn(stack_group(kernels, idx), cols[, cols2])) for each group of
+    ``stackable_groups``, cols [G, N] the members' columns of X (and X2).
+    With ``dim_elements`` (the elements of one dim's result) a group is cut
+    into chunks of at most ``_CHUNK_ELEMENTS`` elements; a symbolic size
+    (``torch.export`` tracing a batch dimension) takes whole groups, since
+    the chunks must not depend on the batch."""
+    size = len(kernels)
+    if dim_elements and isinstance(dim_elements, int):
+        size = max(1, _CHUNK_ELEMENTS // dim_elements)
+    for group in stackable_groups(kernels):
+        for start in range(0, len(group), size):
+            idx = group[start:start + size]
+            dims = [kernels[i].active_dim for i in idx]
+            k = stack_group(kernels, idx)
+            if X2 is None:
+                yield idx, fn(k, _columns(X, dims))
+            else:
+                yield idx, fn(k, _columns(X, dims), _columns(X2, dims))
+
+
+def per_dim_batched(kernels: Sequence[nn.Module], X: torch.Tensor, fn: Callable,
+                    X2: Optional[torch.Tensor] = None) -> List:
+    """``fn(kernel, column[, column2])`` for every constituent kernel, in dim
+    order, each group of ``stackable_groups`` in one batched call: ``fn``
+    gets ``stack_group``'s kernel and the columns [G, N] and must broadcast
+    over the group axis, as the closed forms of the package do (``kernel_K``,
+    ``kernel_K_diag``, ``sobol.compute_L_for_kernel``, ``sobol.factor_form``).
+    Entries are views of their group's result (a tensor or a tuple of them)."""
+    out = [None] * len(kernels)
+    for idx, res in per_group(kernels, X, fn, X2):
+        for j, i in enumerate(idx):
+            out[i] = tuple(r[j] for r in res) if isinstance(res, tuple) else res[j]
+    return out
 
 
 class OAKKernel(nn.Module):
@@ -212,15 +320,32 @@ class OAKKernel(nn.Module):
         return max(k.active_dim for k in self.kernels) + 1
 
     def dim_grams(self, X: torch.Tensor,
-                  X2: Optional[torch.Tensor] = None) -> Iterator[torch.Tensor]:
-        """The per-dim grams, yielded one at a time."""
-        for k in self.kernels:
-            x2 = None if X2 is None else X2[:, k.active_dim]
-            yield kernel_K(k, X[:, k.active_dim], x2)
+                  X2: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """The per-dim grams in dim order (views of their groups' grams)."""
+        return per_dim_batched(self.kernels, X, kernel_K, X2)
 
-    def dim_diags(self, X: torch.Tensor) -> Iterator[torch.Tensor]:
-        for k in self.kernels:
-            yield kernel_K_diag(k, X[:, k.active_dim])
+    def dim_diags(self, X: torch.Tensor) -> List[torch.Tensor]:
+        return per_dim_batched(self.kernels, X, kernel_K_diag)
+
+    def _gram_power_sums(self, X: torch.Tensor, X2: Optional[torch.Tensor],
+                         depth: int) -> List[torch.Tensor]:
+        """Power sums s_1..s_depth of the per-dim grams, each group's grams
+        [G, N, M] (in chunks of ``per_group``'s size) reduced over the group
+        axis."""
+        M = X.shape[0] if X2 is None else X2.shape[0]
+        s = None
+        for _, grams in per_group(self.kernels, X, kernel_K, X2, X.shape[0] * M):
+            s = power_sums_stacked(grams, depth, s)
+        return s
+
+    def _diag_power_sums(self, X: torch.Tensor, depth: int) -> List[torch.Tensor]:
+        """Power sums s_1..s_depth of the per-dim diagonals, each group's
+        [G, N] buffer reduced over the group axis (``oak_tpu``'s
+        ``_diag_power_sums``)."""
+        s = None
+        for _, diags in per_group(self.kernels, X, kernel_K_diag):
+            s = power_sums_stacked(diags, depth, s)
+        return s
 
     def _combine(self, terms: List[torch.Tensor]) -> torch.Tensor:
         out = self.variances[0].value * terms[0]
@@ -243,7 +368,8 @@ class OAKKernel(nn.Module):
         3. the structure qualifies (``ops.oak_gram.supports_fused``: at least
            one RBF-form dim, every other dim binary or categorical).
 
-        Otherwise the per-dim Newton–Girard route in plain torch. So the CPU,
+        Otherwise Newton–Girard over the grouped grams in plain torch
+        (``_gram_power_sums``). So the CPU,
         and float64 anywhere, never reach the kernel. The kernels take any
         depth up to ``ops.oak_gram.MAX_DEPTH`` after clamping it to the number
         of dims (64: sonar's D = 60 at full depth); deeper, the wrapper raises.
@@ -253,16 +379,16 @@ class OAKKernel(nn.Module):
             check_matrix_input(X2, self._max_active_dim(), "X2")
         if X.is_cuda and X.dtype == torch.float32 and og.supports_fused(self):
             return og.oak_gram(self, X, X2)
-        e = newton_girard(self.dim_grams(X, X2), self.max_interaction_depth)
-        return self._combine(e)
+        depth = self.max_interaction_depth
+        return self._combine(newton_girard_from_power_sums(
+            self._gram_power_sums(X, X2, depth), depth))
 
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
-        """diag(K) [N] through the power sums of the per-dim diagonals."""
+        """diag(K) [N] through the power sums of the grouped diagonals."""
         check_matrix_input(X, self._max_active_dim(), "X")
         depth = self.max_interaction_depth
-        e = newton_girard_from_power_sums(power_sums(self.dim_diags(X), depth),
-                                          depth)
-        return self._combine(e)
+        return self._combine(newton_girard_from_power_sums(
+            self._diag_power_sums(X, depth), depth))
 
     # ------------------------------------------------------------------ #
     def component_K(self, dims: Sequence[int], X: torch.Tensor,

@@ -2,7 +2,9 @@
 
 The 2x2 table B = σ² [[p1², -p0 p1], [-p0 p1, p0²]] is rank 1,
 B = σ² φ φᵀ with φ(0) = p1 and φ(1) = -p0, so the gram is an outer product
-evaluated from the float inputs, with no gather.
+evaluated from the float inputs, with no gather. Inputs are [N], or [G, N]
+for a stacked group (``kernels.stack_group``): the forms broadcast over the
+leading axes.
 """
 
 from __future__ import annotations
@@ -36,22 +38,29 @@ class OrthogonalBinary(nn.Module):
 
 
 def output_covariance(k: OrthogonalBinary) -> torch.Tensor:
-    """The 2x2 table B = σ² φ φᵀ, φ = (p1, -p0)."""
-    phi = torch.stack([1.0 - k.p0, -k.p0])
-    return k.variance.value * torch.outer(phi, phi)
+    """The 2x2 table B = σ² φ φᵀ, φ = (p1, -p0) ([..., 2, 2] for a group)."""
+    phi = torch.stack([1.0 - k.p0, -k.p0], dim=-1)
+    return k.variance.value[..., None, None] * (phi[..., :, None] * phi[..., None, :])
+
+
+def output_variance(k: OrthogonalBinary) -> torch.Tensor:
+    """diag(B) = σ² (p1², p0²), [..., 2]."""
+    p1 = 1.0 - k.p0
+    return torch.stack([p1 * p1, k.p0 * k.p0], dim=-1) * k.variance.value[..., None]
 
 
 def _phi(k: OrthogonalBinary, x: torch.Tensor) -> torch.Tensor:
     """x = 0 -> p1; x = 1 -> -p0."""
-    return (1.0 - k.p0) - x
+    return (1.0 - k.p0[..., None]) - x
 
 
 def K(k: OrthogonalBinary, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x2 is None:
         x2 = x
-    return k.variance.value * torch.outer(_phi(k, x), _phi(k, x2))
+    return k.variance.value[..., None, None] * (_phi(k, x)[..., :, None]
+                                                * _phi(k, x2)[..., None, :])
 
 
 def K_diag(k: OrthogonalBinary, x: torch.Tensor) -> torch.Tensor:
     p = _phi(k, x)
-    return k.variance.value * p * p
+    return k.variance.value[..., None] * p * p

@@ -4,6 +4,8 @@
 A free PSD table A = W Wᵀ + diag(κ) is projected so that it is orthogonal to
 constants under the categorical measure p: B = A - (Ap)(Ap)ᵀ / (pᵀAp). The
 projection is formed on the factor, not entrywise (see ``_projected_factor``).
+Inputs are [N], or [G, N] for a stacked group (``kernels.stack_group``): the
+forms broadcast over the leading axes.
 """
 
 from __future__ import annotations
@@ -50,9 +52,13 @@ class OrthogonalCategorical(nn.Module):
                             device=device),
                    p, active_dim)
 
+    @property
+    def num_cat(self) -> int:
+        return self.p.shape[-2]
+
 
 def _projected_factor(k: OrthogonalCategorical) -> torch.Tensor:
-    """[C, rank+C] factor Ũ with B = Ũ Ũᵀ σ².
+    """[..., C, rank+C] factor Ũ with B = Ũ Ũᵀ σ².
 
     With U = [W, diag(√κ)] and v = Uᵀp, B = U(I - vvᵀ/vᵀv)Uᵀ = ŨŨᵀ for
     Ũ = U - (Uv)vᵀ/(vᵀv): the subtraction happens in the factor, so f32 keeps
@@ -61,31 +67,39 @@ def _projected_factor(k: OrthogonalCategorical) -> torch.Tensor:
     W = k.W.value
     kap = k.kappa.value
     tiny = float(np.finfo(np.float32).tiny)
-    U = torch.cat([W, torch.diag(torch.sqrt(torch.clamp_min(kap, tiny)))], dim=1)
-    v = U.T @ k.p  # [rank+C, 1]
-    s = torch.clamp_min(torch.sum(v * v), tiny)
-    return U - (U @ v) @ v.T / s
+    U = torch.cat([W, torch.diag_embed(torch.sqrt(torch.clamp_min(kap, tiny)))], dim=-1)
+    v = U.mT @ k.p  # [..., rank+C, 1]
+    s = torch.clamp_min(torch.sum(v * v, dim=(-2, -1), keepdim=True), tiny)
+    return U - (U @ v) @ v.mT / s
 
 
 def output_covariance(k: OrthogonalCategorical) -> torch.Tensor:
-    """[C, C] constrained table B."""
+    """[..., C, C] constrained table B."""
     Ut = _projected_factor(k)
-    return (Ut @ Ut.T) * k.variance.value
+    return (Ut @ Ut.mT) * k.variance.value[..., None, None]
 
 
 def output_variance(k: OrthogonalCategorical) -> torch.Tensor:
-    """diag(B), [C]."""
+    """diag(B), [..., C]."""
     Ut = _projected_factor(k)
-    return torch.sum(Ut * Ut, dim=1) * k.variance.value
+    return torch.sum(Ut * Ut, dim=-1) * k.variance.value[..., None]
+
+
+def table_rows(B: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """B[x]: the rows [..., N, C] of tables B [..., C, C] at the levels x
+    [..., N] (binary and categorical kernels)."""
+    i = x.long()[..., :, None].expand(*x.shape, B.shape[-1])
+    return torch.gather(B, -2, i)
 
 
 def K(k: OrthogonalCategorical, x: torch.Tensor,
       x2: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x2 is None:
         x2 = x
-    B = output_covariance(k)
-    return B[x.long()[:, None], x2.long()[None, :]]
+    rows = table_rows(output_covariance(k), x)  # [..., N, C]
+    j = x2.long()[..., None, :].expand(*x.shape, x2.shape[-1])
+    return torch.gather(rows, -1, j)
 
 
 def K_diag(k: OrthogonalCategorical, x: torch.Tensor) -> torch.Tensor:
-    return output_variance(k)[x.long()]
+    return torch.gather(output_variance(k), -1, x.long())

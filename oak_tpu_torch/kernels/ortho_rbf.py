@@ -5,7 +5,9 @@
 
 with cov(x, s) = ∫ k(x, s) dμ(s) and var_s = ∬ k(s, s') dμ(s) dμ(s') in
 closed form for the Gaussian, uniform, empirical and MOG measures. Inputs are
-1-D columns [N]; the caller slices the active dim.
+columns [N] of one kernel's active dim, or [G, N] for a stacked group
+(``kernels.stack_group``, whose fields carry a leading group axis): every
+form broadcasts over the leading axes.
 """
 
 from __future__ import annotations
@@ -52,41 +54,48 @@ class OrthogonalRBF(nn.Module):
         return cls(ls, var, measure, active_dim)
 
 
+def _s(v: torch.Tensor) -> torch.Tensor:
+    """A field that is a scalar per kernel (shape () for one kernel, [G] for
+    a stacked group) broadcast over the last axis of inputs [..., N]."""
+    return v[..., None]
+
+
 def rbf(k, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Unconstrained SE base gram, [N, M] from 1-D inputs [N], [M]."""
+    """Unconstrained SE base gram, [..., N, M] from inputs [..., N], [..., M]."""
     if x2 is None:
         x2 = x
-    d = (x[:, None] - x2[None, :]) / k.lengthscale.value
-    return k.variance.value * torch.exp(-0.5 * d * d)
+    d = (x[..., :, None] - x2[..., None, :]) / _s(_s(k.lengthscale.value))
+    return _s(_s(k.variance.value)) * torch.exp(-0.5 * d * d)
 
 
 def rbf_diag(k, x: torch.Tensor) -> torch.Tensor:
-    return torch.ones_like(x) * k.variance.value
+    return torch.ones_like(x) * _s(k.variance.value)
 
 
 def cov_x_s(k: OrthogonalRBF, x: torch.Tensor) -> torch.Tensor:
-    """cov(x, s) = ∫ k(x, s) dμ(s), shape [N] for input [N]."""
+    """cov(x, s) = ∫ k(x, s) dμ(s), shape [..., N] for input [..., N]."""
     l = k.lengthscale.value
     s2 = k.variance.value
     m = k.measure
     if isinstance(m, GaussianMeasure):
-        t = l * l + m.var
-        return s2 * l / torch.sqrt(t) * torch.exp(-0.5 * (x - m.mu) ** 2 / t)
+        t = _s(l * l + m.var)
+        return _s(s2 * l) / torch.sqrt(t) * torch.exp(-0.5 * (x - _s(m.mu)) ** 2 / t)
     if isinstance(m, UniformMeasure):
-        c = s2 * l / (m.b - m.a) * math.sqrt(math.pi / 2.0)
-        r2l = math.sqrt(2.0) * l
-        return c * (torch.erf((m.b - x) / r2l) - torch.erf((m.a - x) / r2l))
+        c = _s(s2 * l / (m.b - m.a) * math.sqrt(math.pi / 2.0))
+        r2l = _s(math.sqrt(2.0) * l)
+        return c * (torch.erf((_s(m.b) - x) / r2l) - torch.erf((_s(m.a) - x) / r2l))
     if isinstance(m, EmpiricalMeasure):
-        return rbf(k, x, m.location[:, 0]) @ m.weights[:, 0]
+        return (rbf(k, x, m.location[..., 0]) @ m.weights)[..., 0]
     if isinstance(m, MOGMeasure):
-        t = l * l + m.variances[None, :]  # [N, K]
-        comp = torch.exp(-0.5 * (x[:, None] - m.means[None, :]) ** 2 / t) / torch.sqrt(t)
-        return s2 * l * (comp @ m.weights)
+        t = _s(_s(l * l)) + m.variances[..., None, :]  # [..., 1, K]
+        comp = torch.exp(-0.5 * (x[..., :, None] - m.means[..., None, :]) ** 2 / t) \
+            / torch.sqrt(t)  # [..., N, K]
+        return _s(s2 * l) * (comp @ m.weights[..., :, None])[..., 0]
     raise NotImplementedError(f"measure {type(m)}")
 
 
 def var_s(k: OrthogonalRBF) -> torch.Tensor:
-    """var_s = ∬ k(s, s') dμ(s) dμ(s'), scalar."""
+    """var_s = ∬ k(s, s') dμ(s) dμ(s'), one per kernel (shape () or [G])."""
     l = k.lengthscale.value
     s2 = k.variance.value
     m = k.measure
@@ -97,14 +106,15 @@ def var_s(k: OrthogonalRBF) -> torch.Tensor:
         return (2.0 / (m.b - m.a) ** 2) * s2 * l * l * (
             math.sqrt(math.pi) * y * torch.erf(y) + torch.exp(-y * y) - 1.0)
     if isinstance(m, EmpiricalMeasure):
-        loc = m.location[:, 0]
-        w = m.weights[:, 0]
-        return w @ rbf(k, loc, loc) @ w
+        loc = m.location[..., 0]
+        return (m.weights.mT @ rbf(k, loc, loc) @ m.weights)[..., 0, 0]
     if isinstance(m, MOGMeasure):
-        t = l * l + m.variances[:, None] + m.variances[None, :]
-        pair = torch.exp(-0.5 * (m.means[:, None] - m.means[None, :]) ** 2 / t) \
+        v, mu = m.variances, m.means
+        t = _s(_s(l * l)) + v[..., :, None] + v[..., None, :]
+        pair = torch.exp(-0.5 * (mu[..., :, None] - mu[..., None, :]) ** 2 / t) \
             / torch.sqrt(t)
-        return s2 * l * (m.weights @ pair @ m.weights)
+        w = m.weights
+        return s2 * l * (w[..., None, :] @ pair @ w[..., :, None])[..., 0, 0]
     raise NotImplementedError(f"measure {type(m)}")
 
 
@@ -121,9 +131,10 @@ def K(k: OrthogonalRBF, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> t
     """Constrained gram: base minus the rank-1 downdate."""
     cx = cov_x_s(k, x)
     cx2 = cx if x2 is None else cov_x_s(k, x2)
-    return rbf(k, x, x2) - torch.outer(cx, cx2) / _var_s_floored(k)
+    return (rbf(k, x, x2) - (cx[..., :, None] * cx2[..., None, :])
+            / _s(_s(_var_s_floored(k))))
 
 
 def K_diag(k: OrthogonalRBF, x: torch.Tensor) -> torch.Tensor:
     cx = cov_x_s(k, x)
-    return rbf_diag(k, x) - cx * cx / _var_s_floored(k)
+    return rbf_diag(k, x) - cx * cx / _s(_var_s_floored(k))

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -60,9 +60,23 @@ Prepped = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def _in_dim_order(parts: List[torch.Tensor], order: List[int]) -> torch.Tensor:
+    """The groups' results ``parts`` [G_i, ...], whose rows belong to the
+    dims ``order`` (group by group), as one stack in dim order."""
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    perm = sorted(range(len(order)), key=order.__getitem__)
+    if perm != list(range(len(order))):
+        out = out.index_select(0, torch.tensor(perm, device=out.device))
+    return out
+
+
 def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
     """Prescaled inputs (u1, u2, c1, c2, extra, logb, sig2) in X's dtype:
     u1, c1 [D, N]; u2, c2 [D, M]; extra [E, N, M]; logb [D]; sig2 [P + 1].
+
+    Each group of ``kernels.stackable_groups`` is prescaled in one batched
+    call; the RBF-form groups' rows and the other groups' extra grams are
+    then put in dim order.
 
     Two floors keep gradients finite when a sparsity prior prunes a dim:
     var_s is floored at sqrt(tiny) before its rsqrt (with cov and var_s both
@@ -71,42 +85,45 @@ def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
     (log 0 = -inf, and the 1/variance chain factor would NaN the gradient).
     """
     from ..kernels import ortho_rbf
-    from ..kernels.oak_kernel import UnconstrainedRBF, kernel_K
+    from ..kernels.oak_kernel import UnconstrainedRBF, kernel_K, per_group
     from ..kernels.ortho_rbf import OrthogonalRBF
 
-    dtype, device = X.dtype, X.device
-    us1, us2, cs1, cs2, logbs, extras = [], [], [], [], [], []
-    for k in oak.kernels:
-        col1 = X[:, k.active_dim]
-        col2 = X2[:, k.active_dim].to(dtype)
-        if isinstance(k, (OrthogonalRBF, UnconstrainedRBF)):
-            ls2 = k.lengthscale.value.to(dtype) * _SQRT2
-            us1.append(col1 / ls2)
-            us2.append(col2 / ls2)
-            if isinstance(k, OrthogonalRBF):
-                rs = torch.rsqrt(torch.clamp_min(ortho_rbf.var_s(k).to(dtype),
-                                                 _RSQRT_FLOOR))
-                cs1.append(ortho_rbf.cov_x_s(k, col1).to(dtype) * rs)
-                cs2.append(ortho_rbf.cov_x_s(k, col2).to(dtype) * rs)
-            else:
-                cs1.append(torch.zeros_like(col1))
-                cs2.append(torch.zeros_like(col2))
-            v = k.variance.value.reshape(()).to(dtype)
-            logbs.append(torch.log(torch.clamp_min(v, _VARIANCE_FLOOR)))
+    def prescale(k, col1, col2):
+        col2 = col2.to(dtype)
+        if not isinstance(k, (OrthogonalRBF, UnconstrainedRBF)):
+            return kernel_K(k, col1, col2).to(dtype)
+        ls2 = (k.lengthscale.value.to(dtype) * _SQRT2)[:, None]
+        if isinstance(k, OrthogonalRBF):
+            rs = torch.rsqrt(torch.clamp_min(ortho_rbf.var_s(k).to(dtype),
+                                             _RSQRT_FLOOR))[:, None]
+            c1 = ortho_rbf.cov_x_s(k, col1).to(dtype) * rs
+            c2 = ortho_rbf.cov_x_s(k, col2).to(dtype) * rs
         else:
-            extras.append(kernel_K(k, col1, col2).to(dtype))
+            c1, c2 = torch.zeros_like(col1), torch.zeros_like(col2)
+        v = k.variance.value.reshape(-1).to(dtype)
+        return (col1 / ls2, col2 / ls2, c1, c2,
+                torch.log(torch.clamp_min(v, _VARIANCE_FLOOR)))
+
+    dtype, device = X.dtype, X.device
+    rbf, rbf_dims, extras, extra_dims = [], [], [], []
+    for idx, out in per_group(oak.kernels, X, prescale, X2):
+        if isinstance(out, tuple):
+            rbf.append(out)
+            rbf_dims.extend(idx)
+        else:
+            extras.append(out)
+            extra_dims.extend(idx)
 
     N, M = X.shape[0], X2.shape[0]
-    if us1:
-        u1, u2 = torch.stack(us1), torch.stack(us2)
-        c1, c2 = torch.stack(cs1), torch.stack(cs2)
-        logb = torch.stack(logbs)
+    if rbf:
+        u1, u2, c1, c2, logb = (_in_dim_order(list(parts), rbf_dims)
+                                for parts in zip(*rbf))
     else:
         u1 = torch.zeros((0, N), dtype=dtype, device=device)
         u2 = torch.zeros((0, M), dtype=dtype, device=device)
         c1, c2 = u1, u2
         logb = torch.zeros((0,), dtype=dtype, device=device)
-    extra = (torch.stack(extras) if extras
+    extra = (_in_dim_order(extras, extra_dims) if extras
              else torch.zeros((0, N, M), dtype=dtype, device=device))
 
     if oak.share_var_across_orders:

@@ -14,6 +14,7 @@ each array leaf the key path JAX's ``keystr`` gives it
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -89,6 +90,23 @@ class Param(nn.Module):
         if self.prior is None or not self.trainable:
             return torch.zeros((), dtype=self.raw.dtype, device=self.raw.device)
         return torch.sum(self.prior.log_prob(self.value))
+
+
+class StackedParam:
+    """A group's Params as one: ``raw`` is ``torch.stack`` of the members'
+    raws [G, ...], so the gradient of anything computed from it reaches
+    every member's ``nn.Parameter``, and ``value`` applies their shared
+    bijector once. Not a module and not registered anywhere: it lives for
+    one evaluation (``kernels.stack_group``)."""
+
+    def __init__(self, members: List[Param]):
+        first = members[0]
+        self.raw = torch.stack([p.raw for p in members])
+        self.bij, self.trainable, self.prior = first.bij, first.trainable, first.prior
+
+    @functools.cached_property
+    def value(self) -> torch.Tensor:
+        return self.bij.forward(self.raw)
 
 
 def param(value, bij: Bijector = Identity(), trainable: bool = True, prior=None,

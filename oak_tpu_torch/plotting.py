@@ -36,7 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .kernels.oak_kernel import UnconstrainedRBF, kernel_K, kernel_K_diag
+from .kernels.oak_kernel import UnconstrainedRBF, kernel_K, kernel_K_diag, per_group
 from .kernels.ortho_rbf import OrthogonalRBF
 from .sobol import check_single_latent
 
@@ -110,19 +110,21 @@ class _EffectKernel:
     def __init__(self, factors, v: torch.Tensor, product: bool = True):
         self.factors, self.v, self.product = factors, v, product
 
-    def _combine(self, parts):
-        out = parts[0]
-        for p in parts[1:]:
-            out = out * p if self.product else out + p
+    def _combine(self, groups) -> torch.Tensor:
+        """v times the product (or sum) over the factors, each group's
+        stacked [G, ...] values reduced over its group axis."""
+        out = None
+        for _, g in groups:
+            part = g.prod(0) if self.product else g.sum(0)
+            out = part if out is None else (out * part if self.product else out + part)
         return self.v * out
 
     def K(self, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:
         X2 = X if X2 is None else X2
-        return self._combine([kernel_K(k, X[:, k.active_dim], X2[:, k.active_dim])
-                              for k in self.factors])
+        return self._combine(per_group(self.factors, X, kernel_K, X2))
 
     def K_diag(self, X: torch.Tensor) -> torch.Tensor:
-        return self._combine([kernel_K_diag(k, X[:, k.active_dim]) for k in self.factors])
+        return self._combine(per_group(self.factors, X, kernel_K_diag))
 
 
 def _effect_posterior(m, kernel: _EffectKernel, dims, grid_cols):
@@ -515,7 +517,7 @@ def plot_single_effect_categorical(
     y_transform=None, semilogy=False, tikz_path=None,
 ) -> FigureDescription:
     """The order-1 effect of categorical dim i at each of its levels."""
-    num_cat = m.kernel.kernels[i].p.shape[0]
+    num_cat = m.kernel.kernels[i].num_cat
     mu, var = _component_posterior(m, [i], [np.arange(num_cat, dtype=float)])
     lower, upper = _band_limits(mu, var)
 
@@ -579,7 +581,7 @@ def plot_model(
                     semilogy=semilogy, tikz_path=tikz_path, data=data))
             else:
                 fig_list.append(plot_single_effect_categorical(
-                    m, i, [str(c) for c in range(m.kernel.kernels[i].p.shape[0])],
+                    m, i, [str(c) for c in range(m.kernel.kernels[i].num_cat)],
                     title=title, y_transform=transformer_y, semilogy=semilogy,
                     tikz_path=tikz_path))
         elif len(dims) == 2:

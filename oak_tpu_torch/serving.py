@@ -11,8 +11,8 @@ parameters, the flows and the predict factors. D is fixed, the batch is not.
 
 The graph is traced on the device it will serve on, because the trace
 fixes the route: on the card a float32 model's gram is the registered op
-``oak_tpu_torch::oak_gram_fwd`` (the forward kernel), on the CPU the per-dim
-plain route. One difference from ``oak_tpu``'s artifact, which is
+``oak_tpu_torch::oak_gram_fwd`` (the forward kernel), on the CPU the plain
+route. One difference from ``oak_tpu``'s artifact, which is
 self-contained StableHLO: the card's graph calls that op, so the loading
 process must be able to import ``oak_tpu_torch`` (``deserialize_predict``
 imports it).
@@ -111,7 +111,7 @@ def deserialize_predict(blob_or_path: Union[bytes, str, os.PathLike],
     if target is not None and target != traced:
         if (target.type == "cuda" and traced.type != "cuda"
                 and ep.state_dict["xmin"].dtype == torch.float32):
-            raise ValueError(f"a float32 artifact traced on {traced} holds the per-dim "
+            raise ValueError(f"a float32 artifact traced on {traced} holds the plain "
                              "route, not the fused gram: serialize the model with "
                              f"device={str(target)!r} to serve it there")
         ep = move_to_device_pass(ep, target)

@@ -45,12 +45,12 @@ from torch import nn
 from .bijectors import Exp, Sigmoid, Softplus
 from .kernels import ortho_binary, ortho_categorical, ortho_rbf
 from .kernels.oak_kernel import (OAKKernel, component_index_tuples, kernel_K,
-                                 per_dim_batched)
+                                 per_group)
 from .kernels.ortho_binary import OrthogonalBinary
-from .kernels.ortho_categorical import OrthogonalCategorical
+from .kernels.ortho_categorical import OrthogonalCategorical, table_rows
 from .kernels.ortho_rbf import OrthogonalRBF
 from .measures import EmpiricalMeasure, GaussianMeasure, MOGMeasure, UniformMeasure
-from .ops.newton_girard import newton_girard
+from .ops.newton_girard import newton_girard_from_power_sums, power_sums_stacked
 from .params import Param
 
 
@@ -86,12 +86,14 @@ def f4(x, y, sigma, l, delta, mu):
 
 def compute_L_gaussian(x: torch.Tensor, lengthscale, variance, delta, mu,
                        rows: slice = slice(None)) -> torch.Tensor:
-    """[N, N] L of an OrthogonalRBF dim under N(mu, delta²), by
-    broadcasting (its ``rows`` only); the scalars may be tensors or floats."""
-    l, variance, delta, mu = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
-                              for v in (lengthscale, variance, delta, mu))
+    """[..., N, N] L of OrthogonalRBF dims under N(mu, delta²), by
+    broadcasting (their ``rows`` only); the scalars may be floats, tensors,
+    or one per dim of a group [G] with x [G, N]."""
+    l, variance, delta, mu = (
+        torch.as_tensor(v, dtype=x.dtype, device=x.device)[..., None, None]
+        for v in (lengthscale, variance, delta, mu))
     sigma = torch.sqrt(variance)
-    xi, yj = x[rows, None], x[None, :]
+    xi, yj = x[..., rows, None], x[..., None, :]
     return (f1(xi, yj, sigma, l, delta, mu) - f2(xi, yj, sigma, l, delta, mu)
             - f3(xi, yj, sigma, l, delta, mu) + f4(xi, yj, sigma, l, delta, mu))
 
@@ -103,40 +105,41 @@ def compute_L_empirical(kernel: OrthogonalRBF, x: torch.Tensor,
                         rows: slice = slice(None)) -> torch.Tensor:
     """L = Kxuᵀ diag(w) Kxu over the empirical locations (its ``rows``)."""
     m: EmpiricalMeasure = kernel.measure
-    kxu = ortho_rbf.K(kernel, m.location[:, 0], x)  # [E, N]
-    return (m.weights[:, 0][:, None] * kxu[:, rows]).T @ kxu
+    kxu = ortho_rbf.K(kernel, m.location[..., 0], x)  # [..., E, N]
+    return (m.weights * kxu[..., rows]).mT @ kxu
 
 
 def _binary_p(kernel: OrthogonalBinary) -> torch.Tensor:
-    return torch.stack([kernel.p0, 1.0 - kernel.p0])
+    return torch.stack([kernel.p0, 1.0 - kernel.p0], dim=-1)
 
 
 def compute_L_binary(kernel: OrthogonalBinary, x: torch.Tensor,
                      rows: slice = slice(None)) -> torch.Tensor:
     """L = B_x diag(p) B_xᵀ with the full-variance table B (PARITY_NOTES:
     the reference scales binary components by σ² instead of σ⁴)."""
-    Bx = ortho_binary.output_covariance(kernel)[x.long()]  # [N, 2]
-    return (Bx[rows] * _binary_p(kernel)[None, :]) @ Bx.T
+    Bx = table_rows(ortho_binary.output_covariance(kernel), x)  # [..., N, 2]
+    return (Bx[..., rows, :] * _binary_p(kernel)[..., None, :]) @ Bx.mT
 
 
 def compute_L_categorical(kernel: OrthogonalCategorical, x: torch.Tensor,
                           rows: slice = slice(None)) -> torch.Tensor:
     """L = B_x diag(p) B_xᵀ with B_x the gathered rows of the table."""
-    Bx = ortho_categorical.output_covariance(kernel)[x.long()]  # [N, C]
-    return (Bx[rows] * kernel.p[:, 0][None, :]) @ Bx.T
+    Bx = table_rows(ortho_categorical.output_covariance(kernel), x)  # [..., N, C]
+    return (Bx[..., rows, :] * kernel.p.mT) @ Bx.mT
 
 
 def _gauss_hermite_grid(means: torch.Tensor, variances: torch.Tensor,
                         weights: torch.Tensor, num_points: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Nodes and weights [K·Q] of Q-point Gauss–Hermite under each of K
-    Gaussian components, in the dtype and on the device of ``means``."""
+    """Nodes and weights [..., K·Q] of Q-point Gauss–Hermite under each of
+    K Gaussian components [..., K], in the dtype and on the device of
+    ``means``."""
     q, w = np.polynomial.hermite_e.hermegauss(num_points)
     kw = dict(dtype=means.dtype, device=means.device)
     q = torch.as_tensor(q, **kw)
     w = torch.as_tensor(w / np.sqrt(2.0 * np.pi), **kw)
-    s = means[:, None] + torch.sqrt(variances)[:, None] * q[None, :]  # [K, Q]
-    return s.reshape(-1), (weights[:, None] * w[None, :]).reshape(-1)
+    s = means[..., :, None] + torch.sqrt(variances)[..., :, None] * q  # [..., K, Q]
+    return s.flatten(-2), (weights[..., :, None] * w).flatten(-2)
 
 
 def compute_L_quadrature(kernel: OrthogonalRBF, x: torch.Tensor,
@@ -147,12 +150,13 @@ def compute_L_quadrature(kernel: OrthogonalRBF, x: torch.Tensor,
     if fw is None:
         raise NotImplementedError(type(kernel.measure))
     G, w = fw
-    return (G[rows] * w[None, :]) @ G.T
+    return (G[..., rows, :] * w[..., None, :]) @ G.mT
 
 
 def compute_L_for_kernel(kernel, x: torch.Tensor, delta=None, mu=None,
                          rows: slice = slice(None)) -> torch.Tensor:
-    """The L of one constituent kernel on its sliced column ``x``; its
+    """The L of one constituent kernel on its sliced column ``x`` [N], or of
+    a stacked group (``kernels.stack_group``) on its columns [G, N]; its
     ``rows`` only (a shard's block, all columns) when given.
 
     A Gaussian measure takes the closed form for l <= 0.5·δ and 64-point
@@ -184,8 +188,8 @@ def compute_L_for_kernel(kernel, x: torch.Tensor, delta=None, mu=None,
                 s, w = _gauss_hermite_grid(mean.reshape(1), (d * d).reshape(1),
                                            torch.ones(1, **kw), 64)
                 G = ortho_rbf.K(kernel, x, s)
-                Lq = (G[rows] * w[None, :]) @ G.T
-            return torch.where(l > 0.5 * d, Lq, Lc)
+                Lq = (G[..., rows, :] * w) @ G.mT
+            return torch.where((l > 0.5 * d)[..., None, None], Lq, Lc)
         if isinstance(m, (MOGMeasure, UniformMeasure)):
             return compute_L_quadrature(kernel, x, rows=rows)
     raise NotImplementedError(type(kernel))
@@ -196,29 +200,32 @@ def compute_L_for_kernel(kernel, x: torch.Tensor, delta=None, mu=None,
 # --------------------------------------------------------------------------- #
 def factor_form(kernel, x: torch.Tensor, num_points: int = 64
                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """(F [N, Q], w [Q]) with L = F diag(w) Fᵀ, or None for a kernel with
-    no factor form. alphaᵀ L alpha = Σ_q w_q (Fᵀ alpha)_q² sums non-negative
-    terms, where the Hadamard route's O(N²) signed products cancel when
-    alpha is large (near-noiseless fits)."""
+    """(F [..., N, Q], w [..., Q]) with L = F diag(w) Fᵀ, or None for a
+    kernel with no factor form (x [N], or [G, N] for a stacked group).
+    alphaᵀ L alpha = Σ_q w_q (Fᵀ alpha)_q² sums non-negative terms, where
+    the Hadamard route's O(N²) signed products cancel when alpha is large
+    (near-noiseless fits)."""
     if isinstance(kernel, OrthogonalBinary):
-        return ortho_binary.output_covariance(kernel)[x.long()], _binary_p(kernel)
+        return (table_rows(ortho_binary.output_covariance(kernel), x),
+                _binary_p(kernel))
     if isinstance(kernel, OrthogonalCategorical):
-        return (ortho_categorical.output_covariance(kernel)[x.long()],
-                kernel.p[:, 0])
+        return (table_rows(ortho_categorical.output_covariance(kernel), x),
+                kernel.p[..., 0])
     if isinstance(kernel, OrthogonalRBF):
         m = kernel.measure
         kw = dict(dtype=x.dtype, device=x.device)
         if isinstance(m, EmpiricalMeasure):
-            return ortho_rbf.K(kernel, x, m.location[:, 0]), m.weights[:, 0]
+            return ortho_rbf.K(kernel, x, m.location[..., 0]), m.weights[..., 0]
         if isinstance(m, GaussianMeasure):
-            s, w = _gauss_hermite_grid(m.mu.reshape(1), m.var.reshape(1),
-                                       torch.ones(1, **kw), num_points)
+            s, w = _gauss_hermite_grid(m.mu[..., None], m.var[..., None],
+                                       torch.ones_like(m.mu)[..., None], num_points)
         elif isinstance(m, MOGMeasure):
             s, w = _gauss_hermite_grid(m.means, m.variances, m.weights, num_points)
         elif isinstance(m, UniformMeasure):
             q, w_ = np.polynomial.legendre.leggauss(num_points)
-            s = 0.5 * (m.b - m.a) * torch.as_tensor(q, **kw) + 0.5 * (m.a + m.b)
-            w = torch.as_tensor(w_, **kw) * 0.5
+            s = (0.5 * (m.b - m.a)[..., None] * torch.as_tensor(q, **kw)
+                 + 0.5 * (m.a + m.b)[..., None])
+            w = (torch.as_tensor(w_, **kw) * 0.5).expand(s.shape)
         else:
             return None
         return ortho_rbf.K(kernel, x, s), w
@@ -228,11 +235,33 @@ def factor_form(kernel, x: torch.Tensor, num_points: int = 64
 # --------------------------------------------------------------------------- #
 # Routing
 # --------------------------------------------------------------------------- #
+def _into(out: torch.Tensor, idx: List[int], part: torch.Tensor) -> None:
+    """out[idx] = part along the first axis (a slice copy when idx is a run)."""
+    if idx == list(range(idx[0], idx[-1] + 1)):
+        out[idx[0]:idx[-1] + 1].copy_(part)
+    else:
+        out.index_copy_(0, _index(idx, out.device), part)
+
+
 def _dim_L_stack(oak: OAKKernel, X: torch.Tensor, delta=None, mu=None,
                  rows: slice = slice(None)) -> torch.Tensor:
-    """[D, N, N] per-dim L matrices (their ``rows``: [D, n_rows, N])."""
-    return torch.stack(per_dim_batched(
-        oak.kernels, X, lambda k, x: compute_L_for_kernel(k, x, delta, mu, rows)))
+    """[D, N, N] per-dim L matrices (their ``rows``: [D, n_rows, N]), built
+    by group in chunks of ``kernels.per_group``'s size: the Gaussian L
+    evaluates both of its branches, so a whole group at N = 8192 would hold
+    several [G, N, N] buffers at once. The chunks are sized by the whole
+    [N, N], so that every shard groups the same dims (and rounds alike)."""
+    N = X.shape[0]
+    n = len(range(N)[rows])
+    out = None
+    for idx, L in per_group(oak.kernels, X,
+                            lambda k, x: compute_L_for_kernel(k, x, delta, mu, rows),
+                            dim_elements=N * N):
+        if len(idx) == oak.num_dims:
+            return L
+        if out is None:
+            out = L.new_empty((oak.num_dims, n, N))
+        _into(out, idx, L)
+    return out
 
 
 def _order_scales(oak: OAKKernel, orders: torch.Tensor, dtype) -> torch.Tensor:
@@ -275,14 +304,16 @@ def _factor_routing(oak: OAKKernel) -> Tuple[bool, ...]:
     transfer (as float64, exact) and are compared in their own dtypes, as
     ``oak_tpu`` compares them."""
     routing = [_has_factor_form(k) for k in oak.kernels]
-    gauss = [(i, k) for i, k in enumerate(oak.kernels)
+    gauss = [i for i, k in enumerate(oak.kernels)
              if isinstance(k, OrthogonalRBF) and isinstance(k.measure, GaussianMeasure)]
     if not gauss:
         return tuple(routing)
-    pairs = [(k.lengthscale.raw.detach(), k.measure.var.detach()) for _, k in gauss]
-    host = torch.stack([torch.stack([raw.reshape(()).double(), var.reshape(()).double()])
-                        for raw, var in pairs]).cpu().numpy()
-    for (i, k), (raw, var), (raw_t, var_t) in zip(gauss, host, pairs):
+    kernels = [oak.kernels[i] for i in gauss]
+    raws = [k.lengthscale.raw.detach().reshape(()) for k in kernels]
+    vars_ = [k.measure.var.detach().reshape(()) for k in kernels]
+    host = torch.stack([torch.stack(raws).double(),
+                        torch.stack(vars_).double()]).cpu().numpy()
+    for i, k, raw, var, raw_t, var_t in zip(gauss, kernels, host[0], host[1], raws, vars_):
         l = float(_host_constrained(raw.astype(_np_dtype(raw_t)), k.lengthscale.bij))
         routing[i] = l > 0.5 * float(np.sqrt(var.astype(_np_dtype(var_t))))
     return tuple(routing)
@@ -452,12 +483,18 @@ def _chunked_quadforms(Lstack: torch.Tensor, a: torch.Tensor, D: int,
 
 def _factor_stack(oak: OAKKernel, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every dim's factor form, zero-padded to a common Q: (F [D, N, Q],
-    w [D, Q])."""
-    factors = per_dim_batched(oak.kernels, X, factor_form)
-    Qmax = max(F.shape[1] for F, _ in factors)
-    pad = torch.nn.functional.pad
-    return (torch.stack([pad(F, (0, Qmax - F.shape[1])) for F, _ in factors]),
-            torch.stack([pad(w, (0, Qmax - w.shape[0])) for _, w in factors]))
+    w [D, Q]), built by group."""
+    parts = list(per_group(oak.kernels, X, factor_form))
+    if len(parts) == 1:
+        return parts[0][1]
+    Qmax = max(F.shape[-1] for _, (F, _w) in parts)
+    Fs = X.new_zeros((oak.num_dims, X.shape[0], Qmax))
+    Ws = X.new_zeros((oak.num_dims, Qmax))
+    for idx, (F, w) in parts:
+        Q = F.shape[-1]
+        _into(Fs[..., :Q], idx, F)
+        _into(Ws[..., :Q], idx, w)
+    return Fs, Ws
 
 
 def _factor_sums(Fs: torch.Tensor, a: torch.Tensor,
@@ -637,10 +674,16 @@ def compute_sobol_by_order(model, delta=None, mu=None,
     depth = _check_depth_override(oak, max_depth)
     a = model.posterior_alpha()[:, 0]
     axis = _axis(mesh)
-    rows = slice(None) if axis is None else axis.rows(a.shape[0])
-    mats = per_dim_batched(oak.kernels, _model_X(model),
-                           lambda k, x: compute_L_for_kernel(k, x, rows=rows))
-    e = newton_girard(mats, depth)[1:]
+    N = a.shape[0]
+    rows = slice(None) if axis is None else axis.rows(N)
+    s = None
+    # chunks sized by the whole [N, N], as in _dim_L_stack: every shard sums
+    # the same dims into its power sums in the same order
+    for _, L in per_group(oak.kernels, _model_X(model),
+                          lambda k, x: compute_L_for_kernel(k, x, rows=rows),
+                          dim_elements=N * N):
+        s = power_sums_stacked(L, depth, s)
+    e = newton_girard_from_power_sums(s, depth)[1:]
     orders = torch.arange(1, depth + 1, device=a.device)
     # the sum over rows cancels on near-noiseless fits: taken in float64
     partial = torch.stack([torch.dot((En @ a).double(), a[rows].double()) for En in e])
@@ -671,11 +714,13 @@ def get_prediction_component(model, alpha=None, X: Optional[torch.Tensor] = None
     a = model.posterior_alpha()[:, 0]
     tuples = component_index_tuples(oak.num_dims, depth)[1:]
 
-    grams = [kernel_K(k, X[:, k.active_dim], Xc[:, k.active_dim]) for k in oak.kernels]
-    grams.append(torch.ones_like(grams[0]))  # index D pads lower orders
-    G = torch.stack(grams)  # [D + 1, S, Nc]
-
     D = oak.num_dims
+    # [D + 1, S, Nc]: the per-dim grams by group; index D pads lower orders
+    G = X.new_empty((D + 1, X.shape[0], Xc.shape[0]))
+    for idx, grams in per_group(oak.kernels, X, kernel_K, Xc,
+                                dim_elements=X.shape[0] * Xc.shape[0]):
+        _into(G, idx, grams)
+    G[D] = 1.0
     P = max(len(t) for t in tuples)
     idx = np.full((len(tuples), P), D, dtype=np.int64)
     for i, t in enumerate(tuples):

@@ -103,7 +103,7 @@ def test_kernel_refuses_what_it_cannot_run(cuda):
 
 def test_oak_kernel_K_routes_through_kernel(cuda):
     """float32 CUDA input takes the kernel; float64 on the same card takes
-    the per-dim route, and the two agree."""
+    the plain route, and the two agree."""
     k = OAKKernel.create(num_dims=6, max_interaction_depth=3, dtype=torch.float32,
                          device=cuda)
     X = torch.as_tensor(np.random.default_rng(63).normal(size=(300, 6)),
@@ -122,7 +122,7 @@ def test_oak_kernel_K_routes_through_kernel(cuda):
 def test_oak_kernel_K_deeper_than_8_runs_the_kernel(cuda):
     """Depth 9 over 10 dims qualifies for the fused route, as in oak_tpu, and
     the kernel runs it (once it raised): one K1 launch, within TOL of the
-    float64 per-dim route on the same card."""
+    float64 plain route on the same card."""
     k = OAKKernel.create(num_dims=10, max_interaction_depth=9, dtype=torch.float32,
                          device=cuda)
     X = torch.as_tensor(np.random.default_rng(64).normal(size=(200, 10)),
@@ -154,7 +154,7 @@ def test_defaults_build_on_the_card_in_float32(cuda):
 
 def test_oak_kernel_K_gradient_through_kernels(cuda):
     """torch.autograd.grad of a float32 CUDA OAK gram goes through both
-    kernels and agrees with the float64 per-dim route on the same card, for
+    kernels and agrees with the float64 plain route on the same card, for
     a mixed model (one binary dim, whose extra gram carries its trainable
     base variance's gradient) and X that requires grad."""
     k = OAKKernel.create(num_dims=6, max_interaction_depth=3, p0=[0.4] + [None] * 5,
@@ -211,7 +211,7 @@ def test_square_gram_kernels_match_plain(cuda):
 
 def test_oak_kernel_square_K_through_kernel(cuda):
     """K(X) with X2 = None launches K1 once, is exactly symmetric and
-    agrees with the float64 per-dim route."""
+    agrees with the float64 plain route."""
     k = OAKKernel.create(num_dims=8, max_interaction_depth=2, dtype=torch.float32,
                          device=cuda)
     X = torch.as_tensor(np.random.default_rng(70).normal(size=(1000, 8)),
@@ -343,7 +343,7 @@ def test_exported_predict_on_the_card_matches_live_and_launches_k1(cuda, tmp_pat
     path), each served call launches K1, and the (mean, std) artifact's
     mean equals the mean-only one. The card's artifact moved to the CPU
     runs the op's plain version, and an artifact traced on the CPU the
-    per-dim route; both launch nothing and agree within 1e-3."""
+    plain route; both launch nothing and agree within 1e-3."""
     from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict
 
     X, y = _oak_data(n=200, seed=75)
@@ -513,3 +513,53 @@ def test_data_parallel_step_on_two_gloo_ranks_matches_one_process(cuda, tmp_path
             assert abs(float(f["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
             assert np.abs(f["grad"] - g).max() <= 1e-4 * np.abs(g).max()
             assert abs(float(f["step_loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+
+
+def test_grouped_route_matches_the_per_dim_loop_on_the_card(cuda):
+    """The grouped evaluation of the per-dim forms in float32 on the card
+    (one group of 8 dims and, in a second model, binary and categorical
+    dims between RBF-form groups) against chip_smoke.py's per-dim loop:
+    _prep, K through the kernels, K_diag, the loss gradient and the Sobol
+    values, within TOL (GRAD_TOL for the gradient) of max |per-dim|."""
+    import sys
+    from pathlib import Path
+
+    from oak_tpu_torch.optim.fit import value_and_grad
+    from oak_tpu_torch.params import flatten_trainable
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import _per_dim_route
+
+    rng = np.random.default_rng(71)
+    X = rng.normal(size=(1024, 8))
+    X[:, 2], X[:, 5] = rng.integers(0, 2, 1024), rng.integers(0, 3, 1024)
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(1024, 1))
+    interleaved = dict(p0=[None, None, 0.4] + [None] * 5,
+                       p=[None] * 5 + [np.array([0.3, 0.3, 0.4])] + [None] * 2,
+                       empirical_locations=[None] * 6 + [np.linspace(-2, 2, 7)] + [None])
+    for kw in ({}, interleaved):
+        k = OAKKernel.create(num_dims=8, max_interaction_depth=3, use_sparsity_prior=True,
+                             lengthscale_bounds=[1e-3, 1e3], dtype=torch.float32,
+                             device=cuda, **kw)
+        Xc = torch.as_tensor(X, dtype=torch.float32, device=cuda)
+        Yc = torch.as_tensor(Y, dtype=torch.float32, device=cuda)
+        model = SVGP.create(k, Gaussian.create(0.01, dtype=torch.float32, device=cuda),
+                            X[:64], num_data=1024, dtype=torch.float32, device=cuda)
+
+        def outputs():
+            Z = model.Z.value.detach()
+            with torch.no_grad():
+                out = list(og._prep(k, Z, Xc)) + [k.K(Z, Xc), k.K_diag(Xc)]
+            out.append(value_and_grad(model, lambda m: m.training_loss(Xc, Yc),
+                                      flatten_trainable(model).detach())[1])
+            out.append(torch.as_tensor(sb.compute_sobol_oak(model)[1]))
+            return out
+
+        grouped = outputs()
+        with _per_dim_route():
+            per_dim = outputs()
+        for i, (a, b) in enumerate(zip(grouped, per_dim)):
+            assert a.shape == b.shape
+            if b.numel():
+                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                assert err < (GRAD_TOL if i == len(grouped) - 2 else TOL), (i, err)
