@@ -9,7 +9,7 @@ non-zero before the result line:
 0. device: a CUDA card, its name and power limit from nvidia-smi, float32
    matmuls in full precision (no TF32);
 1. build: compiles csrc/*.cu with nvcc into .kernel_build/ (ptxas registers
-   of every kernel variant, and any spills);
+   of every kernel variant, one-lane and lane-batched, and any spills);
 2. K1: the fused OAK gram forward kernel against its plain torch version on
    the card at the predict path's Kus and Kuu (from the model below), the
    GPR's square gram K(X) (8192 x 8192, D = 8, depth 2, X2 = None; exactly
@@ -61,9 +61,9 @@ non-zero before the result line:
    sparsity prior, L-BFGS; float32, built with no dtype or device) on fold
    0 of the synthetic stand-in (6553 training rows, 1639 test rows, the
    committed run's seed-4 split): fit
-   (flows and k-means timed), optimise(max_iters=40, restarts=2) (each lane
-   300 Adam steps, then L-BFGS; a lane finite and the loss below the
-   start's), predict with clipping, NLL and RMSE (below std(y)); a save
+   (flows and k-means timed), optimise(max_iters=40, restarts=2) (the lanes
+   batched: 300 Adam steps, then L-BFGS; a lane finite and the loss below
+   the start's), predict with clipping, NLL and RMSE (below std(y)); a save
    loaded in float64 on the card, factoring at float32's jitter, agrees at
    matched parameters (the B1 gate: NLL and the 255 normalised Sobol values
    within 1e-3; predictions within 1e-3 or, where the same float32 model on
@@ -119,6 +119,18 @@ non-zero before the result line:
    warm fit_adam step, predict_y of 1 and 8192 rows, a full Sobol and a
    warm served request of phase 10.2's artifact, and the peak memory of
    phase 5's Sobol calls.
+14. a multistart's lanes as one batched program (phase_lanes): K1 and K2
+   launched once for 4 lanes at phase 9's pumadyn Kuf and the bench's Kuf,
+   each lane against a one-lane launch (bitwise where the tile is the same)
+   and the plain version, timed against four one-lane launches, with the
+   bound and the share; the vmapped loss and gradient of the bench SVGP and
+   the pumadyn SGPR at 4 starts against the lanes one by one (1e-4 / 1e-3),
+   one K1 and K2 launch per gram for all lanes and no vmap fallback, and a
+   warm batched Adam step's launches, host and device ms against one
+   lane's; oak_model.optimise(max_iters=40, restarts=4) at phase 9's
+   configuration batched against the same starts in turn through a loop
+   written here (first 5 warm Adam steps within 1e-4, the best loss within
+   1e-3 or the same lane, test RMSE below std(y)), both wall times.
 
 Each phase prints its seconds. Then one JSON line about the kernels, and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
@@ -318,8 +330,10 @@ def phase_build():
     for line in b.log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"oak_gram_(fwd|bwd)_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-            entry = (f"{k.group(1)} P={k.group(2)} {k.group(3)}x{k.group(4)}" if k
+            k = re.search(r"oak_gram_(fwd|bwd)_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
+                          m.group(1))
+            entry = (f"{k.group(1)} P={k.group(2)} {k.group(3)}x{k.group(4)}"
+                     + (" lanes" if k.group(5) == "1" else "") if k
                      else re.sub(r".*(oak_gram_\w+?)[A-Z]?\d*P.*", r"\1", m.group(1)))
         elif "registers" in line:
             regs.append(f"{entry} {re.search(r'Used (\d+) registers', line).group(1)}")
@@ -2399,6 +2413,310 @@ def phase_grouped(device, served):
     return {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
 
 
+LANES = 4  # phase 14's lanes, as every UCI configuration's restarts
+# (name, D, N, M, E, depth): phase 9's pumadyn Kuf and the bench's Kuf
+LANE_SHAPES = (("pumadyn Kuf 500x6553", PUMA_D, PUMA_M, 6553, 0, PUMA_DEPTH),
+               ("bench Kuf 512x8192", D, M, N, 0, DEPTH))
+LANE_LOSS_TOL, LANE_GRAD_TOL = 1e-4, 1e-3  # batched vs in turn: value, gradient
+LANE_ADAM_TOL, LANE_BEST_TOL = 1e-4, 1e-3  # 14.3: warm Adam steps, the best lane
+
+
+def _lane_kernels(name, D_, N_, M_, E_, depth, device, seed):
+    """14.1 at one shape: K1 and K2 launched once for LANES lanes (through
+    the ops' vmap rules) against a one-lane launch of each lane (bitwise
+    where the lane-batched launch picks the same tile, else the kernel
+    gates) and against the plain version; device ms of the batched launch
+    and of the LANES one-lane launches, the bound (LANES times one lane's)
+    and the share."""
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.testing import kernel_error, lane_inputs
+
+    inputs = lane_inputs(seed, LANES, D_, N_, M_, E_, depth, device)
+    gbar = torch.as_tensor(np.random.default_rng(seed).normal(size=(LANES, N_, M_)),
+                           dtype=torch.float32, device=device)
+    lane = [[t[r] for t in inputs] for r in range(LANES)]
+    P = og.clamped_depth(depth, D_, E_)
+    fwd = torch.vmap(og.oak_gram_fwd_op, in_dims=(0,) * 7 + (None,))
+    bwd = torch.vmap(lambda *a: og.oak_gram_bwd_op(*a, depth, True), in_dims=(0,) * 8)
+    launches = (og.LAUNCHES, og.BWD_LAUNCHES)
+    with torch.no_grad():
+        out = fwd(*inputs, depth)
+        grads = bwd(*inputs, gbar)
+    torch.cuda.synchronize()
+    if (og.LAUNCHES - launches[0], og.BWD_LAUNCHES - launches[1]) != (1, 1):
+        raise RuntimeError(f"14.1 {name}: {og.LAUNCHES - launches[0]} K1 and "
+                           f"{og.BWD_LAUNCHES - launches[1]} K2 launches for {LANES} lanes")
+    numbers, text = {}, []
+    for kind, entry in (("K1", "oak_gram_fwd_tile"), ("K2", "oak_gram_bwd_tile")):
+        same = og._variant(entry, P, N_, M_, device, LANES) == og._variant(entry, P, N_, M_,
+                                                                             device)
+        err, bitwise = 0.0, same
+        for r in range(LANES):
+            with torch.no_grad():
+                if kind == "K1":
+                    ours, single = [out[r]], [og.oak_gram_fused(*lane[r], depth)]
+                    plain = [og.oak_gram_plain(*lane[r], depth)]
+                    plain64 = [og.oak_gram_plain(*[t.double() for t in lane[r]], depth)]
+                    tols = [KERNEL_TOL]
+                else:
+                    ours = [g[r] for g in grads]
+                    single = og.oak_gram_bwd(*lane[r], gbar[r], depth)
+                    plain = og.oak_gram_bwd_plain(*lane[r], gbar[r], depth)
+                    plain64 = og.oak_gram_bwd_plain(*[t.double() for t in lane[r]],
+                                                    gbar[r].double(), depth)
+                    tols = [GRAD_TOL] * 7
+            for k, (o, s, p, p64, tol) in enumerate(zip(ours, single, plain, plain64, tols)):
+                if p.numel() == 0:
+                    continue
+                if same and not torch.equal(o, s):
+                    raise RuntimeError(f"14.1 {name} {kind} lane {r} [{k}]: the lane-batched "
+                                       "launch differs from a one-lane launch of its tile")
+                for ref in ([s, p] if not same else [p]):
+                    ok, _, line = kernel_error(o, ref, p64, tol)
+                    if not (ok and bool(torch.isfinite(o).all())):
+                        raise RuntimeError(f"14.1 {name} {kind} lane {r} [{k}]: {line} over "
+                                           f"tol {tol}")
+                err = max(err, float((o - p).abs().max()))
+        batched = ((lambda: fwd(*inputs, depth)) if kind == "K1"
+                   else (lambda: bwd(*inputs, gbar)))
+        one_lane = [(lambda r=r: og.oak_gram_fused(*lane[r], depth)) if kind == "K1" else
+                    (lambda r=r: og.oak_gram_bwd(*lane[r], gbar[r], depth))
+                    for r in range(LANES)]
+        plain_fn = ((lambda: og.oak_gram_plain(*inputs, depth)) if kind == "K1"
+                    else (lambda: og.oak_gram_bwd_plain(*inputs, gbar, depth)))
+        with torch.no_grad():
+            # the one-lane launches' sum, each timed alone (the profiler has
+            # dropped events of a call that launches several)
+            dev = {"lanes in turn": [], "batched": []}
+            for which in ("lanes in turn", "batched", "batched", "lanes in turn"):
+                dev[which].append(sum(_device_ms(f) for f in one_lane)
+                                  if which == "lanes in turn" else _device_ms(batched))
+            ev = _turns({"plain": plain_fn, "batched": batched},
+                        lambda fn: _cuda_ms(fn, TIMING_ITERS // 4))
+        bound, by, detail = gram_bound(kind, D_, N_, M_, E_, depth)
+        bound *= LANES
+        ms, singles_ms = float(np.mean(dev["batched"])), float(np.mean(dev["lanes in turn"]))
+        numbers[kind] = dict(max_abs_err=err, device_ms=ms, lanes_in_turn_ms=singles_ms,
+                             ms=float(np.mean(ev["batched"])),
+                             plain_ms=float(np.mean(ev["plain"])), bound_ms=bound,
+                             bound_by=by, share=bound / ms, same_tile=same, lanes=LANES)
+        text.append(f"  {kind} {name} x{LANES} lanes: device {dev['batched']} ms batched vs "
+                    f"{dev['lanes in turn']} ms for {LANES} one-lane launches; CUDA events "
+                    f"{numbers[kind]['ms']:.4f} ms, plain over the lanes "
+                    f"{numbers[kind]['plain_ms']:.4f} ms; bound {bound:.4f} ms ({LANES} x "
+                    f"{detail}); share {bound / ms:.2f}; max abs err vs plain {err:.2e}; "
+                    + ("each lane bitwise equal to a one-lane launch" if bitwise else
+                       "the one-lane launch takes another tile: lanes held to it by the gates"))
+    return numbers, text
+
+
+def _in_turn_best(model, loss_fn, starts):
+    """The reference of 14.3, the lanes in turn, each alone, through the
+    package's one-lane pieces (plain autograd, ``fit.lbfgs_parts``): 300
+    warm Adam steps at 2e-2 keeping the best finite iterate, then
+    PUMA_ITERS L-BFGS iterations; (vectors, each lane's losses at its warm
+    Adam steps, final losses, L-BFGS iterations, gradient norms)."""
+    from oak_tpu_torch.optim import fit
+
+    one = fit.LaneLoss(model, loss_fn)  # one lane at a time: plain autograd
+    vecs, adam_losses, values, its, gnorms = [], [], [], [], []
+    for start in starts:
+        vec, _, losses = fit.adam_best(one, start[None], 300, 2e-2)
+        init, run_range, stats = fit.lbfgs_parts(
+            lambda v: fit.value_and_grad(model, loss_fn, v), 1e-8, 30)
+        vec, state, it = run_range(vec[0], init(vec[0]), 0, PUMA_ITERS)
+        vecs.append(vec)
+        adam_losses.append(losses[:, 0])
+        values.append(float(one.values(vec[None])[0]) if bool(torch.isfinite(vec).all())
+                      else np.inf)
+        its.append(it)
+        gnorms.append(float(np.sqrt(state.grad_sq[0])))
+    return torch.stack(vecs), torch.stack(adam_losses, 1), values, its, gnorms
+
+
+def phase_lanes(device):
+    """Phase 14, a multistart's lanes as one batched program.
+
+    14.1 K1 and K2 launched once for LANES lanes at phase 9's pumadyn Kuf
+    (500 x 6553, D 8, depth 8) and the bench's Kuf (512 x 8192, D 32, depth
+    3): each lane against a one-lane launch (bitwise where the tile is the
+    same) and the plain version; device ms against the one-lane launches',
+    the bound and the share.
+    14.2 ``fit.LaneLoss`` (vmap of grad_and_value over the trainable vector)
+    of the bench SVGP (create defaults) and of the pumadyn SGPR at LANES
+    starts from ``_make_starts``, against the lanes one by one (value within
+    1e-4 relative, gradient within 1e-3 of max |g|); one K1 and K2 launch
+    per gram for all lanes, and no vmap fallback warning; launches, host ms
+    and device ms of a warm batched Adam step against one lane's.
+    14.3 ``oak_model.optimise(max_iters=PUMA_ITERS, restarts=LANES)`` at
+    phase 9's configuration, batched, against the same starts in turn
+    (``_in_turn_best``): the first 5 warm Adam steps equal lane by lane
+    within 1e-4 relative, the best loss within 1e-3 relative of the in-turn
+    best or the same lane accepted, test RMSE below std(y); both wall
+    times, the step where the float32 warm-up trajectories part, and the
+    linesearch's evaluations per lane and iteration. Returns the launches of
+    the batched optimise."""
+    import warnings
+
+    from oak_tpu_torch import oak_model
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.optim import multistart as ms
+    from oak_tpu_torch.params import flatten_trainable
+
+    t0 = time.perf_counter()
+    kernels, rows = {}, []
+    for seed, shape in enumerate(LANE_SHAPES, start=140):
+        kernels[shape[0]], text = _lane_kernels(*shape, device, seed)
+        rows.extend(text)
+    print(f"phase 14.1 K1 and K2 over {LANES} lanes in one launch "
+          f"({time.perf_counter() - t0:.1f} s; device ms from torch.profiler, turns one-lane, "
+          f"batched, batched, one-lane):\n" + "\n".join(rows))
+
+    t0 = time.perf_counter()
+    Xtr, ytr, Xte, yte = pumadyn_fold0()
+    oak = oak_model(max_interaction_depth=PUMA_DEPTH, num_inducing=PUMA_M,
+                    lengthscale_bounds=[1e-3, 1e3], use_sparsity_prior=True,
+                    use_normalising_flow=True, optimizer="lbfgs")
+    oak.fit(Xtr, ytr, optimise=False)
+    bmodel, bX, bY = build_bench_model(device)
+    losses = {"bench SVGP": (bmodel, lambda m: m.training_loss(bX, bY)),
+              "pumadyn SGPR": (oak.m, lambda m: m.training_loss())}
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    lines = []
+    try:
+        for name, (model, loss_fn) in losses.items():
+            starts = ms._make_starts(flatten_trainable(model).detach(), LANES, 0.3, 0, True)
+            lane_loss = fit.LaneLoss(model, loss_fn)
+            lane_loss.value_and_grad(starts)  # warm
+            before = (og.LAUNCHES, og.BWD_LAUNCHES)
+            fit.value_and_grad(model, loss_fn, starts[0])
+            one = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+            before = (og.LAUNCHES, og.BWD_LAUNCHES)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                values, grads = lane_loss.value_and_grad(starts)
+                torch.cuda.synchronize()
+            batched = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+            fallback = [str(w.message) for w in caught if "allback" in str(w.message)]
+            if batched != one or 0 in one or fallback:
+                raise RuntimeError(f"14.2 {name}: K1, K2 launches {batched} for {LANES} lanes "
+                                   f"against {one} for one; fallback warnings {fallback[:2]}")
+            v_err = g_err = 0.0
+            for r in range(LANES):
+                v, g = fit.value_and_grad(model, loss_fn, starts[r])
+                v_err = max(v_err, abs(float(values[r]) - float(v)) / abs(float(v)))
+                g_err = max(g_err, float((grads[r] - g).abs().max() / g.abs().max()))
+            if not (v_err < LANE_LOSS_TOL and g_err < LANE_GRAD_TOL):
+                raise RuntimeError(f"14.2 {name}: batched vs in turn, value {v_err:.2e} "
+                                   f"(tol {LANE_LOSS_TOL}), gradient {g_err:.2e} (tol "
+                                   f"{LANE_GRAD_TOL})")
+            vecs = starts.clone().requires_grad_(True)
+            opt = fit.adam(vecs)
+            vec = starts[0].clone().requires_grad_(True)
+            opt1 = fit.adam(vec)
+
+            def batched_step():
+                vecs.grad = fit.finite_or_zero(lane_loss.value_and_grad(vecs)[1])
+                opt.step()
+
+            steps = {"batched": batched_step,
+                     "one lane": lambda: fit._adam_step(model, loss_fn, vec, opt1)}
+            timing = {}
+            for label, fn in steps.items():
+                launches, device_ms = _launches_device_ms(fn)
+                timing[label] = (launches, _host_ms(fn, GROUPED_REPEATS), device_ms)
+            lines.append(
+                f"phase 14.2 {name}: {LANES} lanes batched vs one by one: value {v_err:.2e} "
+                f"(tol {LANE_LOSS_TOL}), gradient {g_err:.2e} of max |g| (tol "
+                f"{LANE_GRAD_TOL}); K1, K2 launches {batched} per value_and_grad for all "
+                f"lanes ({one} for one); no vmap fallback warning; a warm Adam step of "
+                + ", ".join(f"{k}: {n} kernel launches, host {h:.3f} ms (sync, median of "
+                            f"{GROUPED_REPEATS}), device {d:.3f} ms"
+                            for k, (n, h, d) in timing.items()))
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    print("\n".join(lines) + f"\nphase 14.2 took {time.perf_counter() - t0:.1f} s")
+
+    # 14.3: the user path batched, then the same starts in turn
+    ref = copy.deepcopy(oak.m)
+    starts = ms._make_starts(flatten_trainable(oak.m).detach(), LANES, 0.3, 0, True)
+    warm, evals, steps = [], [], []
+    adam_best, evaluate, lbfgs_step = fit.adam_best, fit._evaluate, fit.lbfgs_step
+
+    def recording_adam_best(*args):
+        out = adam_best(*args)
+        warm.append(out[2])
+        return out
+
+    def recording_evaluate(fn, vec, u, rows, step):
+        evals.append(len(rows))
+        return evaluate(fn, vec, u, rows, step)
+
+    def recording_step(fn, vec, state):
+        steps.append(vec.shape[0])
+        return lbfgs_step(fn, vec, state)
+
+    ms.adam_best, fit._evaluate, fit.lbfgs_step = (recording_adam_best, recording_evaluate,
+                                                   recording_step)
+    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = oak.optimise(max_iters=PUMA_ITERS, restarts=LANES)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t
+    finally:
+        ms.adam_best, fit._evaluate, fit.lbfgs_step = adam_best, evaluate, lbfgs_step
+    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    lanes = res.losses.numpy()
+    rmse = float(np.sqrt(np.mean((oak.predict(Xte, clip=True) - yte[:, 0]) ** 2)))
+    std = float(yte.std())
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vecs, turn_warm, turn_values, turn_its, turn_gnorms = _in_turn_best(
+        ref, lambda m: m.training_loss(), starts)
+    pick = copy.deepcopy(ref)
+    turn = ms._finish_multistart(
+        vecs, turn_values, pick, lambda m: not (oak._degenerate_noise_fit(m)
+                                               or oak._pathological_fit(m)),
+        "", turn_its, gnorms=turn_gnorms, tol=1e-8)
+    torch.cuda.synchronize()
+    turn_s = time.perf_counter() - t
+
+    ours = warm[0].double()
+    theirs = turn_warm.double()
+    rel = ((ours - theirs).abs() / theirs.abs()).cpu().numpy()
+    rel = np.where(np.isfinite(rel), rel, 0.0)
+    parted = np.flatnonzero((rel > LANE_ADAM_TOL).any(axis=1))
+    first5 = float(rel[:5].max())
+    best_b, best_t = int(np.argmin(lanes)), int(np.argmin(turn.losses.numpy()))
+    best_rel = abs(res.fun - turn.fun) / abs(turn.fun)
+    per_iteration = sum(evals) / max(sum(steps), 1)
+    print(f"phase 14.3 oak_model.optimise(max_iters={PUMA_ITERS}, restarts={LANES}) at "
+          f"phase 9's configuration: batched {batched_s:.3f} s, the same starts in turn "
+          f"{turn_s:.3f} s ({turn_s / batched_s:.2f}x); lane losses batched "
+          + ", ".join(f"{v:.6g}" for v in lanes) + " / in turn "
+          + ", ".join(f"{v:.6g}" for v in turn.losses.numpy())
+          + f"; returned {res.fun:.6g} (lane {best_b}) vs {turn.fun:.6g} (lane {best_t}), "
+          f"{best_rel:.2e} relative (tol {LANE_BEST_TOL}); first 5 warm Adam steps "
+          f"{first5:.2e} relative (tol {LANE_ADAM_TOL}); the float32 warm-up trajectories "
+          + (f"part at step {int(parted[0])} of 300 (relative > {LANE_ADAM_TOL})"
+             if len(parted) else f"stay within {LANE_ADAM_TOL} for all 300 steps")
+          + f"; L-BFGS {sum(steps)} lane-iterations, {sum(evals)} linesearch evaluations "
+          f"({per_iteration:.2f} a lane and iteration, so {per_iteration - 1:.2f} rejected), "
+          f"{len(evals)} batched calls; test rmse {rmse:.6g} (std {std:.6g}); launches of "
+          f"the batched optimise K1 {launches['fwd']}, K2 {launches['bwd']}")
+    if not (first5 < LANE_ADAM_TOL and (best_rel < LANE_BEST_TOL or best_b == best_t)
+            and rmse < std and np.isfinite(res.fun)):
+        raise RuntimeError(f"14.3: first 5 Adam steps {first5:.2e}, best {res.fun} (lane "
+                           f"{best_b}) vs {turn.fun} (lane {best_t}), rmse {rmse} (std {std})")
+    if 0 in launches.values():
+        raise RuntimeError(f"14.3: the batched optimise launched {launches}")
+    return launches, kernels, dict(batched_s=batched_s, in_turn_s=turn_s)
+
+
 # prefixed "package_" to the names of --profile's tables under --package
 PROFILE_PREFIX = ""
 
@@ -2632,7 +2950,7 @@ def profile_sobol_memory(model, X, device):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-13, print where a warm predict_y "
+                        help="instead of phases 2-14, print where a warm predict_y "
                              "request's, a warm training step's, a full Sobol "
                              "decomposition's and a served request's time goes (host "
                              "clock and torch.profiler), and the Sobol calls' peak memory")
@@ -2698,14 +3016,16 @@ def main():
     surface_launches = timed("11", phase_surface, device)
     parallel_launches = timed("12", phase_parallel, device)
     grouped_launches = timed("13", phase_grouped, device, served)
+    lanes_launches, lanes_kernels, _ = timed("14", phase_lanes, device)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
-    def entry(name, source, replaces, launches, numbers, depth8):
+    def entry(name, source, replaces, launches, numbers, depth8, kind):
         # at Kus / Kuf: ms is the CUDA-event time over 20 launches, device_ms
         # torch.profiler's kernel time per launch, plain_ms the plain version's
         # CUDA-event time; no PyTorch call computes the fused gram. The same
-        # numbers at phase 9's depth-8 Kuf under "kuf_depth8"
+        # numbers at phase 9's depth-8 Kuf under "kuf_depth8", and one launch
+        # for phase 14's LANES lanes at its two Kuf shapes under "lanes"
         n = numbers["Kus/Kuf 512x8192"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": n["max_abs_err"], "ms": n["event_ms"],
@@ -2714,7 +3034,8 @@ def main():
                 "library_ms": None, "old_device_ms": n["old_device_ms"],
                 "kuf_depth8": {k: depth8[k] for k in ("max_abs_err", "event_ms", "device_ms",
                                                       "plain_ms", "bound_ms", "bound_by",
-                                                      "share")}}
+                                                      "share")},
+                "lanes": {shape: lanes_kernels[shape][kind] for shape in lanes_kernels}}
 
     print(json.dumps({"kernels": [
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
@@ -2722,15 +3043,15 @@ def main():
               predict_launches + train_launches["fwd"] + sobol_launches
               + sgpr_launches["fwd"] + gpr_launches["fwd"] + oak_launches["fwd"]
               + committed_launches["fwd"] + surface_launches["fwd"] + parallel_launches["fwd"]
-              + grouped_launches["fwd"],
-              kernel, oak_kernels["K1"]),
+              + grouped_launches["fwd"] + lanes_launches["fwd"],
+              kernel, oak_kernels["K1"], "K1"),
         entry("oak_gram_bwd_f32", "oak_tpu_torch/csrc/oak_gram_bwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:158",
               train_launches["bwd"] + sgpr_launches["bwd"] + gpr_launches["bwd"]
               + oak_launches["bwd"] + committed_launches["bwd"] + surface_launches["bwd"]
-              + parallel_launches["bwd"] + grouped_launches["bwd"],
+              + parallel_launches["bwd"] + grouped_launches["bwd"] + lanes_launches["bwd"],
               kernel_bwd,
-              oak_kernels["K2"])]}))
+              oak_kernels["K2"], "K2")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

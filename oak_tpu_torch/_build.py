@@ -42,18 +42,20 @@ NVCC_TIMEOUT_S = 600
 # each as a 32-bit int.
 _INT_P = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    # u1, u2, c1, c2, extra, logb, sig2, out; D, N, M, E, P, variant; stream
-    "oak_gram_fwd_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                         + [ctypes.c_void_p], ctypes.c_int),
+    # u1, u2, c1, c2, extra, logb, sig2, out; D, N, M, E, P, variant, lanes;
+    # lane strides (7 long longs); stream
+    "oak_gram_fwd_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p] * 2, ctypes.c_int),
     # P, variant -> rows, columns of the block tile
     "oak_gram_fwd_tile": ([ctypes.c_int] * 2 + [_INT_P] * 2, ctypes.c_int),
     # u1, u2, c1, c2, extra, logb, sig2, gbar, work, du1, dc1, du2, dc2,
-    # dlogb, dsig2, dextra; D, N, M, E, P, variant; stream
-    "oak_gram_bwd_f32": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
-                         + [ctypes.c_void_p], ctypes.c_int),
+    # dlogb, dsig2, dextra; D, N, M, E, P, variant, lanes; lane strides (8
+    # long longs); stream
+    "oak_gram_bwd_f32": ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p] * 2, ctypes.c_int),
     "oak_gram_bwd_tile": ([ctypes.c_int] * 2 + [_INT_P] * 2, ctypes.c_int),
-    # D, N, M, P, variant -> floats of workspace
-    "oak_gram_bwd_workspace": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    # D, N, M, P, variant, lanes -> floats of workspace
+    "oak_gram_bwd_workspace": ([ctypes.c_int] * 6, ctypes.c_longlong),
 }
 
 

@@ -35,6 +35,27 @@ constexpr int kMaxDepth = 64;   // deepest (clamped) depth any variant takes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kSqrtLog2e = 1.2011224087864498f;
 
+// The lane axis: one launch computes the gram of L independent sets of
+// inputs (the lanes of a multistart, as jax.vmap prepends a grid axis to a
+// pallas_call), lane l on the blocks whose blockIdx.y is l. Each input's
+// lane stride is the number of elements from one lane's slice to the next's,
+// 0 for an input that every lane shares; outputs are dense [L, ...].
+struct LaneStrides {
+  long long u1, u2, c1, c2, extra, logb, sig2, gbar;
+};
+
+// The strides from the entry point's array (n of them, in the order of the
+// struct; gbar 0 when n is 7); false when one is negative.
+inline bool read_lanes(LaneStrides* s, const long long* src, int n) {
+  long long v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int k = 0; k < n; ++k) {
+    if (src[k] < 0) return false;
+    v[k] = src[k];
+  }
+  *s = LaneStrides{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]};
+  return true;
+}
+
 // Depth bucket: exact templates for P <= 8 keep e_1..e_P in registers with
 // compile-time indices; above 8 one variant per bucket takes a runtime P.
 constexpr int depth_bucket(int P) {

@@ -328,8 +328,11 @@ class oak_model:
         does nothing, the port is eager), 'adam' or 'natgrad' (SVGP only).
 
         ``restarts > 0`` runs that many jittered starts (``optim.multistart``)
-        and keeps the best accepted fit; with L-BFGS every start first takes
-        300 Adam steps at lr 2e-2, as an SVGP's single start does. A single
+        as one batched program, every step evaluating all lanes in one
+        ``torch.func.vmap`` (the fused gram's kernels launched once for all
+        of them), and keeps the best accepted fit; with L-BFGS every start
+        first takes 300 Adam steps at lr 2e-2, as an SVGP's single start
+        does. A single
         L-BFGS fit that lands in the all-noise optimum or a numerically broken
         state is retried from the untrained parameters by a 2-start
         multistart, and the better fit kept.

@@ -22,21 +22,25 @@ registered op ``torch.ops.oak_tpu_torch.oak_gram_fwd``, so that
 ``torch.export`` traces it (its fake returns the [N, M] output) and an
 exported predict launches the same kernel as a live one; the op's CPU
 implementation is the plain version. When a gradient is taken the op runs
-inside ``FusedGram``, a ``torch.autograd.Function`` whose backward launches
-``csrc/oak_gram_bwd.cu``. A CUDA input launches a kernel or raises; nothing
-falls back. The forward saves only the prescaled inputs, and the backward
-recomputes the per-dim grams (``oak_tpu`` measured that storing the
-[D, N, M] grams loses, oak_gram_pallas.py:523-535).
+inside ``FusedGram``, a ``torch.autograd.Function`` whose backward is the
+registered op ``torch.ops.oak_tpu_torch.oak_gram_bwd`` (``csrc/oak_gram_bwd.cu``).
+Both ops have a ``torch.func.vmap`` rule: the lanes of a multistart, vmapped
+over the loss, run each kernel once for all of them, through the kernels'
+lane axis (as ``jax.vmap`` prepends a grid axis to a ``pallas_call``). A CUDA
+input launches a kernel or raises; nothing falls back. The forward saves
+only the prescaled inputs, and the backward recomputes the per-dim grams
+(``oak_tpu`` measured that storing the [D, N, M] grams loses,
+oak_gram_pallas.py:523-535).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .. import _build
 from .newton_girard import newton_girard
@@ -137,18 +141,22 @@ def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
 
 def oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
     """The same computation in plain torch, in any dtype, with autograd.
-    The CPU route, and the version the CUDA kernel is checked against."""
+    The CPU route, and the version the CUDA kernel is checked against.
+    Inputs may carry leading lane axes, which broadcast (the ops' CPU vmap
+    rules run it once over [lanes, ...] inputs)."""
 
     def grams():
-        for d in range(u1.shape[0]):
-            du = u1[d, :, None] - u2[d, None, :]
-            yield torch.exp(logb[d] - du * du) - c1[d, :, None] * c2[d, None, :]
-        yield from extra
+        for d in range(u1.shape[-2]):
+            du = u1[..., d, :, None] - u2[..., d, None, :]
+            yield (torch.exp(logb[..., d, None, None] - du * du)
+                   - c1[..., d, :, None] * c2[..., d, None, :])
+        for k in range(extra.shape[-3]):
+            yield extra[..., k, :, :]
 
     e = newton_girard(grams(), depth)
-    out = sig2[0] * e[0]
+    out = sig2[..., 0, None, None] * e[0]
     for n in range(1, depth + 1):
-        out = out + sig2[n] * e[n]
+        out = out + sig2[..., n, None, None] * e[n]
     return out
 
 
@@ -169,39 +177,42 @@ def oak_gram_bwd_plain(u1, u2, c1, c2, extra, logb, sig2, gbar,
     du1 = −2 Σ_j T·bE·Δu, du2 = 2 Σ_i T·bE·Δu, dc1 = −Σ_j T·c2,
     dc2 = −Σ_i T·c1, dlogb = Σ T·bE, the extra grams dextra = T, and
     dsig2_n = Σ gbar·e_n (oak_gram_pallas.py:158-237 and ``_res_bwd``).
-    Needs at least one RBF-form dim, as the fused route does."""
-    D = u1.shape[0]
+    Needs at least one RBF-form dim, as the fused route does. Inputs may
+    carry leading lane axes, as in ``oak_gram_plain``, all of the same
+    length."""
+    D = u1.shape[-2]
     bEs, grams = [], []
     for d in range(D):
-        du = u1[d, :, None] - u2[d, None, :]
-        bEs.append(torch.exp(logb[d] - du * du))
-        grams.append(bEs[d] - c1[d, :, None] * c2[d, None, :])
-    grams.extend(extra)
+        du = u1[..., d, :, None] - u2[..., d, None, :]
+        bEs.append(torch.exp(logb[..., d, None, None] - du * du))
+        grams.append(bEs[d] - c1[..., d, :, None] * c2[..., d, None, :])
+    grams.extend(extra[..., k, :, :] for k in range(extra.shape[-3]))
     e = newton_girard(grams, depth)
-    dsig2 = torch.stack([torch.sum(gbar * e[n]) for n in range(depth + 1)])
+    dsig2 = torch.stack([torch.sum(gbar * e[n], dim=(-2, -1)) for n in range(depth + 1)],
+                        dim=-1)
 
     def T_of(g):
         h = e[0]
-        W = sig2[1] * e[0]
+        W = sig2[..., 1, None, None] * e[0]
         for k in range(1, depth):
             h = e[k] - g * h
-            W = W + sig2[k + 1] * h
+            W = W + sig2[..., k + 1, None, None] * h
         return gbar * W
 
     du1, du2, dc1, dc2, dlogb = [], [], [], [], []
     for d in range(D):
         T = T_of(grams[d])
         TbE = T * bEs[d]
-        TbEdu = TbE * (u1[d, :, None] - u2[d, None, :])
-        du1.append(-2.0 * TbEdu.sum(1))
-        du2.append(2.0 * TbEdu.sum(0))
-        dc1.append(-(T * c2[d, None, :]).sum(1))
-        dc2.append(-(T * c1[d, :, None]).sum(0))
-        dlogb.append(TbE.sum())
-    dextra = (torch.stack([T_of(g) for g in grams[D:]]) if extra.shape[0]
+        TbEdu = TbE * (u1[..., d, :, None] - u2[..., d, None, :])
+        du1.append(-2.0 * TbEdu.sum(-1))
+        du2.append(2.0 * TbEdu.sum(-2))
+        dc1.append(-(T * c2[..., d, None, :]).sum(-1))
+        dc2.append(-(T * c1[..., d, :, None]).sum(-2))
+        dlogb.append(TbE.sum(dim=(-2, -1)))
+    dextra = (torch.stack([T_of(g) for g in grams[D:]], dim=-3) if extra.shape[-3]
               else torch.zeros_like(extra))
-    return (torch.stack(du1), torch.stack(du2), torch.stack(dc1), torch.stack(dc2),
-            dextra, torch.stack(dlogb), dsig2)
+    return (torch.stack(du1, dim=-2), torch.stack(du2, dim=-2), torch.stack(dc1, dim=-2),
+            torch.stack(dc2, dim=-2), dextra, torch.stack(dlogb, dim=-1), dsig2)
 
 
 def supports_fused(oak) -> bool:
@@ -222,11 +233,17 @@ def supports_fused(oak) -> bool:
     return known and n_rbf > 0
 
 
-def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int,
-                       gbar: Optional[torch.Tensor] = None) -> None:
-    named = dict(u1=u1, u2=u2, c1=c1, c2=c2, extra=extra, logb=logb, sig2=sig2)
-    if gbar is not None:
-        named["gbar"] = gbar
+_NAMES = ("u1", "u2", "c1", "c2", "extra", "logb", "sig2", "gbar")
+
+
+def _check_cuda_inputs(inputs: Sequence[torch.Tensor], depth: int, lanes: int = 0,
+                       batched: Sequence[bool] = ()) -> List[int]:
+    """Checks the kernels' inputs (u1, u2, c1, c2, extra, logb, sig2[, gbar])
+    and returns each one's lane stride. With ``lanes`` > 0 the inputs marked
+    in ``batched`` carry a leading lane axis of that length (a lane-batched
+    launch), the others are shared by every lane (stride 0)."""
+    named = dict(zip(_NAMES, inputs))
+    lane_of = dict(zip(_NAMES, batched if lanes else [False] * len(inputs)))
     for name, t in named.items():
         if not t.is_cuda:
             raise ValueError(f"oak_gram_fused: {name} is on {t.device}, the "
@@ -236,23 +253,29 @@ def _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth: int,
                             "kernel takes float32")
         if not t.is_contiguous():
             raise ValueError(f"oak_gram_fused: {name} is not contiguous")
+        if lane_of[name] and (t.dim() == 0 or t.shape[0] != lanes):
+            raise ValueError(f"oak_gram_fused: {name} has shape {tuple(t.shape)}, "
+                             f"expected {lanes} lanes first")
     if len({t.device for t in named.values()}) != 1:
         raise ValueError("oak_gram_fused: inputs lie on different devices")
-    if u1.dim() != 2 or u2.dim() != 2:
+    shape = {name: tuple(t.shape[1:] if lane_of[name] else t.shape)
+             for name, t in named.items()}
+    if len(shape["u1"]) != 2 or len(shape["u2"]) != 2:
         raise ValueError("oak_gram_fused: u1 and u2 must be 2-D [D, N], [D, M]")
-    D, N = u1.shape
-    M = u2.shape[1]
-    E = extra.shape[0] if extra.dim() == 3 else -1
+    D, N = shape["u1"]
+    M = shape["u2"][1]
+    E = shape["extra"][0] if len(shape["extra"]) == 3 else -1
     if depth < 1 or clamped_depth(depth, D, max(E, 0)) > MAX_DEPTH:
         raise ValueError(f"oak_gram_fused: depth {depth} over {D} + {max(E, 0)} grams; "
                          f"the CUDA kernels take depths 1.. with min(depth, grams) "
                          f"<= {MAX_DEPTH}")
     expected = dict(u2=(D, M), c1=(D, N), c2=(D, M), extra=(E, N, M),
                     logb=(D,), sig2=(depth + 1,), gbar=(N, M))
-    for name, t in named.items():
-        if name in expected and tuple(t.shape) != expected[name]:
+    for name in named:
+        if name in expected and shape[name] != expected[name]:
             raise ValueError(f"oak_gram_fused: {name} has shape "
-                             f"{tuple(t.shape)}, expected {expected[name]}")
+                             f"{shape[name]}, expected {expected[name]}")
+    return [math.prod(shape[name]) if lane_of[name] else 0 for name in named]
 
 
 def clamped_depth(depth: int, D: int, E: int) -> int:
@@ -261,12 +284,13 @@ def clamped_depth(depth: int, D: int, E: int) -> int:
     return max(1, min(depth, D + E))
 
 
-def pick_tile(N: int, M: int, tiles: Sequence[Tuple[int, int]], sms: int) -> int:
+def pick_tile(N: int, M: int, tiles: Sequence[Tuple[int, int]], sms: int,
+              lanes: int = 1) -> int:
     """Index into ``tiles`` ((rows, columns) per block, largest first) of the
-    first tile whose grid over an [N, M] output has at least ``sms`` blocks,
-    so that every SM gets one; the last (smallest) when none has."""
+    first tile whose grid over ``lanes`` [N, M] outputs has at least ``sms``
+    blocks, so that every SM gets one; the last (smallest) when none has."""
     for k, (bn, bm) in enumerate(tiles):
-        if -(-N // bn) * -(-M // bm) >= sms:
+        if lanes * -(-N // bn) * -(-M // bm) >= sms:
             return k
     return len(tiles) - 1
 
@@ -291,31 +315,42 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _variant(entry: str, P: int, N: int, M: int, device: torch.device) -> int:
-    return pick_tile(N, M, _tiles(entry, P), _sm_count(device))
+def _variant(entry: str, P: int, N: int, M: int, device: torch.device,
+             lanes: int = 1) -> int:
+    return pick_tile(N, M, _tiles(entry, P), _sm_count(device), lanes)
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tensor:
-    """``oak_gram_fwd_f32`` on inputs ``_check_cuda_inputs`` accepted, at
-    the clamped depth and the tile ``pick_tile`` chooses."""
+def _strides(strides: Sequence[int]):
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _launch_fwd(inputs: Sequence[torch.Tensor], depth: int, lanes: int = 0,
+                batched: Sequence[bool] = ()) -> torch.Tensor:
+    """``oak_gram_fwd_f32`` at the clamped depth and the tile ``pick_tile``
+    chooses, after ``_check_cuda_inputs``: the gram [N, M], or with
+    ``lanes`` > 0 the lane-batched grams [lanes, N, M] in one launch."""
     global LAUNCHES
-    D, N = u1.shape
-    M, E = u2.shape[1], extra.shape[0]
-    out = torch.empty((N, M), dtype=torch.float32, device=u1.device)
+    strides = _check_cuda_inputs(inputs, depth, lanes, batched)
+    u1, u2, c1, c2, extra, logb, sig2 = inputs
+    (D, N), M = u1.shape[-2:], u2.shape[-1]
+    E = extra.shape[-3]
+    L = max(lanes, 1)
+    out = torch.empty(((lanes,) if lanes else ()) + (N, M), dtype=torch.float32,
+                      device=u1.device)
     if N == 0 or M == 0:
         return out
     P = clamped_depth(depth, D, E)
-    variant = _variant("oak_gram_fwd_tile", P, N, M, u1.device)
+    variant = _variant("oak_gram_fwd_tile", P, N, M, u1.device, L)
     lib = _build.library()
     with torch.cuda.device(u1.device):
         rc = lib.oak_gram_fwd_f32(
             u1.data_ptr(), u2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             extra.data_ptr(), logb.data_ptr(), sig2.data_ptr(), out.data_ptr(),
-            D, N, M, E, P, variant, _stream(u1))
+            D, N, M, E, P, variant, L, _strides(strides), _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_fwd_f32 launch failed with cudaError {rc}")
     LAUNCHES += 1
@@ -329,9 +364,10 @@ def oak_gram_fwd_op(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor,
                     sig2: torch.Tensor, depth: int) -> torch.Tensor:
     """The gram [N, M] as a registered op: on CUDA tensors the forward
     kernel (checked, then launched; ``LAUNCHES`` counts it), on CPU tensors
-    ``oak_gram_plain``. No autograd of its own: ``FusedGram`` gives it one."""
-    _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth)
-    return _launch_fwd(u1, u2, c1, c2, extra, logb, sig2, depth)
+    ``oak_gram_plain``. No autograd of its own: ``FusedGram`` gives it one.
+    Under ``torch.func.vmap`` its rule launches the kernel once for every
+    lane."""
+    return _launch_fwd((u1, u2, c1, c2, extra, logb, sig2), depth)
 
 
 @oak_gram_fwd_op.register_kernel("cpu")
@@ -344,44 +380,114 @@ def _oak_gram_fwd_fake(u1, u2, c1, c2, extra, logb, sig2, depth):
     return u1.new_empty((u1.shape[1], u2.shape[1]))
 
 
-def _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
-                with_dextra: bool) -> Grads:
-    """``oak_gram_bwd_f32`` on inputs ``_check_cuda_inputs`` accepted: the
-    tile kernel writes per-tile partials into a workspace whose size the
-    library reports, and its second kernel sums them in a fixed order."""
+def _lanes_first(inputs, in_dims, lanes: int = 0):
+    """The batched inputs with their lane axis moved first, contiguous; the
+    others as given, or, with ``lanes``, expanded to that many (a view)."""
+    return tuple((t.expand(lanes, *t.shape) if lanes else t) if d is None
+                 else t.movedim(d, 0).contiguous() for t, d in zip(inputs, in_dims))
+
+
+@oak_gram_fwd_op.register_vmap
+def _oak_gram_fwd_vmap(info, in_dims, u1, u2, c1, c2, extra, logb, sig2, depth):
+    """The lanes' grams [lanes, N, M]: one lane-batched launch of the
+    forward kernel on CUDA, the plain version over the lane axis (one call)
+    on the CPU."""
+    inputs, dims = (u1, u2, c1, c2, extra, logb, sig2), tuple(in_dims[:7])
+    if not any(t.is_cuda for t in inputs):
+        return oak_gram_plain(*_lanes_first(inputs, dims, info.batch_size), depth), 0
+    return _launch_fwd(_lanes_first(inputs, dims), depth, info.batch_size,
+                       [d is not None for d in dims]), 0
+
+
+def _launch_bwd(inputs: Sequence[torch.Tensor], depth: int, with_dextra: bool,
+                lanes: int = 0, batched: Sequence[bool] = ()) -> Grads:
+    """``oak_gram_bwd_f32`` after ``_check_cuda_inputs``: the tile kernel
+    writes per-tile partials into a workspace whose size the library
+    reports, and its second kernel sums them in a fixed order. With
+    ``lanes`` > 0 every cotangent carries a leading lane axis, all lanes in
+    one launch. dextra is an empty placeholder without ``with_dextra``."""
     global BWD_LAUNCHES
-    D, N = u1.shape
-    M, E = u2.shape[1], extra.shape[0]
-    dextra = torch.empty_like(extra) if with_dextra else None
-    if N == 0 or M == 0:
-        return (torch.zeros_like(u1), torch.zeros_like(u2), torch.zeros_like(c1),
-                torch.zeros_like(c2), None if dextra is None else dextra.zero_(),
-                torch.zeros_like(logb), torch.zeros_like(sig2))
-    P = clamped_depth(depth, D, E)
-    variant = _variant("oak_gram_bwd_tile", P, N, M, u1.device)
-    lib = _build.library()
-    floats = lib.oak_gram_bwd_workspace(D, N, M, P, variant)
-    if floats < 0:
-        raise RuntimeError(f"oak_gram_bwd_workspace refused depth {P}")
+    strides = _check_cuda_inputs(inputs, depth, lanes, batched)
+    u1, u2, c1, c2, extra, logb, sig2, gbar = inputs
+    (D, N), M = u1.shape[-2:], u2.shape[-1]
+    E = extra.shape[-3]
+    L = max(lanes, 1)
+    lead = (lanes,) if lanes else ()
     kw = dict(dtype=torch.float32, device=u1.device)
+    dextra = (torch.empty(lead + (E, N, M), **kw) if with_dextra
+              else torch.empty((0,), **kw))
+    if N == 0 or M == 0:
+        zeros = [torch.zeros(lead + shape, **kw)
+                 for shape in ((D, N), (D, M), (D, N), (D, M))]
+        return (*zeros, dextra.zero_(), torch.zeros(lead + (D,), **kw),
+                torch.zeros(lead + (depth + 1,), **kw))
+    P = clamped_depth(depth, D, E)
+    variant = _variant("oak_gram_bwd_tile", P, N, M, u1.device, L)
+    lib = _build.library()
+    floats = lib.oak_gram_bwd_workspace(D, N, M, P, variant, L)
+    if floats < 0:
+        raise RuntimeError(f"oak_gram_bwd_workspace refused depth {P}, {L} lanes")
     work = torch.empty((floats,), **kw)
-    du1, dc1 = torch.empty((D, N), **kw), torch.empty((D, N), **kw)
-    du2, dc2 = torch.empty((D, M), **kw), torch.empty((D, M), **kw)
-    dlogb = torch.empty((D,), **kw)
-    # orders above the clamped depth have e_n = 0, so their cotangent is 0
-    dsig2 = (torch.empty if P == depth else torch.zeros)((depth + 1,), **kw)
+    du1, dc1 = torch.empty(lead + (D, N), **kw), torch.empty(lead + (D, N), **kw)
+    du2, dc2 = torch.empty(lead + (D, M), **kw), torch.empty(lead + (D, M), **kw)
+    dlogb = torch.empty(lead + (D,), **kw)
+    dsig2 = torch.empty(lead + (P + 1,), **kw)
     with torch.cuda.device(u1.device):
         rc = lib.oak_gram_bwd_f32(
             u1.data_ptr(), u2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             extra.data_ptr(), logb.data_ptr(), sig2.data_ptr(), gbar.data_ptr(),
             work.data_ptr(), du1.data_ptr(), dc1.data_ptr(), du2.data_ptr(),
             dc2.data_ptr(), dlogb.data_ptr(), dsig2.data_ptr(),
-            None if dextra is None else dextra.data_ptr(),
-            D, N, M, E, P, variant, _stream(u1))
+            dextra.data_ptr() if with_dextra else None,
+            D, N, M, E, P, variant, L, _strides(strides), _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_bwd_f32 launch failed with cudaError {rc}")
     BWD_LAUNCHES += 1
+    if P < depth:
+        # orders above the clamped depth have e_n = 0, so their cotangent is 0
+        dsig2 = torch.nn.functional.pad(dsig2, (0, depth - P))
     return du1, du2, dc1, dc2, dextra, dlogb, dsig2
+
+
+@torch.library.custom_op("oak_tpu_torch::oak_gram_bwd", mutates_args=(),
+                         device_types="cuda")
+def oak_gram_bwd_op(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor,
+                    c2: torch.Tensor, extra: torch.Tensor, logb: torch.Tensor,
+                    sig2: torch.Tensor, gbar: torch.Tensor, depth: int,
+                    with_dextra: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                torch.Tensor, torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The cotangents (du1, du2, dc1, dc2, dextra, dlogb, dsig2) of the gram
+    for ``gbar`` as a registered op: on CUDA tensors the backward kernel
+    (``BWD_LAUNCHES`` counts it), on CPU tensors ``oak_gram_bwd_plain``;
+    dextra is an empty placeholder without ``with_dextra``. Under
+    ``torch.func.vmap`` its rule launches the kernel once for every lane."""
+    return _launch_bwd((u1, u2, c1, c2, extra, logb, sig2, gbar), depth, with_dextra)
+
+
+def _bwd_plain(u1, u2, c1, c2, extra, logb, sig2, gbar, depth, with_dextra):
+    grads = oak_gram_bwd_plain(u1, u2, c1, c2, extra, logb, sig2, gbar, depth)
+    return grads if with_dextra else grads[:4] + (extra.new_empty((0,)),) + grads[5:]
+
+
+@oak_gram_bwd_op.register_kernel("cpu")
+def _oak_gram_bwd_cpu(u1, u2, c1, c2, extra, logb, sig2, gbar, depth, with_dextra):
+    return _bwd_plain(u1, u2, c1, c2, extra, logb, sig2, gbar, depth, with_dextra)
+
+
+@oak_gram_bwd_op.register_vmap
+def _oak_gram_bwd_vmap(info, in_dims, u1, u2, c1, c2, extra, logb, sig2, gbar, depth,
+                       with_dextra):
+    """The lanes' cotangents, each [lanes, ...]: one lane-batched launch of
+    the backward kernel on CUDA, the plain version over the lane axis (one
+    call) on the CPU."""
+    inputs, dims = (u1, u2, c1, c2, extra, logb, sig2, gbar), tuple(in_dims[:8])
+    out_dims = (0, 0, 0, 0, 0 if with_dextra else None, 0, 0)
+    if not any(t.is_cuda for t in inputs):
+        return _bwd_plain(*_lanes_first(inputs, dims, info.batch_size), depth,
+                          with_dextra), out_dims
+    return _launch_bwd(_lanes_first(inputs, dims), depth, with_dextra, info.batch_size,
+                       [d is not None for d in dims]), out_dims
 
 
 def oak_gram_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
@@ -390,16 +496,13 @@ def oak_gram_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth: int,
     for the output cotangent ``gbar`` [N, M]; dextra is None when
     ``with_dextra`` is False (it is [E, N, M]).
 
-    CPU tensors go to ``oak_gram_bwd_plain``. CUDA tensors launch
-    ``oak_gram_bwd_f32`` from ``csrc/oak_gram_bwd.cu``, or raise, under the
-    forward's conditions; gbar is made contiguous first."""
-    inputs = (u1, u2, c1, c2, extra, logb, sig2, gbar)
-    if not any(t.is_cuda for t in inputs):
-        grads = oak_gram_bwd_plain(*inputs, depth)
-        return grads if with_dextra else grads[:4] + (None,) + grads[5:]
-    gbar = gbar.contiguous()
-    _check_cuda_inputs(u1, u2, c1, c2, extra, logb, sig2, depth, gbar)
-    return _launch_bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth, with_dextra)
+    The registered op ``oak_gram_bwd_op``: CPU tensors go to
+    ``oak_gram_bwd_plain``. CUDA tensors launch ``oak_gram_bwd_f32`` from
+    ``csrc/oak_gram_bwd.cu``, or raise, under the forward's conditions;
+    gbar is made contiguous first."""
+    grads = oak_gram_bwd_op(u1, u2, c1, c2, extra, logb, sig2, gbar.contiguous(), depth,
+                            with_dextra)
+    return grads if with_dextra else grads[:4] + (None,) + grads[5:]
 
 
 class FusedGram(torch.autograd.Function):
@@ -407,21 +510,34 @@ class FusedGram(torch.autograd.Function):
     prescaled inputs, never the [D, N, M] grams, and the backward
     recomputes them (``oak_tpu``'s ``_gram_op``, oak_gram_pallas.py:497-569).
     The forward is the registered op (the forward kernel on CUDA), the
-    backward the backward kernel; on the CPU they are the two plain
-    versions."""
+    backward the registered backward op (the backward kernel); on the CPU
+    they are the two plain versions.
+
+    It composes with ``torch.func``: ``setup_context`` lets ``grad`` take
+    it, and under ``vmap`` the generated rule runs forward and backward on
+    the lane-batched tensors, so each op's own vmap rule launches its
+    kernel once for every lane. The backward is not differentiable
+    again."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, u1, u2, c1, c2, extra, logb, sig2, depth):
-        ctx.depth = depth
-        ctx.save_for_backward(u1, u2, c1, c2, extra, logb, sig2)
+    def forward(u1, u2, c1, c2, extra, logb, sig2, depth):
         return oak_gram_fwd_op(u1, u2, c1, c2, extra, logb, sig2, depth)
 
     @staticmethod
-    @once_differentiable
+    def setup_context(ctx, inputs, output):
+        *saved, depth = inputs
+        ctx.depth = depth
+        ctx.save_for_backward(*saved)
+
+    @staticmethod
     def backward(ctx, gbar):
         need = ctx.needs_input_grad[:7]
-        grads = oak_gram_bwd(*ctx.saved_tensors, gbar, ctx.depth,
-                             with_dextra=need[4])
+        # under no_grad the backward op runs below autograd (torch.func's
+        # grad runs backward with create_graph)
+        with torch.no_grad():
+            grads = oak_gram_bwd(*ctx.saved_tensors, gbar, ctx.depth, with_dextra=need[4])
         return tuple(g if n else None for g, n in zip(grads, need)) + (None,)
 
 
@@ -433,7 +549,8 @@ def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
     ``FusedGram`` when a gradient is taken (the backward kernel
     ``oak_gram_bwd_f32``), or raise. They must be float32, contiguous, on
     one device, of consistent shapes, with depth >= 1 and
-    ``clamped_depth(depth, D, E) <= MAX_DEPTH``."""
+    ``clamped_depth(depth, D, E) <= MAX_DEPTH``. Under ``torch.func.vmap``
+    over lanes each kernel launches once for all of them."""
     inputs = (u1, u2, c1, c2, extra, logb, sig2)
     if not any(t.is_cuda for t in inputs):
         return oak_gram_plain(*inputs, depth)

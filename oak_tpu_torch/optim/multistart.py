@@ -2,34 +2,38 @@
 initialisations of the trainable vector are each optimised, and the best
 accepted one is kept.
 
-``oak_tpu`` runs the lanes as one batched program (a vmapped L-BFGS, a
-batched Adam scan). Here the lanes run one after another, each as its own
-vector through ``params.call_with``, with the model left as it was until the
-end. The lanes are independent and Adam is elementwise, so every lane's
-trajectory and the selection are ``oak_tpu``'s. Running the lanes together
-through the fused gram kernels is ROADMAP perf work.
+The lanes run as one batched program, as ``oak_tpu``'s do: every step
+evaluates the loss and gradient of all of a rank's lanes in one
+``torch.func.vmap`` of ``grad_and_value`` over the flat trainable vector
+(``fit.LaneLoss``), so each op of the loss runs once for all lanes, and the
+fused gram's CUDA kernels launch once per gram through their lane axis.
+Adam is elementwise on [lanes, n]; L-BFGS is ``fit.lbfgs_lanes``, one
+definition over lanes whose linesearch takes each lane's branches on the
+host and evaluates the lanes still searching in one call, and whose
+stopped lanes stay frozen. The model is left as it was until the end, and
+every lane's trajectory and the selection are ``oak_tpu``'s.
 
 ``mesh=`` (a ``DeviceMesh``) shards the lanes: each of its ranks runs a
 contiguous block of them, and the lanes' vectors and losses are then
 gathered so that every rank picks the same best (``parallel``). A mesh of
 (restart, data) axes, whose ranks also shard each lane's data, is
-``parallel.fit_lbfgs_multistart_sharded``.
+``parallel.fit_lbfgs_multistart_sharded``; its loss has collectives inside,
+which cannot run under vmap, so its lanes are evaluated in turn.
 """
 
 from __future__ import annotations
 
 import copy
-import math
 import os
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..params import assign_trainable, call_with, flatten_trainable, unflatten_trainable
-from .fit import (FitResult, LBFGSState, _adam_step, adam, adam_best, lbfgs_parts,
-                  load_lbfgs_state, save_lbfgs_state, value_and_grad, writes_checkpoints)
-from .natgrad import natgrad_adam_step, warn_if_q_diag
+from ..params import assign_trainable, flatten_trainable
+from .fit import (FitResult, LaneLoss, LBFGSState, adam, adam_best, finite_or_zero,
+                  lbfgs_lanes, load_lbfgs_state, save_lbfgs_state, writes_checkpoints)
+from .natgrad import natgrad_lanes_step, warn_if_q_diag
 
 
 def _make_starts(vec0: torch.Tensor, n_starts: int, jitter: float, seed: int,
@@ -61,18 +65,18 @@ def _lanes(mesh, n_starts: int):
     return axis.rows(n_starts), axis
 
 
-def _gather_lanes(axis, n_starts: int, vecs: Sequence[torch.Tensor], *columns):
-    """Every lane's vector and numbers (one sequence per column) on every
-    rank of the lane axis, from each rank's block; as given without one."""
+def _gather_lanes(axis, n_starts: int, vecs: torch.Tensor, *columns):
+    """Every lane's vector [n_starts, n] and numbers (one sequence per
+    column) on every rank of the lane axis, from each rank's block; as
+    given without one."""
     if axis is None:
-        return (list(vecs), *[list(c) for c in columns])
-    v = torch.stack(list(vecs))
+        return (vecs, *[list(c) for c in columns])
     numbers = torch.as_tensor(np.asarray(columns, np.float64).reshape(len(columns), -1).T,
-                              device=v.device)
-    table = axis.gather_rows(torch.cat([v.double(), numbers], dim=1), n_starts)
-    n = v.shape[1]
+                              device=vecs.device)
+    table = axis.gather_rows(torch.cat([vecs.double(), numbers], dim=1), n_starts)
+    n = vecs.shape[1]
     cols = table[:, n:].cpu().numpy().T
-    return (list(table[:, :n].to(v.dtype)), *[list(c) for c in cols])
+    return (table[:, :n].to(vecs.dtype), *[list(c) for c in cols])
 
 
 def _any(axis, flag: bool, device) -> bool:
@@ -82,45 +86,42 @@ def _any(axis, flag: bool, device) -> bool:
     return bool(axis.all_reduce(torch.tensor([float(flag)], device=device)).item() > 0)
 
 
-def _pack_state(vec: torch.Tensor, state: LBFGSState, it: int) -> torch.Tensor:
-    scalars = [state.count, state.value, state.grad_sq, state.learning_rate, it]
-    return torch.cat([vec.double()] + [getattr(state, k).double().reshape(-1)
-                                      for k in LBFGSState._TENSORS]
-                     + [torch.tensor(scalars, dtype=torch.float64, device=vec.device)])
+def _pack_state(vecs: torch.Tensor, state: LBFGSState, its) -> torch.Tensor:
+    """Each lane's vector, L-BFGS state and iterations as one float64 row."""
+    scalars = np.stack([state.count, state.value, state.grad_sq, state.learning_rate,
+                        np.asarray(its)], axis=1).astype(np.float64)
+    R = vecs.shape[0]
+    return torch.cat([vecs.double()] + [getattr(state, k).double().reshape(R, -1)
+                                        for k in LBFGSState._TENSORS]
+                     + [torch.as_tensor(scalars, device=vecs.device)], dim=1)
 
 
-def _unpack_state(row: torch.Tensor, like: torch.Tensor, memory_size: int):
-    n = like.shape[0]
+def _unpack_state(table: torch.Tensor, like: torch.Tensor, memory_size: int):
+    R, n = table.shape[0], like.shape[0]
     sizes = [n, n, n, memory_size * n, memory_size * n, memory_size, n, 5]
-    vec, params, updates, S, Y, rho, grad, scalars = torch.split(row, sizes)
+    vecs, params, updates, S, Y, rho, grad, scalars = torch.split(table, sizes, dim=1)
     kw = dict(dtype=like.dtype)
-    count, value, grad_sq, lr, it = scalars.tolist()
-    state = LBFGSState(int(count), params.to(**kw), updates.to(**kw),
-                       S.view(memory_size, n).to(**kw), Y.view(memory_size, n).to(**kw),
-                       rho.to(**kw), value, grad.to(**kw), grad_sq, lr)
-    return vec.to(**kw), state, int(it)
+    count, value, grad_sq, lr, its = scalars.cpu().numpy().T
+    state = LBFGSState(count.astype(np.int64), params.to(**kw), updates.to(**kw),
+                       S.reshape(R, memory_size, n).to(**kw),
+                       Y.reshape(R, memory_size, n).to(**kw), rho.to(**kw), value.copy(),
+                       grad.to(**kw), grad_sq.copy(), lr.copy())
+    return vecs.to(**kw), state, its.astype(np.int64)
 
 
-def _gather_states(axis, n_starts: int, vecs, states, its, like: torch.Tensor,
+def _gather_states(axis, n_starts: int, vecs, state, its, like: torch.Tensor,
                    memory_size: int):
     """Every lane's (vector, L-BFGS state, iterations), for a checkpoint."""
     if axis is None:
-        return vecs, states, its
-    table = axis.gather_rows(torch.stack([_pack_state(v, s, i)
-                                          for v, s, i in zip(vecs, states, its)]), n_starts)
-    lanes = [_unpack_state(row, like, memory_size) for row in table]
-    return tuple(list(x) for x in zip(*lanes))
+        return vecs, state, its
+    table = axis.gather_rows(_pack_state(vecs, state, its), n_starts)
+    return _unpack_state(table, like, memory_size)
 
 
 def model_at(model, vec: torch.Tensor):
     """A copy of ``model`` holding the trainable vector ``vec``; ``model``
     is not touched."""
     return assign_trainable(copy.deepcopy(model), vec)
-
-
-@torch.no_grad()
-def _loss_at(model, loss_fn: Callable, vec: torch.Tensor) -> float:
-    return float(call_with(model, unflatten_trainable(model, vec), loss_fn))
 
 
 def _pick_best(vecs: Sequence[torch.Tensor], values: np.ndarray, model,
@@ -196,62 +197,66 @@ def fit_lbfgs_multistart(model, loss_fn: Callable, n_starts: int = 4, jitter: fl
     starts = _make_starts(vec0, n_starts, jitter, seed, include_init)
     lanes, axis = _lanes(mesh, n_starts)
     write = writes_checkpoints(loss_fn) and (axis is None or axis.is_first)
-
-    def value_and_grad_fn(v):
-        return value_and_grad(model, loss_fn, v)
-
-    init, run_range, _ = lbfgs_parts(value_and_grad_fn, tol, memory_size)
+    loss = LaneLoss(model, loss_fn)
+    init, run_range, _ = lbfgs_lanes(loss.value_and_grad, tol, memory_size)
     chunk = chunk_iters or 100
     limit = 0
     if checkpoint_path is not None and resume and os.path.exists(checkpoint_path):
-        vecs, states, its, limit = load_lbfgs_state(checkpoint_path, vec0)
-        vecs, states, its = vecs[lanes], states[lanes], its[lanes]
+        vecs, state, its, limit = load_lbfgs_state(checkpoint_path, vec0)
+        rows = np.arange(n_starts)[lanes]
+        vecs, state, its = vecs[lanes], state.take(rows), its[rows]
     else:
-        vecs: List[torch.Tensor] = [
-            adam_best(model, loss_fn, s, warm_adam_steps, warm_lr)[0]
-            if warm_adam_steps > 0 else s for s in starts[lanes]]
-        states: List[LBFGSState] = [init(v) for v in vecs]
-        its = [0] * len(vecs)
+        vecs = starts[lanes]
+        if warm_adam_steps > 0:
+            vecs = adam_best(loss, vecs, warm_adam_steps, warm_lr)[0]
+        state, its = init(vecs), np.zeros(vecs.shape[0], np.int64)
     while limit < max_iters:
         limit = min(limit + chunk, max_iters)
-        for k in range(len(vecs)):
-            vecs[k], states[k], its[k] = run_range(vecs[k], states[k], its[k], limit)
+        vecs, state, its = run_range(vecs, state, its, limit)
         if checkpoint_path is not None:
-            every = _gather_states(axis, n_starts, vecs, states, its, vec0, memory_size)
+            every = _gather_states(axis, n_starts, vecs, state, its, vec0, memory_size)
             if write:
                 save_lbfgs_state(checkpoint_path, *every, limit)
         # a lane stopped below the limit has converged and stays stopped
-        if not _any(axis, any(it >= limit for it in its), vec0.device):
+        if not _any(axis, bool((its >= limit).any()), vec0.device):
             break
 
-    # the loss OF each returned vector, not the state's last accepted value,
-    # which stays finite when a lane's last update poisoned its vector
-    values = [_loss_at(model, loss_fn, v) if bool(torch.isfinite(v).all()) else np.inf
-              for v in vecs]
     vecs, values, gnorms, its = _gather_lanes(
-        axis, n_starts, vecs, values, [math.sqrt(s.grad_sq) for s in states], its)
+        axis, n_starts, vecs, _final_losses(loss, vecs), np.sqrt(state.grad_sq), its)
     return _finish_multistart(vecs, values, model, accept_fn, "", [int(i) for i in its],
                               gnorms=gnorms, tol=tol)
+
+
+def _final_losses(loss: LaneLoss, vecs: torch.Tensor) -> np.ndarray:
+    """The loss OF each lane's returned vector, not the state's last
+    accepted value, which stays finite when a lane's last update poisoned
+    its vector: inf where the vector is not finite."""
+    finite = torch.isfinite(vecs).all(dim=1).cpu().numpy()
+    values = np.full(vecs.shape[0], np.inf)
+    rows = np.flatnonzero(finite)
+    if len(rows):
+        values[rows] = loss.values(vecs[torch.as_tensor(rows, device=vecs.device)]).cpu().numpy()
+    return values
 
 
 def fit_adam_multistart(model, loss_fn: Callable, n_starts: int = 4, jitter: float = 0.3,
                         seed: int = 0, steps: int = 1000, lr: float = 1e-2,
                         include_init: bool = True,
                         accept_fn: Optional[Callable] = None, mesh=None) -> FitResult:
-    """K jittered Adam runs (non-finite gradient entries set to 0); the
-    best accepted lane by the loss at its last iterate wins. ``mesh``: each
-    rank runs its block of lanes."""
+    """K jittered Adam runs (non-finite gradient entries set to 0), all of a
+    rank's lanes in one evaluation a step and one elementwise Adam on
+    [lanes, n]; the best accepted lane by the loss at its last iterate wins.
+    ``mesh``: each rank runs its block of lanes."""
     vec0 = flatten_trainable(model).detach()
     lanes, axis = _lanes(mesh, n_starts)
-    vecs, values = [], []
-    for s in _make_starts(vec0, n_starts, jitter, seed, include_init)[lanes]:
-        vec = s.clone().requires_grad_(True)
-        opt = adam(vec, lr)
-        for _ in range(steps):
-            _adam_step(model, loss_fn, vec, opt)
-        vecs.append(vec.detach())
-        values.append(_loss_at(model, loss_fn, vecs[-1]))
-    vecs, values = _gather_lanes(axis, n_starts, vecs, values)
+    loss = LaneLoss(model, loss_fn)
+    vecs = _make_starts(vec0, n_starts, jitter, seed, include_init)[lanes].clone().requires_grad_(True)
+    opt = adam(vecs, lr)
+    for _ in range(steps):
+        vecs.grad = finite_or_zero(loss.value_and_grad(vecs)[1])
+        opt.step()
+    vecs = vecs.detach()
+    vecs, values = _gather_lanes(axis, n_starts, vecs, loss.values(vecs).cpu().numpy())
     return _finish_multistart(vecs, values, model, accept_fn, "adam", steps)
 
 
@@ -261,21 +266,20 @@ def fit_natgrad_multistart(model, loss_fn: Callable, n_starts: int = 4,
                            include_init: bool = True,
                            accept_fn: Optional[Callable] = None, mesh=None,
                            staggered: bool = False) -> FitResult:
-    """K jittered natgrad + Adam runs through ``natgrad.natgrad_adam_step``,
-    the update the single-start optimisers run; the best accepted lane by
-    the loss at its last iterate wins. ``mesh``: each rank runs its block
-    of lanes."""
+    """K jittered natgrad + Adam runs through ``natgrad.natgrad_lanes_step``,
+    the update the single-start optimisers run vmapped over the lanes: all
+    of a rank's lanes in one evaluation a step; the best accepted lane by
+    the loss at its last iterate wins. ``mesh``: each rank runs its block of
+    lanes."""
     warn_if_q_diag(model)
     vec0 = flatten_trainable(model).detach()
     lanes, axis = _lanes(mesh, n_starts)
-    vecs, values = [], []
-    for s in _make_starts(vec0, n_starts, jitter, seed, include_init)[lanes]:
-        vec = s.clone().requires_grad_(True)
-        step = natgrad_adam_step(adam(vec, hyper_lr), vec, model, loss_fn, gamma,
-                                 staggered=staggered)
-        for _ in range(steps):
-            step()
-        vecs.append(vec.detach())
-        values.append(_loss_at(model, loss_fn, vecs[-1]))
+    vecs = _make_starts(vec0, n_starts, jitter, seed, include_init)[lanes].clone().requires_grad_(True)
+    step = natgrad_lanes_step(adam(vecs, hyper_lr), vecs, model, loss_fn, gamma,
+                              staggered=staggered)
+    for _ in range(steps):
+        step()
+    vecs = vecs.detach()
+    values = LaneLoss(model, loss_fn).values(vecs).cpu().numpy()
     vecs, values = _gather_lanes(axis, n_starts, vecs, values)
     return _finish_multistart(vecs, values, model, accept_fn, "natgrad", steps)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.psd import chol_of_inv, cholesky_lower, tri_inv_lower
-from ..params import assign_trainable, unflatten_trainable
+from ..params import assign_trainable, call_with, unflatten_trainable
 from .fit import (FitResult, _leaf, _stack, adam, finite_or_zero, loss_and_grads,
                   scan_checkpoint_driver, writes_checkpoints)
 
@@ -172,6 +172,58 @@ def natgrad_adam_step(opt: torch.optim.Adam, vec: torch.Tensor, model,
         vec.grad = finite_or_zero(gvec)
         opt.step()
         return loss
+
+    return step
+
+
+def _natgrad_update(model, loss_fn: Callable, gamma: float, staggered: bool) -> Callable:
+    """``natgrad_adam_step``'s update of one vector in ``torch.func`` form,
+    for ``vmap`` over lanes: ``update(vec) -> (new vec, the hyperparameters'
+    gradient, loss)``, the gradients from ``torch.func.grad_and_value`` of
+    the loss as a function of the vector and q(u)'s expectation parameters
+    (whose q entries of the vector are overridden, so get zero gradient)."""
+    q_diag = model.q_diag
+
+    def loss_at(vec, e1, e2):
+        raws = {**unflatten_trainable(model, vec), **_q_raws(model, *_q_from_eta(e1, e2, q_diag))}
+        return call_with(model, raws, loss_fn)
+
+    def update(vec):
+        raws = unflatten_trainable(model, vec)
+        q = _q_values(model, raws)
+        e1, e2 = _eta_params(*q, q_diag)
+        if staggered:
+            (g1, g2), _ = torch.func.grad_and_value(loss_at, argnums=(1, 2))(vec, e1, e2)
+            q_new = _apply_natural_step(*q, q_diag, g1, g2, gamma)
+            new_vec = _replace_q(model, raws, *q_new)
+            q_raws = _q_raws(model, *q_new)
+            gvec, loss = torch.func.grad_and_value(
+                lambda v: call_with(model, {**unflatten_trainable(model, v), **q_raws},
+                                    loss_fn))(new_vec)
+        else:
+            (gvec, g1, g2), loss = torch.func.grad_and_value(loss_at, argnums=(0, 1, 2))(
+                vec, e1, e2)
+            new_vec = _replace_q(model, raws, *_apply_natural_step(*q, q_diag, g1, g2, gamma))
+        return new_vec, gvec, loss
+
+    return update
+
+
+def natgrad_lanes_step(opt: torch.optim.Adam, vecs: torch.Tensor, model, loss_fn: Callable,
+                       gamma: float, staggered: bool = False) -> Callable:
+    """``natgrad_adam_step`` for the lanes ``vecs`` [R, n] (the leaf ``opt``
+    holds), all of them in one ``torch.func.vmap`` of its update
+    (``oak_tpu``'s vmapped natgrad step, multistart.py:329), then one
+    elementwise Adam step on [R, n]. Returns ``step() -> losses [R]``."""
+    update = torch.func.vmap(_natgrad_update(model, loss_fn, gamma, staggered))
+
+    def step():
+        new_vecs, gvecs, losses = update(vecs.detach())
+        with torch.no_grad():
+            vecs.copy_(new_vecs)
+        vecs.grad = finite_or_zero(gvecs.detach())
+        opt.step()
+        return losses.detach()
 
     return step
 

@@ -256,8 +256,10 @@ def fit_lbfgs_multistart_sharded(model, mesh: DeviceMesh, X=None, Y=None,
     block run its lanes together, each on its rows; the lanes are then
     gathered over the restart axis, and every rank keeps the same best.
     Same lanes as the unsharded ``optim.fit_lbfgs_multistart`` up to
-    reduction order. Data as in ``fit_lbfgs_sharded``; no checkpointing on
-    this path."""
+    reduction order, through its lane-batched L-BFGS; the data-sharded loss
+    has collectives inside, which cannot run under ``vmap``, so each
+    evaluation takes the rank's lanes in turn. Data as in
+    ``fit_lbfgs_sharded``; no checkpointing on this path."""
     from ..optim.multistart import fit_lbfgs_multistart
 
     axes = list(mesh.mesh_dim_names or ())

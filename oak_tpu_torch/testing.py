@@ -65,3 +65,17 @@ def prescaled_inputs(seed: int, D: int, N: int, M: int, E: int, depth: int,
               np.zeros(D), np.array(sig2[:depth + 1]))
     return [torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
             for a in arrays]
+
+
+LANE_NAMES = ("u1", "u2", "c1", "c2", "extra", "logb", "sig2")
+
+
+def lane_inputs(seed: int, lanes: int, D: int, N: int, M: int, E: int, depth: int, device,
+                shared=()) -> List[torch.Tensor]:
+    """The inputs of ``lanes`` lanes of the fused gram, lane r being
+    ``prescaled_inputs(seed + r, ...)``, each stacked [lanes, ...], except
+    those named in ``shared`` (of ``LANE_NAMES``), which are lane 0's alone,
+    shared by every lane (vmap's in_dims None)."""
+    per_lane = [prescaled_inputs(seed + r, D, N, M, E, depth, device) for r in range(lanes)]
+    return [parts[0] if name in shared else torch.stack(parts)
+            for name, parts in zip(LANE_NAMES, zip(*per_lane))]

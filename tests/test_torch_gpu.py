@@ -563,3 +563,82 @@ def test_grouped_route_matches_the_per_dim_loop_on_the_card(cuda):
             if b.numel():
                 err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 assert err < (GRAD_TOL if i == len(grouped) - 2 else TOL), (i, err)
+
+
+# (name, D, N, M, E, depth, shared inputs): lanes through one launch of each kernel
+LANE_CASES = [("pumadyn Kuf 500x6553", 8, 500, 6553, 0, 8, ()),
+              ("mixed E=2 ragged", 30, 300, 77, 2, 3, ()),
+              ("shared u2, c2", 32, 512, 700, 0, 3, ("u2", "c2")),
+              ("deep P=12", 32, 300, 200, 0, 12, ("sig2",))]
+
+
+@pytest.mark.parametrize("name,D,N,M,E,depth,shared", LANE_CASES,
+                         ids=[c[0] for c in LANE_CASES])
+def test_lane_batched_kernels_match_one_lane_launches(cuda, name, D, N, M, E, depth, shared):
+    """K1 and K2 launched once for 4 lanes through the ops' vmap rules: each
+    lane bitwise equal to a one-lane launch where the batched launch takes
+    the same tile, and within the gates of the plain version either way."""
+    from oak_tpu_torch.testing import LANE_NAMES, lane_inputs
+
+    lanes = 4
+    inputs = lane_inputs(71, lanes, D, N, M, E, depth, cuda, shared=shared)
+    dims = tuple(None if n in shared else 0 for n in LANE_NAMES)
+    gbar = torch.as_tensor(np.random.default_rng(72).normal(size=(lanes, N, M)),
+                           dtype=torch.float32, device=cuda)
+    before = og.LAUNCHES, og.BWD_LAUNCHES
+    out = torch.vmap(og.oak_gram_fwd_op, in_dims=dims + (None,))(*inputs, depth)
+    grads = torch.vmap(lambda *a: og.oak_gram_bwd_op(*a, depth, True),
+                       in_dims=dims + (0,))(*inputs, gbar)
+    torch.cuda.synchronize()
+    assert (og.LAUNCHES, og.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    P = og.clamped_depth(depth, D, E)
+    same = [og._variant(e, P, N, M, cuda, lanes) == og._variant(e, P, N, M, cuda)
+            for e in ("oak_gram_fwd_tile", "oak_gram_bwd_tile")]
+    for r in range(lanes):
+        lane = [t if d is None else t[r] for t, d in zip(inputs, dims)]
+        one = og.oak_gram_fused(*lane, depth)
+        one_grads = og.oak_gram_bwd(*lane, gbar[r], depth)
+        if same[0]:
+            assert torch.equal(out[r], one)
+        ok, _, text = kernel_error(out[r], og.oak_gram_plain(*lane, depth),
+                                   og.oak_gram_plain(*[t.double() for t in lane], depth), TOL)
+        assert ok, text
+        plain = og.oak_gram_bwd_plain(*lane, gbar[r], depth)
+        plain64 = og.oak_gram_bwd_plain(*[t.double() for t in lane], gbar[r].double(), depth)
+        for gname, g, o, p, p64 in zip(NAMES, grads, one_grads, plain, plain64):
+            if same[1]:
+                assert torch.equal(g[r], o), gname
+            if p.numel():
+                ok, _, text = kernel_error(g[r], p, p64, GRAD_TOL)
+                assert ok, f"{gname}: {text}"
+
+
+def test_vmapped_gradient_launches_each_kernel_once_per_gram(cuda):
+    """The vmapped loss and gradient of 4 lanes of a float32 SVGP on the
+    card launch K1 and K2 as often as one lane's, and agree with the lanes
+    one by one."""
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.optim.multistart import _make_starts
+    from oak_tpu_torch.params import flatten_trainable
+
+    rng = np.random.default_rng(73)
+    X = torch.as_tensor(rng.normal(size=(600, 8)), dtype=torch.float32, device=cuda)
+    Y = torch.sin(X[:, :1]) + 0.1 * torch.as_tensor(rng.normal(size=(600, 1)),
+                                                    dtype=torch.float32, device=cuda)
+    model = SVGP.create(OAKKernel.create(num_dims=8, max_interaction_depth=3,
+                                         dtype=torch.float32, device=cuda),
+                        Gaussian.create(0.1, dtype=torch.float32, device=cuda), X[:50],
+                        num_data=600)
+    loss_fn = lambda m: m.training_loss(X, Y)  # noqa: E731
+    starts = _make_starts(flatten_trainable(model).detach(), 4, 0.3, 0, True)
+    before = og.LAUNCHES, og.BWD_LAUNCHES
+    fit.value_and_grad(model, loss_fn, starts[0])
+    one = og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1]
+    before = og.LAUNCHES, og.BWD_LAUNCHES
+    values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
+    torch.cuda.synchronize()
+    assert (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1]) == one and 0 not in one
+    for r in range(4):
+        v, g = fit.value_and_grad(model, loss_fn, starts[r])
+        assert abs(float(values[r] - v)) <= 1e-4 * abs(float(v))
+        assert float((grads[r] - g).abs().max()) <= GRAD_TOL * float(g.abs().max())

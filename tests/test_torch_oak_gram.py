@@ -235,7 +235,8 @@ def test_ctypes_signature_matches_kernel_source():
     source, against the argtypes the loader sets (nvcc cannot be asked
     here); and the kernels' depth limit, which the wrapper checks before a
     launch. The tile sizes and the workspace come from the library."""
-    assert [p.name for p in _build._sources()] == ["oak_gram_bwd.cu", "oak_gram_fwd.cu"]
+    assert [p.name for p in _build._sources()] == ["oak_gram_bwd.cu", "oak_gram_bwd_lanes.cu",
+                                                   "oak_gram_fwd.cu", "oak_gram_fwd_lanes.cu"]
     src = "".join(p.read_text() for p in _build._sources())
     ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
     for name, (argtypes, restype) in _build.SIGNATURES.items():
