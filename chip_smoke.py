@@ -101,9 +101,14 @@ non-zero before the result line:
    NCCL, worlds 2 and 4 on gloo (NCCL refuses two ranks on one card; the
    sharded functions' code is the same under both). The bench SVGP's
    (config 5) sharded loss and gradient, data-parallel Adam steps, sharded
-   predict_f and Sobol; phase 6's SGPR through fit_lbfgs_sharded and, at
-   world 4, a 2 x 2 (restart x data) fit_lbfgs_multistart_sharded; phase
-   7's GPR through the sharded Sobol (its peak memory per rank); oak_tpu's
+   predict_f and Sobol; at worlds 2 and 4 its fit_lbfgs_multistart_sharded
+   with 4 starts on a 1 x 2 and a 2 x 2 (restart x data) mesh (4 and 2
+   lanes a rank in one batched evaluation, two all-reduces each; checked
+   after the main path against the same lanes in turn, also for phase 6's
+   SGPR and, at world 2, phase 7's GPR: values, launches, all-reduces, host
+   and device ms, the fit's wall time); phase 6's SGPR through
+   fit_lbfgs_sharded; phase 7's GPR through the sharded Sobol (its peak
+   memory per rank); oak_tpu's
    committed heart fold 0 through oak_model.get_sobol(mesh=) and
    optimise_minibatch(mesh=) at worlds 1 and 2. All against the same
    models in one process on the card (gates in phase_parallel). The
@@ -1823,6 +1828,10 @@ def phase_surface(device):
 # world 1 (it refuses two ranks on one card), gloo at 2 and 4 ranks sharing it
 PAR_JOBS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 PAR_STEPS, PAR_LBFGS_ITERS, PAR_MS_ITERS = 5, 5, 3
+# the data-sharded multistart at worlds 2 and 4: starts, warm Adam steps, the
+# (restart, data) mesh of each world (4 and 2 lanes a rank), timing repeats
+PAR_MS_STARTS, PAR_MS_WARM, PAR_LANE_REPEATS = 4, 5, 5
+PAR_MS_MESH = {2: (1, 2), 4: (2, 2)}
 PAR_MB_BATCH, PAR_MB_STEPS = 64, 10
 PAR_LOSS_TOL, PAR_GRAD_TOL, PAR_PRED_TOL, PAR_SOBOL_TOL, PAR_FIT_TOL = (
     1e-5, 1e-4, 1e-5, 1e-5, 1e-3)
@@ -1882,8 +1891,12 @@ def _parallel_references(device):
 
     ref["lbfgs_fun"] = fit_lbfgs(build_sgpr_model(device), lambda m: m.training_loss(),
                                  max_iters=PAR_LBFGS_ITERS).fun
-    ref["ms_fun"] = fit_lbfgs_multistart(build_sgpr_model(device), lambda m: m.training_loss(),
-                                         n_starts=2, seed=0, max_iters=PAR_MS_ITERS).fun
+    t0 = time.perf_counter()
+    ref["ms_fun"] = fit_lbfgs_multistart(
+        build_model(device)[0], lambda m: m.training_loss(X, Y), n_starts=PAR_MS_STARTS,
+        seed=0, warm_adam_steps=PAR_MS_WARM, max_iters=PAR_MS_ITERS).fun
+    torch.cuda.synchronize()
+    ms["multistart"] = 1e3 * (time.perf_counter() - t0)
     gpr = build_gpr_model(device)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1906,14 +1919,156 @@ def _parallel_references(device):
     return ref, ms
 
 
+class _InTurn:
+    """A data-sharded loss seen without its lanes form: ``fit.LaneLoss``
+    then evaluates a rank's lanes one after another through
+    ``loss_and_grads``, two all-reduces each (the reference of phase 12's
+    batched evaluations and fits)."""
+
+    def __init__(self, loss):
+        self.loss = loss
+        self.loss_and_grads = loss.loss_and_grads
+        self.writes_checkpoints = loss.writes_checkpoints
+
+    def __call__(self, model, *args):
+        return self.loss(model, *args)
+
+
+@contextlib.contextmanager
+def _counted(owner, name):
+    """Counts the calls of ``owner.name`` within the block (``["calls"]``)."""
+    original, count = getattr(owner, name), {"calls": 0}
+
+    def counting(*args, **kw):
+        count["calls"] += 1
+        return original(*args, **kw)
+
+    setattr(owner, name, counting)
+    try:
+        yield count
+    finally:
+        setattr(owner, name, original)
+
+
+def _lanes_against_in_turn(model, loss, vecs):
+    """One warm evaluation of the lanes ``vecs`` of ``loss`` (a MeshLoss)
+    batched (``fit.LaneLoss``, its lanes form), in turn (``_InTurn``) and
+    one lane alone. Returns (the three evaluations, their (values [R],
+    gradients [R, n]), each one's K1 and K2 launches, all-reduces and
+    lanes-form calls)."""
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.parallel.mesh import Axis
+
+    evaluations = {"batched": lambda: fit.LaneLoss(model, loss).value_and_grad(vecs),
+                   "in turn": lambda: fit.LaneLoss(model, _InTurn(loss)).value_and_grad(vecs),
+                   "one lane": lambda: fit.LaneLoss(model, loss).value_and_grad(vecs[:1])}
+    counts, got = {}, {}
+    with _counted(Axis, "all_reduce") as reduces, \
+            _counted(type(loss), "lanes_value_and_grad") as form:
+        for label, fn in evaluations.items():
+            fn()
+            torch.cuda.synchronize()
+            before = (og.LAUNCHES, og.BWD_LAUNCHES, reduces["calls"], form["calls"])
+            got[label] = fn()
+            torch.cuda.synchronize()
+            counts[label] = [og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1],
+                             reduces["calls"] - before[2], form["calls"] - before[3]]
+    return evaluations, got, counts
+
+
+def _lane_errors(got, ref):
+    """[the worst lane's relative value error, its gradient error of max
+    |g|] of (values [R], gradients [R, n]) against ``ref``."""
+    (values, grads), (tv, tg) = ((t.double() for t in pair) for pair in (got, ref))
+    return [float(((values - tv).abs() / tv.abs()).max()),
+            float(((grads - tg).abs().amax(dim=1) / tg.abs().amax(dim=1)).max())]
+
+
+def _sharded_multistart(model, mesh2d, X, Y):
+    """fit_lbfgs_multistart_sharded of the bench SVGP (a copy of
+    ``model``): PAR_MS_STARTS starts over the mesh's restart axis, each
+    lane's rows over its data axis, PAR_MS_WARM warm Adam steps and
+    PAR_MS_ITERS L-BFGS iterations. Returns (the result, wall seconds)."""
+    import torch.distributed as dist
+
+    from oak_tpu_torch.parallel import sharding
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = sharding.fit_lbfgs_multistart_sharded(
+        copy.deepcopy(model), mesh2d, X, Y, n_starts=PAR_MS_STARTS, seed=0,
+        warm_adam_steps=PAR_MS_WARM, max_iters=PAR_MS_ITERS)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _rank_multistart(models, mesh2d, X, Y):
+    """A rank's checks of phase 12's data-sharded multistart, after the
+    main path's counts were read. For each model of ``models`` (name ->
+    (model, its mesh_loss's data arguments)): one warm evaluation of the
+    rank's lanes (PAR_MS_STARTS starts, the rank's rows of the restart
+    axis) batched against in turn and one lane (_lanes_against_in_turn),
+    gated at LANE_LOSS_TOL / LANE_GRAD_TOL; the GPR's f32 loss cancels in
+    its [N, N] Cholesky, so its gates follow phase 12's drift rule: at
+    least twice the lanes in turn's error against the same lanes of the
+    GPR in float64. For the SVGP each evaluation's kernel launches, host ms and
+    device ms too, then _sharded_multistart warm, batched and with the
+    lanes in turn, wall seconds each. Returns (values for rank<R>.npz,
+    numbers for rank<R>.json)."""
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.optim import multistart as ms
+    from oak_tpu_torch.parallel import sharding
+    from oak_tpu_torch.parallel.mesh import Axis
+    from oak_tpu_torch.params import flatten_trainable
+
+    data, restarts = Axis.of(mesh2d, "data"), Axis.of(mesh2d, "restart")
+    checks, timing = {}, {}
+    for name, (model, ext) in models.items():
+        vecs = ms._make_starts(flatten_trainable(model).detach(), PAR_MS_STARTS, 0.3, 0,
+                               True)[restarts.rows(PAR_MS_STARTS)]
+        evaluations, got, counts = _lanes_against_in_turn(
+            model, sharding.mesh_loss(model, data, *ext), vecs)
+        tols, drift = [LANE_LOSS_TOL, LANE_GRAD_TOL], None
+        if name == "gpr":
+            gpr64 = build_gpr_model(vecs.device, dtype=torch.float64)
+            drift = _lane_errors(got["in turn"], fit.LaneLoss(gpr64, _InTurn(
+                sharding.mesh_loss(gpr64, data))).value_and_grad(vecs.double()))
+            tols = [max(t, 2 * d) for t, d in zip(tols, drift)]
+            del gpr64
+        checks[name] = {"errors": _lane_errors(got["batched"], got["in turn"]), "tols": tols,
+                        "drift": drift, "counts": counts}
+        if name == "svgp":
+            for label, fn in evaluations.items():
+                launches, device_ms = _launches_device_ms(fn)
+                timing[label] = [launches, _host_ms(fn, PAR_LANE_REPEATS), device_ms]
+    model = models["svgp"][0]
+    _, batched_s = _sharded_multistart(model, mesh2d, X, Y)
+    make = sharding.mesh_loss
+    sharding.mesh_loss = lambda *a, **kw: _InTurn(make(*a, **kw))
+    try:
+        turn, turn_s = _sharded_multistart(model, mesh2d, X, Y)
+    finally:
+        sharding.mesh_loss = make
+    out = {"ms_turn_fun": turn.fun, "ms_turn_lanes": turn.losses.numpy()}
+    info = {"lanes": vecs.shape[0], "mesh": list(mesh2d.mesh.shape), "checks": checks,
+            "timing": timing, "fit_s": [batched_s, turn_s]}
+    return out, info
+
+
 def parallel_rank(rank, world, folder, backend):
     """One rank of a phase-12 job, on cuda:0: the multi-device main path
     through the user's entry points (make_mesh, data_parallel_elbo_step,
-    sharded_predict_f, compute_sobol_oak(mesh=), fit_lbfgs_sharded, the
-    2 x 2 fit_lbfgs_multistart_sharded at world 4, the GPR's sharded Sobol,
-    oak_model.optimise_minibatch(mesh=) and get_sobol(mesh=) at worlds 1
-    and 2), with the kernel counts set to 0 just before it and read just
-    after. Writes rank<R>.npz (values) and rank<R>.json (times, launches,
+    sharded_predict_f, compute_sobol_oak(mesh=), fit_lbfgs_sharded, at
+    worlds 2 and 4 the bench SVGP's fit_lbfgs_multistart_sharded on a
+    (restart, data) mesh of 4 and 2 lanes a rank (_sharded_multistart), the
+    GPR's sharded Sobol, oak_model.optimise_minibatch(mesh=) and
+    get_sobol(mesh=) at worlds 1 and 2), with the kernel counts set to 0
+    just before it and read just after; then, uncounted, the multistart's
+    checks (_rank_multistart: the SVGP's, the SGPR's and at world 2 the
+    GPR's lanes batched against in turn, the fit timed batched and in
+    turn). Writes rank<R>.npz (values) and rank<R>.json (times, launches,
     memory, the build)."""
     import os
 
@@ -1939,9 +2094,8 @@ def parallel_rank(rank, world, folder, backend):
     from oak_tpu_torch import sobol as sb
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.optim.fit import value_and_grad
-    from oak_tpu_torch.parallel import (data_parallel_elbo_step, fit_lbfgs_multistart_sharded,
-                                        fit_lbfgs_sharded, make_mesh, shard_batch,
-                                        sharded_predict_f)
+    from oak_tpu_torch.parallel import (data_parallel_elbo_step, fit_lbfgs_sharded, make_mesh,
+                                        shard_batch, sharded_predict_f)
     from oak_tpu_torch.parallel.mesh import Axis
     from oak_tpu_torch.parallel.sharding import mesh_loss
     from oak_tpu_torch.params import flatten_trainable
@@ -1951,8 +2105,8 @@ def parallel_rank(rank, world, folder, backend):
     X, Y = (torch.as_tensor(a, device=device) for a in (Xh, _bench_y()))
     sgpr, gpr = build_sgpr_model(device), build_gpr_model(device)
     heart = _heart(device) if world <= 2 else None
-    mesh2d = (init_device_mesh("cpu", (2, 2), mesh_dim_names=("restart", "data"))
-              if world == 4 else None)
+    mesh2d = (init_device_mesh("cpu", PAR_MS_MESH[world], mesh_dim_names=("restart", "data"))
+              if world in PAR_MS_MESH else None)
     out, ms = {}, {}
 
     def sync():
@@ -1986,11 +2140,9 @@ def parallel_rank(rank, world, folder, backend):
     out["lbfgs_fun"] = fit_lbfgs_sharded(sgpr, mesh, max_iters=PAR_LBFGS_ITERS).fun
     ms["lbfgs"] = 1e3 * (time.perf_counter() - t0)
     if mesh2d is not None:
-        t0 = time.perf_counter()
-        out["ms_fun"] = fit_lbfgs_multistart_sharded(build_sgpr_model(device), mesh2d,
-                                                     n_starts=2, seed=0,
-                                                     max_iters=PAR_MS_ITERS).fun
-        ms["multistart_2x2"] = 1e3 * (time.perf_counter() - t0)
+        res, seconds = _sharded_multistart(model, mesh2d, X, Y)
+        out["ms_fun"], out["ms_lanes"] = res.fun, res.losses.numpy()
+        ms["multistart"] = 1e3 * seconds
     sync()
     t0 = time.perf_counter()
     base = torch.cuda.memory_allocated()
@@ -2012,6 +2164,12 @@ def parallel_rank(rank, world, folder, backend):
     info["path_s"] = time.perf_counter() - t_path
     info["launches"] = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
     info["ms"] = ms
+    if mesh2d is not None:  # checks of the main path's multistart, uncounted
+        models = {"svgp": (model, (X, Y)), "sgpr": (sgpr, ())}
+        if world == 2:
+            models["gpr"] = (gpr, ())
+        ms_out, info["multistart"] = _rank_multistart(models, mesh2d, X, Y)
+        out.update(ms_out)
     np.savez(folder / f"rank{rank}.npz", **{k: np.asarray(v.detach().cpu() if isinstance(
         v, torch.Tensor) else v, np.float64) for k, v in out.items()})
     (folder / f"rank{rank}.json").write_text(json.dumps(info))
@@ -2066,7 +2224,8 @@ def _parallel_gates(world, backend, res, infos, ref):
     findings)."""
     r0 = res[0]
     for r, other in enumerate(res[1:], 1):
-        for k in ("loss", "grad", "mean", "svgp_sobol", "lbfgs_fun"):
+        for k in ("loss", "grad", "mean", "svgp_sobol", "lbfgs_fun") + (
+                ("ms_fun", "ms_lanes", "ms_turn_lanes") if "ms_fun" in r0 else ()):
             if not np.array_equal(other[k], r0[k]):
                 raise RuntimeError(f"phase 12 world {world}: rank {r}'s {k} differs from rank 0's")
     g_ref = ref["grad"].double().cpu().numpy()
@@ -2084,8 +2243,8 @@ def _parallel_gates(world, backend, res, infos, ref):
             "gpr_by_order": max(PAR_SOBOL_TOL, 2 * ref["gpr_by_order_drift"]),
             "lbfgs": PAR_FIT_TOL}
     if "ms_fun" in r0:
-        errs["multistart_2x2"] = abs(float(r0["ms_fun"]) - ref["ms_fun"]) / abs(ref["ms_fun"])
-        tols["multistart_2x2"] = PAR_FIT_TOL
+        errs["multistart"] = abs(float(r0["ms_fun"]) - ref["ms_fun"]) / abs(ref["ms_fun"])
+        tols["multistart"] = PAR_FIT_TOL
     if "heart_sobol" in r0:
         errs["heart_sobol"] = float(np.abs(r0["heart_sobol"] - ref["heart_sobol"]).max())
         errs["heart_minibatch"] = (abs(float(r0["heart_fun"]) - ref["heart_fun"])
@@ -2097,15 +2256,79 @@ def _parallel_gates(world, backend, res, infos, ref):
     return bad, ", ".join(f"{k} {v:.2e} (tol {tols[k]:.3g})" for k, v in errs.items())
 
 
+def _multistart_line(job, world, res, infos, card):
+    """Phase 12's data-sharded multistart at one world: the gates (for each
+    model, every rank's batched evaluation within its gates of the lanes
+    in turn (_rank_multistart), K1 and K2 once per gram as one
+    lane's evaluation, 2 all-reduces batched against 2R in turn, the lanes
+    form taken; the same best lane on every rank, checked in
+    _parallel_gates) and the line."""
+    ranks = [i["multistart"] for i in infos]
+    m0, R = ranks[0], ranks[0]["lanes"]
+    for r, m in enumerate(ranks):
+        for name, check in m["checks"].items():
+            (bf, bb, b_red, b_form), (tf, tb, t_red, _), (of, ob, o_red, _) = (
+                check["counts"][k] for k in ("batched", "in turn", "one lane"))
+            (v_err, g_err), (v_tol, g_tol) = check["errors"], check["tols"]
+            if not (v_err < v_tol and g_err < g_tol):
+                raise RuntimeError(f"phase 12 world {world} rank {r} {name}: batched vs in "
+                                   f"turn, value {v_err:.2e} (tol {v_tol:.3g}), gradient "
+                                   f"{g_err:.2e} (tol {g_tol:.3g}); in turn vs float64 "
+                                   f"{check['drift']}")
+            if ((bf, bb) != (of, ob) or 0 in (of, ob) or (tf, tb) != (R * of, R * ob)
+                    or (b_red, o_red, t_red, b_form) != (2, 2, 2 * R, 1)):
+                raise RuntimeError(f"phase 12 world {world} rank {r} {name}: launches K1, K2 "
+                                   f"and all-reduces {check['counts']} for {R} lanes")
+    lanes = res[0]["ms_lanes"]
+    turn = res[0]["ms_turn_lanes"]
+    fit_s = np.array([m["fit_s"] for m in ranks])
+    t = {k: m0["timing"][k] for k in ("batched", "in turn", "one lane")}
+
+    def check_text(name):
+        counts, tols, drift = (m0["checks"][name][k] for k in ("counts", "tols", "drift"))
+        return (f"worst rank value "
+                f"{max(m['checks'][name]['errors'][0] for m in ranks):.2e}, gradient "
+                f"{max(m['checks'][name]['errors'][1] for m in ranks):.2e} of max |g|"
+                + ("" if drift is None else
+                   f" (tol {tols[0]:.3g}, {tols[1]:.3g}: twice the lanes in turn's error "
+                   f"against float64, value {drift[0]:.2e}, gradient {drift[1]:.2e})")
+                + ", K1, K2 "
+                f"{counts['batched'][:2]} batched, {counts['in turn'][:2]} in turn, "
+                f"{counts['one lane'][:2]} one lane, all-reduces {counts['batched'][2]} vs "
+                f"{counts['in turn'][2]}")
+
+    return (
+        f"phase 12.{job}m world {world}, {R} lanes a rank on a {m0['mesh'][0]}x"
+        f"{m0['mesh'][1]} (restart x data) mesh [{card}]: a warm evaluation batched vs in "
+        f"turn (tol value {LANE_LOSS_TOL}, gradient {LANE_GRAD_TOL} unless stated), per "
+        f"evaluation: "
+        f"bench SVGP (N {N}, D {D}, M {M}) "
+        + check_text("svgp") + "; phase 6's SGPR " + check_text("sgpr")
+        + ("; phase 7's GPR " + check_text("gpr") if "gpr" in m0["checks"] else "")
+        + "; the SVGP's warm evaluation, rank 0: "
+        + ", ".join(f"{k} {n} kernel launches, host {h:.3f} ms (sync, median of "
+                    f"{PAR_LANE_REPEATS}), device {d:.3f} ms" for k, (n, h, d) in t.items())
+        + f" (host batched / one lane {t['batched'][1] / t['one lane'][1]:.2f}x, in turn "
+        f"{t['in turn'][1] / t['one lane'][1]:.2f}x); fit_lbfgs_multistart_sharded("
+        f"n_starts={PAR_MS_STARTS}, warm_adam_steps={PAR_MS_WARM}, max_iters={PAR_MS_ITERS}) "
+        f"warm, batched {fit_s[0, 0]:.3f} s rank 0 / {fit_s[:, 0].max():.3f} s max over "
+        f"ranks, in turn {fit_s[0, 1]:.3f} / {fit_s[:, 1].max():.3f} s "
+        f"({fit_s[:, 1].max() / fit_s[:, 0].max():.2f}x); the main path's best lane "
+        f"{int(np.argmin(lanes))} loss {float(res[0]['ms_fun']):.8g} on every rank (lanes "
+        + ", ".join(f"{v:.8g}" for v in lanes) + f"; in turn lane "
+        f"{int(np.argmin(turn))} {float(res[0]['ms_turn_fun']):.8g})")
+
+
 def phase_parallel(device):
     """Phase 12, the multi-device layer on one card.
 
     The references come first, in this process on the same card (float32):
     the bench SVGP's (config 5: N 8192, D 32, M 512, depth 3, seeded
     parameters) loss and gradient at the start, PAR_STEPS Adam steps timed,
-    predict_f over its 8192 rows, its full Sobol; phase 6's SGPR after
-    PAR_LBFGS_ITERS L-BFGS iterations and after a 2-start multistart of
-    PAR_MS_ITERS; phase 7's GPR (N 8192, D 8, depth 2) Sobol values and
+    predict_f over its 8192 rows, its full Sobol, a PAR_MS_STARTS-start
+    multistart (PAR_MS_WARM warm Adam steps, PAR_MS_ITERS L-BFGS
+    iterations); phase 6's SGPR after PAR_LBFGS_ITERS L-BFGS iterations;
+    phase 7's GPR (N 8192, D 8, depth 2) Sobol values and
     per-order totals with their peak memory; oak_tpu's committed heart fold 0
     (a Bernoulli SVGP) Sobol, then PAR_MB_STEPS minibatch steps. The GPR's
     per-order totals cancel in float32, so their gate is twice their
@@ -2113,10 +2336,19 @@ def phase_parallel(device):
     Then three jobs, one after another, each rank a process on cuda:0 (parallel_rank):
     world 1 on NCCL, world 2 on gloo (whose two ranks first build the
     kernels at once into an empty directory: one compiles, the other waits
-    on the file lock and loads the same library), world 4 on gloo (also the
-    2 x 2 (restart x data) multistart). Each job's ranks are joined within
-    PAR_JOB_TIMEOUT_S, and a rank's failure fails the phase. Gates, rank 0
-    against the references (every rank holds rank 0's bits): loss 1e-5
+    on the file lock and loads the same library), world 4 on gloo. Worlds 2
+    and 4 also run the bench SVGP's data-sharded multistart on a 1 x 2 and a
+    2 x 2 (restart x data) mesh, 4 and 2 lanes a rank, and after the main
+    path's counts were read its checks (_rank_multistart): a rank's lanes
+    of the bench SVGP, phase 6's SGPR and, at world 2, phase 7's GPR in one
+    batched evaluation against the same lanes in turn (LANE_LOSS_TOL /
+    LANE_GRAD_TOL; the GPR's by the drift rule against float64), K1 and K2
+    once per gram, 2 all-reduces against 2R,
+    then the SVGP's fit batched and in turn, timed (_multistart_line).
+    Each job's ranks are joined within PAR_JOB_TIMEOUT_S, and a rank's
+    failure fails the phase. Gates, rank 0
+    against the references (every rank holds rank 0's bits, the
+    multistart's best lane and every lane's loss too): loss 1e-5
     relative, gradient 1e-4 of max |g|, predictions 1e-5 of max |value|,
     normalised Sobol 1e-5, the fits' final losses 1e-3 relative. Then K1
     and K2 against their plain versions at the 2-rank shard's Kus
@@ -2128,10 +2360,13 @@ def phase_parallel(device):
     t0 = time.perf_counter()
     ref, ref_ms = _parallel_references(device)
     ref_s = time.perf_counter() - t0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
     launches = {"fwd": 0, "bwd": 0}
     lines, failed = [], []
     with tempfile.TemporaryDirectory() as tmp:
-        for world, backend in PAR_JOBS:
+        for job, (world, backend) in enumerate(PAR_JOBS, start=1):
             folder = Path(tmp) / f"world{world}"
             folder.mkdir()
             cold = Path(tmp) / "cold_build" if world == 2 else None
@@ -2158,13 +2393,13 @@ def phase_parallel(device):
                          f"on the lock and loaded the same library")
             m0 = infos[0]["ms"]
             lines.append(
-                f"phase 12.{len(lines) + 1} world {world} ({backend}, {job_s:.1f} s, main path "
+                f"phase 12.{job} world {world} ({backend}, {job_s:.1f} s, main path "
                 f"{infos[0]['path_s']:.1f} s): {gates}; data-parallel Adam step "
                 f"{m0['step']:.1f} ms, sharded predict_f of {N} rows {m0['predict']:.1f} ms, "
                 f"sharded Sobol {m0['sobol']:.1f} ms, fit_lbfgs_sharded {PAR_LBFGS_ITERS} "
                 f"iterations {m0['lbfgs']:.0f} ms"
-                + (f", 2x2 multistart {m0['multistart_2x2']:.0f} ms"
-                   if "multistart_2x2" in m0 else "")
+                + (f", data-sharded multistart {m0['multistart']:.0f} ms"
+                   if "multistart" in m0 else "")
                 + f", GPR Sobol and per-order totals {m0['gpr_sobol']:.0f} ms"
                 + (f", heart Sobol, {PAR_MB_STEPS} minibatch steps and Sobol {m0['heart']:.0f} ms"
                    if "heart" in m0 else "")
@@ -2172,9 +2407,12 @@ def phase_parallel(device):
                 f"GB, per-order totals {max(i['gpr_by_order_peak_gb'] for i in infos):.3f} GB; "
                 f"launches K1 {sum(i['launches']['fwd'] for i in infos)}, K2 "
                 f"{sum(i['launches']['bwd'] for i in infos)}{build}")
+            if "multistart" in infos[0]:
+                lines.append(_multistart_line(job, world, res, infos, card))
     print(f"phase 12.0 single-process references on the card ({ref_s:.1f} s): Adam step "
           f"{ref_ms['step']:.1f} ms, predict_f of {N} rows {ref_ms['predict']:.1f} ms, Sobol "
-          f"{ref_ms['sobol']:.1f} ms; GPR Sobol peak {ref_ms['gpr_sobol_peak_gb']:.3f} GB, "
+          f"{ref_ms['sobol']:.1f} ms, the bench SVGP's {PAR_MS_STARTS}-start multistart "
+          f"{ref_ms['multistart']:.0f} ms; GPR Sobol peak {ref_ms['gpr_sobol_peak_gb']:.3f} GB, "
           f"per-order totals {ref_ms['gpr_by_order_peak_gb']:.3f} GB, their float32 error "
           f"against float64 {ref['gpr_by_order_drift']:.2e} (twice it, at least "
           f"{PAR_SOBOL_TOL}, is their gate)")

@@ -66,6 +66,30 @@ __device__ __forceinline__ void sum16x2(float (&out)[2], const float* src, int s
   for (int c = 0; c < 2; ++c) out[c] = (v[0][c] + v[1][c]) + (v[2][c] + v[3][c]);
 }
 
+// Lane blockIdx.y's slice of p, at `stride` elements a lane (LANES), or p.
+template <bool LANES, typename T>
+__device__ __forceinline__ T* lane_slice(T* p, long long stride) {
+  if constexpr (LANES) return p + (long long)blockIdx.y * stride;
+  else return p;
+}
+
+// The same, with the lane read afresh (volatile, so that the compiler
+// neither merges nor hoists it), for the pointers pass 2 uses: held from the
+// kernel's entry they stay live in registers through pass 2, where the
+// one-lane kernel reads its pointers from the parameter bank, and made the
+// 4 x 4 tile at depth 3 spill 40 bytes (8 remain: the counter of pass 2's
+// loop over staged dims, stored and loaded once per 32 dims).
+template <bool LANES, typename T>
+__device__ __forceinline__ T* lane_ptr(T* p, long long stride) {
+  if constexpr (LANES) {
+    unsigned l;
+    asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(l));
+    return p + (long long)l * stride;
+  } else {
+    return p;
+  }
+}
+
 template <int PMAX, int R, int C, bool LANES>
 __global__ void __launch_bounds__(kThreads, R * C * (PMAX + 1) <= 64 ? 2 : 1)
 oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
@@ -94,38 +118,31 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
   float* s_lb = s_sg + (PMAX + 1);  // [kStageDims]
 
   const size_t nm = (size_t)N * M;
-  if constexpr (LANES) {
-    const long long l = blockIdx.y;
-    u1 += l * lanes.u1;
-    u2 += l * lanes.u2;
-    c1 += l * lanes.c1;
-    c2 += l * lanes.c2;
-    extra += l * lanes.extra;
-    logb += l * lanes.logb;
-    sig2 += l * lanes.sig2;
-    gbar += l * lanes.gbar;
-    rowp += l * work_lane;
-    colp += l * work_lane;
-    dlogbp += l * work_lane;
-    dsig2p += l * work_lane;
-    if (dextra != nullptr) dextra += l * (long long)E * nm;
-  }
+  // This lane's slices: pass 1 offsets its own once (they die with it);
+  // pass 2 and the extra grams' cotangent offset theirs at each use.
+  const float* const gbar1 = lane_slice<LANES>(gbar, lanes.gbar);
+  const float* const sig21 = lane_slice<LANES>(sig2, lanes.sig2);
+  const float* const extra1 = lane_slice<LANES>(extra, lanes.extra);
+  float* const dsig2p1 = lane_slice<LANES>(dsig2p, work_lane);
+  auto in = [&](const float* p, long long stride) { return lane_ptr<LANES>(p, stride); };
+  auto out = [&](float* p) { return lane_ptr<LANES>(p, work_lane); };
   const int tile_i = blockIdx.x / blocks_m;
   const int tile_j = blockIdx.x - tile_i * blocks_m;
   const int row0 = tile_i * BN, col0 = tile_j * BM;
   const int tx = threadIdx.x % kThreadsX, ty = threadIdx.x / kThreadsX;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int j0 = col0 + tx * C;
-  const bool vec = M % C == 0 && aligned_for<C>(gbar) &&
-                   (E == 0 || (aligned_for<C>(extra) &&
-                               (dextra == nullptr || aligned_for<C>(dextra))));
+  const bool vec = M % C == 0 && aligned_for<C>(gbar1) &&
+                   (E == 0 || (aligned_for<C>(extra1) &&
+                               (dextra == nullptr ||
+                                aligned_for<C>(lane_slice<LANES>(dextra, (long long)E * nm)))));
 
-  for (int n = threadIdx.x; n <= P; n += kThreads) s_sg[n] = sig2[n];
+  for (int n = threadIdx.x; n <= P; n += kThreads) s_sg[n] = sig21[n];
   // sig2 in registers for the exact depths, from shared memory deeper
   float sg_r[EXACT ? PMAX + 1 : 1];
   if constexpr (EXACT) {
 #pragma unroll
-    for (int n = 0; n <= PMAX; ++n) sg_r[n] = sig2[n];
+    for (int n = 0; n <= PMAX; ++n) sg_r[n] = sig21[n];
   }
   auto sg = [&](int n) -> float {
     if constexpr (EXACT) return sg_r[n];
@@ -153,8 +170,10 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
   for (int d0 = 0; d0 < D; d0 += kStageDims) {
     const int kd = min(kStageDims, D - d0);
     __syncthreads();
-    stage<BN, BM>(s_u1, s_c1, s_u2, s_c2, s_lb, u1, c1, u2, c2, logb, d0, kd,
-                  row0, col0, N, M);
+    stage<BN, BM>(s_u1, s_c1, s_u2, s_c2, s_lb, lane_slice<LANES>(u1, lanes.u1),
+                  lane_slice<LANES>(c1, lanes.c1), lane_slice<LANES>(u2, lanes.u2),
+                  lane_slice<LANES>(c2, lanes.c2), lane_slice<LANES>(logb, lanes.logb),
+                  d0, kd, row0, col0, N, M);
     __syncthreads();
 #pragma unroll 1
     for (int d = 0; d < kd; ++d) {
@@ -179,7 +198,7 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
     for (int r = 0; r < R; ++r) {
       const int i = row0 + ty * R + r;
       float x[C];
-      load_run<C>(x, extra + k * nm + (size_t)i * M + j0, i < N ? M - j0 : 0, vec);
+      load_run<C>(x, extra1 + k * nm + (size_t)i * M + j0, i < N ? M - j0 : 0, vec);
 #pragma unroll
       for (int c = 0; c < C; ++c) add_gram<PMAX, EXACT>(e[r][c], x[c], P);
     }
@@ -188,7 +207,7 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = row0 + ty * R + r;
-    load_run<C>(gb[r], gbar + (size_t)i * M + j0, i < N ? M - j0 : 0, vec);
+    load_run<C>(gb[r], gbar1 + (size_t)i * M + j0, i < N ? M - j0 : 0, vec);
   }
   {
     float ds[PMAX + 1];
@@ -215,7 +234,7 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
     float v = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) v += s_ds[w * (PMAX + 1) + n];
-    dsig2p[(size_t)blockIdx.x * (P + 1) + n] = v;
+    dsig2p1[(size_t)blockIdx.x * (P + 1) + n] = v;
   }
 
   // The downdate h_0 = 1, h_k = e_k - g h_{k-1} makes W(g) = sum_{n=1..P}
@@ -245,7 +264,8 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
     const int kd = min(kStageDims, D - d0);
     if (!staged_once) {
       __syncthreads();
-      stage<BN, BM>(s_u1, s_c1, s_u2, s_c2, s_lb, u1, c1, u2, c2, logb, d0, kd,
+      stage<BN, BM>(s_u1, s_c1, s_u2, s_c2, s_lb, in(u1, lanes.u1), in(c1, lanes.c1),
+                    in(u2, lanes.u2), in(c2, lanes.c2), in(logb, lanes.logb), d0, kd,
                     row0, col0, N, M);
       __syncthreads();
     }
@@ -294,6 +314,8 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
       __syncthreads();
       // each thread sums two adjacent rows' or columns' 16 partials of one
       // dim; warp k sums dim k's dlogb over the block's threads
+      float* const rowp_l = out(rowp);  // this lane's, live only here
+      float* const colp_l = out(colp);
       for (int s = threadIdx.x; s < nd * (BN + BM); s += kThreads) {
         const int k = s / (BN + BM), sk = s % (BN + BM);
         const size_t dd = d0 + d1 + k;
@@ -305,8 +327,8 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
           const float scale = q == 0 ? -kDuScale : -1.0f;
           v[0] *= scale;
           v[1] *= scale;
-          store_run<2>(rowp + (((size_t)q * blocks_m + tile_j) * D + dd) * N + i, v, N - i,
-                       N % 2 == 0);
+          store_run<2>(rowp_l + (((size_t)q * blocks_m + tile_j) * D + dd) * N + i, v,
+                       N - i, N % 2 == 0);
         } else {
           const int q = (sk - BN) / (BM / 2), idx = 2 * ((sk - BN) % (BM / 2));
           const int j = col0 + idx;
@@ -315,8 +337,8 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
           const float scale = q == 0 ? kDuScale : -1.0f;
           v[0] *= scale;
           v[1] *= scale;
-          store_run<2>(colp + (((size_t)q * blocks_n + tile_i) * D + dd) * M + j, v, M - j,
-                       M % 2 == 0);
+          store_run<2>(colp_l + (((size_t)q * blocks_n + tile_i) * D + dd) * M + j, v,
+                       M - j, M % 2 == 0);
         }
       }
       if (warp < nd) {
@@ -324,7 +346,7 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
 #pragma unroll
         for (int t = 0; t < kThreads; t += 32) v += dbs[warp * kThreads + t + lane];
         v = warp_sum(v);
-        if (lane == 0) dlogbp[(size_t)blockIdx.x * D + d0 + d1 + warp] = v;
+        if (lane == 0) out(dlogbp)[(size_t)blockIdx.x * D + d0 + d1 + warp] = v;
       }
       buf ^= 1;
     }
@@ -339,10 +361,10 @@ oak_gram_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
         const int n = i < N ? M - j0 : 0;
         const size_t at = k * nm + (size_t)i * M + j0;
         float x[C], dx[C];
-        load_run<C>(x, extra + at, n, vec);
+        load_run<C>(x, in(extra, lanes.extra) + at, n, vec);
 #pragma unroll
         for (int c = 0; c < C; ++c) dx[c] = cotangent(e[r][c], -x[c]);
-        store_run<C>(dextra + at, dx, n, vec);
+        store_run<C>(lane_ptr<LANES>(dextra, (long long)E * nm) + at, dx, n, vec);
       }
     }
   }

@@ -347,8 +347,10 @@ class oak_model:
         (``parallel.fit_lbfgs_sharded``; an SVGP first takes its 300 Adam
         steps data-parallel); with ``restarts > 0`` it must be a 2-D mesh
         with a 'data' axis, the restarts sharded over the other
-        (``parallel.fit_lbfgs_multistart_sharded``). Every rank makes the
-        same call and ends with the same model."""
+        (``parallel.fit_lbfgs_multistart_sharded``), each rank's lanes
+        still one batched program, with two all-reduces over the data axis
+        per evaluation. Every rank makes the same call and ends with the
+        same model."""
         if verbose:
             print("Model prior to optimisation")
             print(self.summary())

@@ -554,7 +554,25 @@ def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
     inputs = (u1, u2, c1, c2, extra, logb, sig2)
     if not any(t.is_cuda for t in inputs):
         return oak_gram_plain(*inputs, depth)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    return fused_op(inputs, depth)
+
+
+def fused_op(inputs: Sequence[torch.Tensor], depth: int) -> torch.Tensor:
+    """The registered op on the prescaled inputs, inside ``FusedGram``
+    where a gradient may be taken through it: grad mode is on and an input
+    requires grad or is batched by ``torch.func.vmap``. Under vmap, a grad
+    or vjp taken outside the vmap does not show in ``requires_grad``
+    (``parallel.mesh.MeshLoss``'s lanes form takes the vjp of its vmapped
+    local terms); ``FusedGram`` composes with both orders. The batched
+    check is functorch's private ``is_batchedtensor`` (torch 2.11 and
+    2.13). Were it to read False under vmap, the registered op would run
+    with no autograd and the local gradient would vanish:
+    ``tests/test_torch_sharding.py::test_lanes_form_runs_each_gram_once_for_all_lanes``
+    (K2 entered as often as for one lane, the gradient as in turn) and
+    ``chip_smoke.py``'s phase 12 (batched against in turn on the card)
+    fail then."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad or torch._C._functorch.is_batchedtensor(t) for t in inputs):
         return FusedGram.apply(*inputs, depth)
     return oak_gram_fwd_op(*inputs, depth)
 

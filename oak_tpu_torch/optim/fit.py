@@ -128,15 +128,19 @@ class LaneLoss:
     ``torch.func.vmap`` over the lanes of ``grad_and_value`` of the loss of
     one vector (``params.call_with``), so every op of the loss runs once for
     all of them, the fused gram's kernels through their lane axis, as
-    ``oak_tpu`` vmaps ``value_and_grad`` over its lanes. One lane takes
-    plain autograd, which computes the same; so does every lane, in turn,
-    of a loss with a ``loss_and_grads`` method of its own
-    (``parallel.mesh.MeshLoss``, whose collectives cannot run under
-    vmap)."""
+    ``oak_tpu`` vmaps ``value_and_grad`` over its lanes. A loss with a
+    lanes form of its own (``lanes_value_and_grad`` and ``lanes_values``:
+    ``parallel.mesh.MeshLoss``, whose collectives cannot run inside vmap)
+    evaluates its lanes through it. One lane takes plain autograd (or the
+    loss's own ``loss_and_grads``), which computes the same; so does every
+    lane, in turn, of a loss whose only entry is a one-vector
+    ``loss_and_grads``."""
 
     def __init__(self, model, loss_fn: Callable):
         self.model, self.loss_fn = model, loss_fn
-        self.vmappable = getattr(loss_fn, "loss_and_grads", None) is None
+        self.lanes_form = getattr(loss_fn, "lanes_value_and_grad", None) is not None
+        self.vmappable = (getattr(loss_fn, "loss_and_grads", None) is None
+                          or self.lanes_form)
         self._grad_and_value = torch.func.vmap(torch.func.grad_and_value(self._loss))
         self._values = torch.func.vmap(self._loss)
 
@@ -152,6 +156,8 @@ class LaneLoss:
         vecs = vecs.detach()
         if not self._batched(vecs):
             return in_turn(lambda v: value_and_grad(self.model, self.loss_fn, v))(vecs)
+        if self.lanes_form:
+            return self.loss_fn.lanes_value_and_grad(self.model, vecs)
         grads, values = self._grad_and_value(vecs)
         return values.detach(), grads.detach()
 
@@ -160,6 +166,8 @@ class LaneLoss:
         """The losses [R] at the lanes ``vecs`` [R, n], no gradient."""
         if not self._batched(vecs):
             return torch.stack([self._loss(v).reshape(()) for v in vecs])
+        if self.lanes_form:
+            return self.loss_fn.lanes_values(self.model, vecs.detach())
         return self._values(vecs.detach())
 
 

@@ -17,8 +17,9 @@ every lane's trajectory and the selection are ``oak_tpu``'s.
 contiguous block of them, and the lanes' vectors and losses are then
 gathered so that every rank picks the same best (``parallel``). A mesh of
 (restart, data) axes, whose ranks also shard each lane's data, is
-``parallel.fit_lbfgs_multistart_sharded``; its loss has collectives inside,
-which cannot run under vmap, so its lanes are evaluated in turn.
+``parallel.fit_lbfgs_multistart_sharded``: its loss (``parallel.mesh.MeshLoss``)
+evaluates the rank's lanes in one vmapped program too, with its two
+all-reduces outside the transforms, each over all the lanes.
 """
 
 from __future__ import annotations

@@ -15,7 +15,10 @@ of its rows (``local``), the terms are all-reduced, and the rest of the loss
 reduced terms. Its gradient is the tail's counted once plus every rank's
 local part; ``torch.distributed.nn``'s differentiable all-reduce would count
 the tail once per rank, since its backward all-reduces the incoming
-gradient.
+gradient. Its lanes form evaluates R trainable vectors at once (a
+multistart's lanes on one rank, as ``oak_tpu`` vmaps its lanes with the
+psums inside): the local terms and the tail under ``torch.func.vmap``, the
+two all-reduces outside any transform, each over all the lanes at once.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..params import call_with
+from ..params import call_with, unflatten_trainable
 
 DATA_AXIS = "data"
+# a lanes evaluation takes its lanes in chunks whose all-reduced local terms
+# stay below this many bytes (a GPR's are a zero-padded [N, N] block a lane)
+LANES_BYTES_CAP = 2 << 30
 
 
 class Axis:
@@ -103,9 +109,13 @@ def _flat(terms: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in terms])
 
 
-def _unflat(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    pieces = torch.split(flat, [t.numel() for t in like])
-    return [p.view(t.shape) for p, t in zip(pieces, like)]
+def _unflat(flat: torch.Tensor, shapes: Sequence[torch.Size]) -> List[torch.Tensor]:
+    pieces = torch.split(flat, [s.numel() for s in shapes])
+    return [p.view(s) for p, s in zip(pieces, shapes)]
+
+
+def _shapes(terms: Sequence[torch.Tensor]) -> List[torch.Size]:
+    return [t.shape for t in terms]
 
 
 class MeshLoss:
@@ -114,15 +124,23 @@ class MeshLoss:
 
     - ``local(m, *args)``: a tuple of tensors, the terms of this rank's
       rows, summed over the axis;
-    - ``tail(m, terms, *args)``: the scalar loss from the reduced terms.
+    - ``tail(m, terms, *args)``: the scalar loss from the reduced terms;
+    - ``lane_numel``: the number of elements of one evaluation's local
+      terms where they are large (a GPR's [N, N]), so that a lanes
+      evaluation chunks its lanes below ``LANES_BYTES_CAP``; None for
+      terms that are small.
 
     Called as a function it is the loss's value, the same bits on every
     rank. ``optim.fit.loss_and_grads`` takes its gradient through
-    ``loss_and_grads``, so every optimizer of ``optim`` runs on it
-    unchanged, in lockstep on the axis's ranks."""
+    ``loss_and_grads``, and ``optim.fit.LaneLoss`` evaluates several lanes
+    through ``lanes_value_and_grad`` and ``lanes_values``, so every
+    optimizer of ``optim`` runs on it unchanged, in lockstep on the axis's
+    ranks."""
 
-    def __init__(self, local: Callable, tail: Callable, axis: Axis):
+    def __init__(self, local: Callable, tail: Callable, axis: Axis,
+                 lane_numel: Optional[int] = None):
         self.local, self.tail, self.axis = local, tail, axis
+        self.lane_numel = lane_numel
 
     @property
     def writes_checkpoints(self) -> bool:
@@ -131,7 +149,7 @@ class MeshLoss:
 
     def __call__(self, model, *args):
         terms = self.local(model, *args)
-        reduced = _unflat(self.axis.all_reduce(_flat(terms)), terms)
+        reduced = _unflat(self.axis.all_reduce(_flat(terms)), _shapes(terms))
         loss = self.tail(model, reduced, *args)
         return self.axis.all_reduce(self.axis.first_only(loss))
 
@@ -145,7 +163,7 @@ class MeshLoss:
         terms = call_with(model, raws, self.local, *args)
         flat = _flat(terms)
         S = self.axis.all_reduce(flat).requires_grad_(True)
-        loss = call_with(model, raws, lambda m: self.tail(m, _unflat(S, terms), *args))
+        loss = call_with(model, raws, lambda m: self.tail(m, _unflat(S, _shapes(terms)), *args))
         *g_tail, g_S = torch.autograd.grad(loss, [*inputs, S], allow_unused=True,
                                            materialize_grads=True, retain_graph=True)
         if flat.requires_grad:
@@ -155,8 +173,82 @@ class MeshLoss:
             g_local = [torch.zeros_like(t) for t in inputs]
         own = self.axis.first_only(_flat([loss.detach().reshape(1), *g_tail]))
         packed = self.axis.all_reduce(own + _flat([torch.zeros_like(own[:1]), *g_local]))
-        out = _unflat(packed, [packed[:1], *inputs])
+        out = _unflat(packed, [packed[:1].shape, *_shapes(inputs)])
         return out[0].reshape(()), tuple(out[1:])
+
+    # ------------------------------------------------------------------ #
+    # The lanes form: R trainable vectors [R, n] of ``model`` at once
+    # ------------------------------------------------------------------ #
+    def _lane_fns(self, model, args: Tuple):
+        """(local(vec) -> this rank's terms flattened [T], tail(vec, S) ->
+        the loss from reduced terms S [T]) of one trainable vector, for
+        ``torch.func.vmap``; ``shapes`` holds the terms' shapes once local
+        has run."""
+        shapes: List[torch.Size] = []
+
+        def local(vec):
+            terms = call_with(model, unflatten_trainable(model, vec), self.local, *args)
+            shapes[:] = _shapes(terms)
+            return _flat(terms)
+
+        def tail(vec, S):
+            return call_with(model, unflatten_trainable(model, vec),
+                             lambda m: self.tail(m, _unflat(S, shapes), *args))
+
+        return local, tail
+
+    def _chunks(self, vecs: torch.Tensor) -> List[slice]:
+        """The lanes in chunks whose local terms stay below
+        ``LANES_BYTES_CAP``: one chunk unless ``lane_numel`` is large. The
+        chunks depend only on shapes, so every rank of the axis makes the
+        same collectives in the same order."""
+        R = vecs.shape[0]
+        if self.lane_numel is None:
+            return [slice(0, R)]
+        per = max(1, LANES_BYTES_CAP // (self.lane_numel * vecs.element_size()))
+        return [slice(i, min(i + per, R)) for i in range(0, R, per)]
+
+    def lanes_value_and_grad(self, model, vecs: torch.Tensor, args: Tuple = ()
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(losses [R], gradients [R, n]) at the trainable vectors ``vecs``
+        [R, n], each lane what ``loss_and_grads`` gives it, with two
+        all-reduces for all the lanes (per chunk, ``_chunks``): the local
+        terms of every lane in one vmap, flattened to [R, T] and
+        all-reduced; the tail and its gradient w.r.t. (vec, S) in one vmap
+        of ``grad_and_value``, each lane's reduced row S a fresh input; the
+        local part of the gradient by one vector-Jacobian product of the
+        vmapped local terms against dloss/dS; then [loss, tail gradient]
+        from the first rank plus every rank's [0, local gradient], [R,
+        1 + n], all-reduced. ``args`` are shared by every lane. No
+        collective runs inside a transform."""
+        losses, grads = zip(*(self._lanes_value_and_grad(model, vecs[rows].detach(), args)
+                              for rows in self._chunks(vecs)))
+        return torch.cat(losses), torch.cat(grads)
+
+    def _lanes_value_and_grad(self, model, vecs, args):
+        local, tail = self._lane_fns(model, args)
+        flat, local_vjp = torch.func.vjp(torch.func.vmap(local), vecs)
+        S = self.axis.all_reduce(flat)
+        (g_tail, g_S), losses = torch.func.vmap(
+            torch.func.grad_and_value(tail, argnums=(0, 1)))(vecs, S)
+        (g_local,) = local_vjp(g_S)
+        own = self.axis.first_only(torch.cat([losses.detach()[:, None], g_tail], dim=1))
+        packed = self.axis.all_reduce(
+            own + torch.cat([torch.zeros_like(own[:, :1]), g_local.detach()], dim=1))
+        return packed[:, 0], packed[:, 1:]
+
+    @torch.no_grad()
+    def lanes_values(self, model, vecs: torch.Tensor, args: Tuple = ()) -> torch.Tensor:
+        """The losses [R] at ``vecs`` [R, n], as ``lanes_value_and_grad``
+        gives them, with two all-reduces for all the lanes (per chunk)."""
+        out = []
+        for rows in self._chunks(vecs):
+            local, tail = self._lane_fns(model, args)
+            lanes = vecs[rows].detach()
+            S = self.axis.all_reduce(torch.func.vmap(local)(lanes))
+            out.append(self.axis.all_reduce(self.axis.first_only(
+                torch.func.vmap(tail)(lanes, S))))
+        return torch.cat(out)
 
 
 def first_axis(mesh) -> Optional[Axis]:

@@ -120,7 +120,12 @@ def mesh_loss(model, axis: Axis, X=None, Y=None) -> MeshLoss:
     """The training loss of ``model`` as a ``MeshLoss`` over ``axis``: an
     SVGP on this rank's rows of (X, Y), an SGPR on its rows of its own data,
     a GPR on the rows of its gram K(X) that this rank computes, gathered
-    (its [N, N] Cholesky runs on every rank, as in ``oak_tpu``)."""
+    (its [N, N] Cholesky runs on every rank, as in ``oak_tpu``). A GPR's
+    lanes form all-reduces an [N, N] block a lane (268 MB at N = 8192 in
+    float32), so it takes its lanes in chunks of at most
+    ``mesh.LANES_BYTES_CAP`` (2 GiB) of them: past 8 lanes a rank at
+    N = 8192, which no configuration of the repo reaches (the UCI
+    configurations' 4 restarts hold at most 4 lanes a rank, 1.07 GB)."""
     if isinstance(model, SVGP):
         if X is None:
             raise ValueError("model carries no data leaves; pass X= and Y= explicitly "
@@ -145,7 +150,8 @@ def mesh_loss(model, axis: Axis, X=None, Y=None) -> MeshLoss:
             block = m.kernel.K(m.X[rows], m.X)
             return (torch.nn.functional.pad(block, (0, 0, rows.start, n - rows.stop)),)
 
-        return MeshLoss(local, lambda m, terms: m.training_loss_from_gram(terms[0]), axis)
+        return MeshLoss(local, lambda m, terms: m.training_loss_from_gram(terms[0]), axis,
+                        lane_numel=n * n)
     raise TypeError(f"no data-sharded loss for {type(model).__name__}")
 
 
@@ -256,9 +262,10 @@ def fit_lbfgs_multistart_sharded(model, mesh: DeviceMesh, X=None, Y=None,
     block run its lanes together, each on its rows; the lanes are then
     gathered over the restart axis, and every rank keeps the same best.
     Same lanes as the unsharded ``optim.fit_lbfgs_multistart`` up to
-    reduction order, through its lane-batched L-BFGS; the data-sharded loss
-    has collectives inside, which cannot run under ``vmap``, so each
-    evaluation takes the rank's lanes in turn. Data as in
+    reduction order, through its lane-batched L-BFGS: each evaluation runs
+    all of the rank's lanes in one vmapped program with two all-reduces
+    over the data axis (``MeshLoss.lanes_value_and_grad``), as ``oak_tpu``
+    vmaps its lanes with the psums inside. Data as in
     ``fit_lbfgs_sharded``; no checkpointing on this path."""
     from ..optim.multistart import fit_lbfgs_multistart
 

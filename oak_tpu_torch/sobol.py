@@ -529,9 +529,9 @@ def _reduced(axis, parts: List[torch.Tensor]) -> List[torch.Tensor]:
     without one)."""
     if axis is None or not parts:
         return parts
-    from .parallel.mesh import _flat, _unflat
+    from .parallel.mesh import _flat, _shapes, _unflat
 
-    return _unflat(axis.all_reduce(_flat(parts)), parts)
+    return _unflat(axis.all_reduce(_flat(parts)), _shapes(parts))
 
 
 def _sobol_values(model, depth: int, routing: Sequence[bool], axis=None) -> torch.Tensor:

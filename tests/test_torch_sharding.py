@@ -6,7 +6,9 @@ One 4-process gloo job (``torch_sharding_worker.py``) runs every case once,
 on a 1-D mesh of the 4 ranks and on a 2 x 2 ("restart", "data") mesh, and
 writes its results; each test below reads its case. The job is joined with
 a time limit and killed on expiry or on a rank's failure, so a deadlocked
-collective fails these tests instead of hanging the run. Tolerances: loss,
+collective fails these tests instead of hanging the run. The data-sharded
+loss's lanes form (3 lanes in one vmapped program) is held against the
+lanes in turn and against ``oak_tpu``'s ``jax.vmap``. Tolerances: loss,
 gradient, predictions and Sobol values within 1e-10 relative of
 ``oak_tpu`` (under ``jax.jit``); trajectories and fits after a few
 iterations within 1e-8 of the port's unsharded run (they differ by
@@ -80,17 +82,25 @@ def _save_perturbed(name, folder):
 
 
 def _jax_references(models):
-    """oak_tpu's unsharded values, each under one jax.jit."""
-    refs = {}
+    """oak_tpu's unsharded values, each under one jax.jit; the lanes of
+    ``worker.lane_vectors`` through ``jax.vmap(jax.value_and_grad(...))``
+    of all three models under one."""
+    refs, losses, lanes = {}, {}, {}
     for name in ("svgp", "sgpr", "gpr"):
         jm = models[name]
         X, Y, _ = worker.data(name)
         vec, unflatten = jp.flatten_trainable(jm)
         if name == "svgp":
-            fn = jax.jit(jax.value_and_grad(lambda v: unflatten(v).training_loss(X, Y)))
+            losses[name] = lambda v, u=unflatten, X=X, Y=Y: u(v).training_loss(X, Y)
         else:
-            fn = jax.jit(jax.value_and_grad(lambda v, u=unflatten: u(v).training_loss()))
+            losses[name] = lambda v, u=unflatten: u(v).training_loss()
+        fn = jax.jit(jax.value_and_grad(losses[name]))
         refs[f"{name}_loss"], refs[f"{name}_grad"] = map(np.asarray, fn(vec))
+        lanes[name] = worker.lane_vectors(name, np.asarray(vec))
+    vmapped = jax.jit(lambda vecs: {name: jax.vmap(jax.value_and_grad(fn))(vecs[name])
+                                    for name, fn in losses.items()})
+    for name, (values, grads) in vmapped(lanes).items():
+        refs[f"{name}_lane_loss"], refs[f"{name}_lane_grad"] = np.asarray(values), np.asarray(grads)
     Xt = np.random.default_rng(7).normal(size=(worker.PREDICT_ROWS, worker.SPECS["svgp"][2]))
     refs["mean"], refs["var"] = map(np.asarray,
                                     jax.jit(lambda m, x: m.predict_f(x))(models["svgp"], Xt))
@@ -176,6 +186,146 @@ def test_sharded_loss_and_gradient_match_oak_tpu(job, name, mesh):
     _close(res[0][f"{key}_value"], job["jax"][f"{name}_loss"])
     for k in ("loss", "grad", "value"):
         _same_on_every_rank(res, f"{key}_{k}")
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", ["svgp", "sgpr", "gpr"])
+def test_lanes_form_matches_the_lanes_in_turn(job, name, mesh):
+    """``fit.LaneLoss`` of a ``MeshLoss`` at 3 lanes (its lanes form, one
+    vmapped program) against each lane's ``loss_and_grads``, on every rank
+    the same bits."""
+    res = _case(job, "lanes_form")
+    key = f"{name}_{mesh}"
+    for r in res:
+        _close(r[f"{key}_loss"], r[f"{key}_turn_loss"])
+        _close(r[f"{key}_grad"], r[f"{key}_turn_grad"])
+        _close(r[f"{key}_values"], r[f"{key}_turn_loss"])
+    for k in ("loss", "grad", "values"):
+        _same_on_every_rank(res, f"{key}_{k}")
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", ["svgp", "sgpr", "gpr"])
+def test_lanes_form_matches_oak_tpu_vmap(job, name, mesh):
+    """The lanes form against oak_tpu's unsharded vmapped value_and_grad: a
+    tail counted once per data rank would fail here."""
+    r = _case(job, "lanes_form")[0]
+    key = f"{name}_{mesh}"
+    _close(r[f"{key}_loss"], job["jax"][f"{name}_lane_loss"])
+    _close(r[f"{key}_grad"], job["jax"][f"{name}_lane_grad"])
+    _close(r[f"{key}_values"], job["jax"][f"{name}_lane_loss"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_lanes_form_of_the_minibatch_loss(job, mesh):
+    """``minibatch_loss``'s lanes form with its batch of rows shared by
+    every lane, against each lane's ``loss_and_grads``."""
+    res = _case(job, "lanes_form")
+    key = f"minibatch_{mesh}"
+    for r in res:
+        _close(r[f"{key}_loss"], r[f"{key}_turn_loss"])
+        _close(r[f"{key}_grad"], r[f"{key}_turn_grad"])
+        _close(r[f"{key}_values"], r[f"{key}_turn_loss"])
+    _same_on_every_rank(res, f"{key}_grad")
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+def test_lanes_form_makes_two_all_reduces(job, lanes):
+    """Two all-reduces per evaluation, value and gradient or value alone,
+    whatever the lane count; one lane goes through ``loss_and_grads``,
+    more through the lanes form."""
+    for r in _case(job, "lanes_form"):
+        for mesh in MESHES:
+            for name in ("svgp", "sgpr", "gpr"):
+                grads, values, form = r[f"{name}_{mesh}_reduces_{lanes}"]
+                assert (grads, values) == (2, 2), (name, mesh)
+                assert form == (lanes > 1), (name, mesh)
+
+
+def test_lanes_form_runs_each_gram_once_for_all_lanes(job):
+    """Through FusedGram and the registered ops (the card's route, on CPU
+    tensors): the vjp of the vmapped local terms and the vmapped tail's
+    grad enter each gram's plain version once for all lanes, as one lane's
+    evaluation does. The backward's count also pins ``og.fused_op``'s
+    batched check: the local terms' vjp enters it only through
+    ``FusedGram``."""
+    res = _case(job, "lanes_form_fused")
+    for r in res:
+        _close(r["loss"], r["turn_loss"])
+        _close(r["grad"], r["turn_grad"])
+        one_fwd, one_bwd, fwd, bwd = r["plain_entries"]
+        assert one_fwd > 0 and one_bwd > 0
+        assert (fwd, bwd) == (one_fwd, one_bwd)
+    _same_on_every_rank(res, "grad")
+
+
+class _OneRank:
+    """The data axis of a world of one, without a process group: its
+    all-reduce is the identity, counted."""
+
+    size, index, is_first, calls = 1, 0, True, 0
+
+    def rows(self, n):
+        return slice(0, n)
+
+    def first_only(self, t):
+        return t
+
+    def all_reduce(self, t):
+        self.calls += 1
+        return t.detach().clone()
+
+
+def _one_rank_gpr():
+    import torch
+
+    from oak_tpu_torch.optim.fit import LaneLoss
+    from oak_tpu_torch.parallel.sharding import mesh_loss
+
+    m, _, _ = worker.build("gpr")
+    axis = _OneRank()
+    vecs = torch.as_tensor(worker.lane_vectors("gpr", worker._vec(m)))
+    return LaneLoss(m, mesh_loss(m, axis)), vecs, axis
+
+
+def test_lanes_form_chunks_lanes_of_large_terms(monkeypatch):
+    """A GPR's lanes form all-reduces an [N, N] block a lane: under a cap
+    of two lanes' blocks its 3 lanes go in chunks of 2 and 1, two
+    all-reduces each, and give what one chunk gives."""
+    from oak_tpu_torch.parallel import mesh
+
+    lanes, vecs, axis = _one_rank_gpr()
+    whole = lanes.value_and_grad(vecs)
+    assert axis.calls == 2
+    n = worker.SPECS["gpr"][1]
+    monkeypatch.setattr(mesh, "LANES_BYTES_CAP", 2 * n * n * vecs.element_size())
+    axis.calls = 0
+    chunked = lanes.value_and_grad(vecs)
+    assert axis.calls == 4
+    for a, b in zip(chunked, whole):
+        _close(a.numpy(), b.numpy(), 1e-14)
+    axis.calls = 0
+    _close(lanes.values(vecs).numpy(), whole[0].numpy(), 1e-14)
+    assert axis.calls == 4
+
+
+def test_lanes_form_raises_instead_of_taking_the_lanes_in_turn(monkeypatch):
+    """A loss that cannot run under vmap (a host read of a tensor) raises
+    from the lanes form; the lanes are never evaluated in turn instead."""
+    import torch
+
+    from oak_tpu_torch.models import GPR
+    from oak_tpu_torch.parallel.mesh import MeshLoss
+
+    lanes, vecs, _ = _one_rank_gpr()
+    turns = []
+    monkeypatch.setattr(MeshLoss, "loss_and_grads", lambda *a: turns.append(a))
+    read = GPR.training_loss_from_gram
+    monkeypatch.setattr(GPR, "training_loss_from_gram",
+                        lambda m, K: read(m, K) * float(K.sum() > 0))
+    with pytest.raises(RuntimeError, match="vmap"):
+        lanes.value_and_grad(vecs)
+    assert turns == [] and torch.is_grad_enabled()
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -287,6 +437,7 @@ def test_multistart_2d_mesh_matches_unsharded(job, name):
     _close(r[f"{name}_vec"], r[f"{name}_ref_vec"], FIT_REL)
     _same_on_every_rank(res, f"{name}_vec")
     assert "2x2 (restart x data) mesh" in str(r[f"{name}_message"])
+    assert all(x[f"{name}_lanes_form"] > 0 for x in res)  # 2 lanes a rank, batched
 
 
 def test_multistart_2d_mesh_validation(job):
@@ -300,6 +451,7 @@ def test_oak_model_optimise_restarts_data_mesh(job):
     res = _case(job, "optimise_restarts_2d")
     _close(res[0]["fun"], res[0]["ref_fun"], FIT_REL)
     _same_on_every_rank(res, "fun")
+    assert all(x["lanes_form"] > 0 for x in res)
 
 
 @pytest.mark.parametrize("kind", ["lbfgs", "adam", "natgrad"])

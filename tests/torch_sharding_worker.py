@@ -31,6 +31,8 @@ SPECS = {
     "bern": ("svgp", 64, 3, 8, 2, "bernoulli"),
 }
 PREDICT_ROWS = 48
+LANES, LANE_JITTER = 3, 0.1  # the lanes form's lanes: odd, to catch row slicing
+MINIBATCH = 16
 
 
 def data(name):
@@ -41,6 +43,12 @@ def data(name):
     f = np.sin(X[:, 0]) + X[:, 1] * X[:, -1]
     Y = (f > 0).astype(np.float64) if lik == "bernoulli" else f + 0.1 * rng.normal(size=n)
     return X, Y.reshape(-1, 1), X[:m].copy()
+
+
+def lane_vectors(name, vec):
+    """[LANES, n] trainable vectors around ``vec`` (numpy), from a seed."""
+    rng = np.random.default_rng(SEED + 10 + sorted(SPECS).index(name))
+    return vec[None, :] + LANE_JITTER * rng.normal(size=(LANES, vec.shape[0]))
 
 
 def kernel_kwargs(name):
@@ -121,6 +129,116 @@ def torch_vec(m):
     from oak_tpu_torch.params import flatten_trainable
 
     return flatten_trainable(m).detach()
+
+
+class _Counting:
+    """Counts the calls of a class's method while in a ``with`` block."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.calls = cls, name, 0
+
+    def __enter__(self):
+        original = getattr(self.cls, self.name)
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return original(*args, **kw)
+
+        self.original = original
+        setattr(self.cls, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.original)
+
+
+@case
+def lanes_form(ctx):
+    """Each model's mesh_loss at LANES lanes through ``fit.LaneLoss`` (the
+    lanes form) over the data axis of both meshes, against the same lanes
+    in turn through ``loss_and_grads``; the all-reduces of one batched
+    evaluation at 1, 2 and LANES lanes; the SVGP's minibatch loss at LANES
+    lanes, one batch of rows for all of them."""
+    import torch
+
+    from oak_tpu_torch.optim.fit import LaneLoss, value_and_grad
+    from oak_tpu_torch.parallel.mesh import Axis
+    from oak_tpu_torch.parallel.sharding import mesh_loss, minibatch_loss
+
+    out = {}
+    for mesh_name in ("m4", "m22"):
+        axis = Axis.of(ctx[mesh_name], "data")
+        for name in ("svgp", "sgpr", "gpr"):
+            m, X, Y = build(name, ctx["dir"])
+            loss = mesh_loss(m, axis, *((X, Y) if SPECS[name][0] == "svgp" else ()))
+            vecs = torch.as_tensor(lane_vectors(name, _vec(m)))
+            lanes = LaneLoss(m, loss)
+            key = f"{name}_{mesh_name}"
+            for R in range(1, LANES + 1):
+                with _Counting(Axis, "all_reduce") as grads, \
+                        _Counting(type(loss), "lanes_value_and_grad") as form:
+                    v, g = lanes.value_and_grad(vecs[:R])
+                with _Counting(Axis, "all_reduce") as values:
+                    lanes.values(vecs[:R])
+                out[f"{key}_reduces_{R}"] = [grads.calls, values.calls, form.calls]
+            out[f"{key}_loss"], out[f"{key}_grad"] = v, g
+            out[f"{key}_values"] = lanes.values(vecs)
+            turn = [value_and_grad(m, loss, vec) for vec in vecs]
+            out[f"{key}_turn_loss"] = torch.stack([t[0] for t in turn])
+            out[f"{key}_turn_grad"] = torch.stack([t[1] for t in turn])
+        # the minibatch loss: its batch of row indices shared by every lane
+        m, X, Y = build("svgp", ctx["dir"])
+        loss = minibatch_loss(ctx[mesh_name], X, Y, MINIBATCH)
+        ib = torch.as_tensor(np.random.default_rng(SEED).permutation(len(X))[:MINIBATCH])
+        vecs = torch.as_tensor(lane_vectors("svgp", _vec(m)))
+        out[f"minibatch_{mesh_name}_loss"], out[f"minibatch_{mesh_name}_grad"] = \
+            loss.lanes_value_and_grad(m, vecs, (ib,))
+        out[f"minibatch_{mesh_name}_values"] = loss.lanes_values(m, vecs, (ib,))
+        turn = [value_and_grad(m, loss, vec, ib) for vec in vecs]
+        out[f"minibatch_{mesh_name}_turn_loss"] = torch.stack([t[0] for t in turn])
+        out[f"minibatch_{mesh_name}_turn_grad"] = torch.stack([t[1] for t in turn])
+    return out
+
+
+def _k_through_ops(self, X, X2=None):
+    """OAKKernel.K through the card's route (``ops.oak_gram.fused_op``:
+    FusedGram or the registered op) on CPU tensors."""
+    from oak_tpu_torch.ops import oak_gram as og
+
+    return og.fused_op(og._prep(self, X, X if X2 is None else X2),
+                       self.max_interaction_depth)
+
+
+@case
+def lanes_form_fused(ctx):
+    """The SVGP's lanes form with its grams through FusedGram and the
+    registered ops (their vmap rules under vjp and grad), against the lanes
+    in turn; the plain versions' entries of one batched evaluation and of
+    one lane's, which are equal when every gram runs once for all lanes."""
+    import torch
+
+    from oak_tpu_torch.kernels import OAKKernel
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.optim.fit import LaneLoss, value_and_grad
+    from oak_tpu_torch.parallel.mesh import Axis
+    from oak_tpu_torch.parallel.sharding import mesh_loss
+
+    m, X, Y = build("svgp", ctx["dir"])
+    loss = mesh_loss(m, Axis.of(ctx["m22"], "data"), X, Y)
+    vecs = torch.as_tensor(lane_vectors("svgp", _vec(m)))
+    old_k = OAKKernel.K
+    OAKKernel.K = _k_through_ops
+    try:
+        with _Counting(og, "oak_gram_plain") as f1, _Counting(og, "oak_gram_bwd_plain") as b1:
+            value_and_grad(m, loss, vecs[0])
+        with _Counting(og, "oak_gram_plain") as fR, _Counting(og, "oak_gram_bwd_plain") as bR:
+            v, g = LaneLoss(m, loss).value_and_grad(vecs)
+        turn = [value_and_grad(m, loss, vec) for vec in vecs]
+    finally:
+        OAKKernel.K = old_k
+    return {"loss": v, "grad": g, "turn_loss": torch.stack([t[0] for t in turn]),
+            "turn_grad": torch.stack([t[1] for t in turn]),
+            "plain_entries": [f1.calls, b1.calls, fR.calls, bR.calls]}
 
 
 @case
@@ -374,20 +492,26 @@ def dp_natgrad(ctx):
 
 @case
 def multistart_2d(ctx):
+    """4 starts on the 2 x 2 mesh: 2 lanes per rank, through the lanes
+    form."""
     from oak_tpu_torch.optim import fit_lbfgs_multistart
     from oak_tpu_torch.parallel import fit_lbfgs_multistart_sharded
+    from oak_tpu_torch.parallel.mesh import MeshLoss
 
     out = {}
     for name, kw in (("sgpr", dict(max_iters=10)),
                      ("svgp", dict(max_iters=5, warm_adam_steps=5))):
         m, X, Y = build(name, ctx["dir"])
         ext = (X, Y) if name == "svgp" else ()
-        res = fit_lbfgs_multistart_sharded(m, ctx["mesh2d"], *ext, n_starts=2, seed=0, **kw)
+        with _Counting(MeshLoss, "lanes_value_and_grad") as form:
+            res = fit_lbfgs_multistart_sharded(m, ctx["mesh2d"], *ext, n_starts=4, seed=0,
+                                               **kw)
+        out[f"{name}_lanes_form"] = form.calls
         out[f"{name}_fun"], out[f"{name}_vec"] = res.fun, _vec(res.model)
         out[f"{name}_lanes"], out[f"{name}_message"] = res.losses.numpy(), np.array(res.message)
         if ctx["rank"] == 0:
             m0, X, Y = build(name, ctx["dir"])
-            r0 = fit_lbfgs_multistart(m0, _loss_fn(name, X, Y), n_starts=2, seed=0, **kw)
+            r0 = fit_lbfgs_multistart(m0, _loss_fn(name, X, Y), n_starts=4, seed=0, **kw)
             out[f"{name}_ref_fun"], out[f"{name}_ref_vec"] = r0.fun, _vec(r0.model)
             out[f"{name}_ref_lanes"] = r0.losses.numpy()
     return out
@@ -415,12 +539,17 @@ def multistart_2d_validation(ctx):
 
 @case
 def optimise_restarts_2d(ctx):
-    """Every lane takes oak_model's 300 warm-up Adam steps: the smallest model."""
+    """Every lane takes oak_model's 300 warm-up Adam steps: the smallest
+    model, 4 restarts (2 lanes per rank) through the lanes form."""
+    from oak_tpu_torch.parallel.mesh import MeshLoss
+
     kw = dict(n=16, d=1, depth=1)
-    out = {"fun": _regression_oak(**kw).optimise(max_iters=4, restarts=2,
-                                                 data_mesh=ctx["mesh2d"]).fun}
+    with _Counting(MeshLoss, "lanes_value_and_grad") as form:
+        out = {"fun": _regression_oak(**kw).optimise(max_iters=4, restarts=4,
+                                                     data_mesh=ctx["mesh2d"]).fun}
+    out["lanes_form"] = form.calls
     if ctx["rank"] == 0:
-        out["ref_fun"] = _regression_oak(**kw).optimise(max_iters=4, restarts=2).fun
+        out["ref_fun"] = _regression_oak(**kw).optimise(max_iters=4, restarts=4).fun
     return out
 
 
