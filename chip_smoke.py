@@ -20,7 +20,10 @@ non-zero before the result line:
    its error against f64 (oak_tpu_torch.testing.kernel_error); at Kus, Kuu
    and the square: device time from torch.profiler, CUDA-event times of
    kernel and plain in turns, the bound and the share (with --old, the
-   earlier tree's kernel in turns old, new, new, old);
+   earlier tree's kernel in turns old, new, new, old); the Triton K1
+   (ops/oak_gram_triton.py, the gram of the compiled serving artifact)
+   at every case against the plain version and against K1 under the same
+   rule (bitwise equality to K1 counted), timed at Kus in turns with K1;
 2b. K2: every cotangent against autograd of the plain gram and against the
    written-out plain backward, for a seeded gbar, at the training path's
    Kuf and Kuu, the square gram and the same cases, under 1e-3 or the same
@@ -78,13 +81,22 @@ non-zero before the result line:
    pumadyn fold 0 (examples/uci/outputs/pumadyn/model_oak_0.npz) loaded in
    float32 on the card, its test RMSE beside out_0.npz's and the B1 gate
    against float64 as in phase 9; that model and heart fold 0 (a Bernoulli
-   SVGP with binary and categorical dims) exported with torch.export and
-   served at 1, 100 and 1639 rows against the live predict (1e-4), one K1
-   launch per served request, export seconds, bytes and warm latencies; the
+   SVGP with binary and categorical dims) serialized on the card: pumadyn's
+   (mean, std) and heart's mean-only artifacts compiled into AOTInductor
+   packages whose gram is the Triton K1 (by a process the script starts
+   after phase 1, so that the compiles run beside phases 2-9), served at
+   1, 100 and 1639 rows
+   against the live predict (1e-4), one Triton K1 launch and no CUDA K1 per
+   request, and served again, bitwise equal, in a python -I process that
+   cannot import oak_tpu_torch and has no nvcc; the other two artifacts as
+   the torch.export programs an earlier tree wrote, one K1 launch per
+   request; compile and export seconds, bytes and warm latencies; the
    torch UCI scripts (examples/uci_torch/) run end to end with --k 2
    --max_iters 30 --restarts 0; then K1 and K2 held against their plain
    versions at the shapes the phase adds (heart's Kus and Kuf with 8 extra
-   grams at depth 4, autoMPG's square K(X) at depth 7);
+   grams at depth 4, autoMPG's square K(X) at depth 7), and the Triton K1
+   at the served Kus (pumadyn's at 1, 100 and 1639 rows, heart's), timed
+   at pumadyn's;
 11. the rest of the user surface (phase_surface): the effect-plot data
    (plotting's posterior math on plot_model's grids) of the committed
    pumadyn fold 0's top 5 components and summed order-1 profile, in float32
@@ -122,8 +134,8 @@ non-zero before the result line:
    |per-dim| or the drift rule; one _prep and one K_diag launch as many
    kernels at D 8 as at D 32; then the launches, host ms and device ms of a
    warm fit_adam step, predict_y of 1 and 8192 rows, a full Sobol and a
-   warm served request of phase 10.2's artifact, and the peak memory of
-   phase 5's Sobol calls.
+   warm served request of phase 10.2's pumadyn (mean, std) artifact,
+   package and program, and the peak memory of phase 5's Sobol calls.
 14. a multistart's lanes as one batched program (phase_lanes): K1 and K2
    launched once for 4 lanes at phase 9's pumadyn Kuf and the bench's Kuf,
    each lane against a one-lane launch (bitwise where the tile is the same)
@@ -137,7 +149,8 @@ non-zero before the result line:
    written here (first 5 warm Adam steps within 1e-4, the best loss within
    1e-3 or the same lane, test RMSE below std(y)), both wall times.
 
-Each phase prints its seconds. Then one JSON line about the kernels, and as
+Each phase prints its seconds. Then one JSON line about the kernels (K1,
+K2 and the Triton K1), and as
 the last line {"ok": true, "device": {...}}. Imports no JAX.
 
     python3 chip_smoke.py --old DIR
@@ -149,7 +162,8 @@ with these in phases 2 and 2b.
 
 runs phases 0-1 and then, in place of the checks, the breakdown of a warm
 predict_y request, of a warm training step, of a full Sobol decomposition
-and of a warm served request, and the peak memory of phases 5's and 12's
+and of a warm served request (the compiled package beside the torch.export
+program), and the peak memory of phases 5's and 12's
 Sobol calls (PERF.md "Where the time goes"); it prints no result line.
 
     python3 chip_smoke.py --profile --package DIR
@@ -322,8 +336,11 @@ def phase_device():
             torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("float32 matmuls are not in full precision (TF32 is on)")
     torch.backends.cudnn.allow_tf32 = False
+    import triton
+
     print(f"phase 0 device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}, TF32 off")
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton "
+          f"{triton.__version__}, TF32 off")
 
 
 def phase_build():
@@ -523,18 +540,62 @@ def _table_row(name, kind, args, new_dev, old_dev, ev, plain_ev):
                                   else float(np.mean(old_dev)))
 
 
+def _triton_checked(name, args, k1, ref, ref64):
+    """The Triton K1 (ops.oak_gram_triton) at one case against the plain
+    version (``ref``, ``ref64`` in float64) under phase 2's rule, and
+    against K1's result ``k1`` under the same rule. Returns (bitwise equal
+    to K1, the finding, max |Triton - plain|)."""
+    from oak_tpu_torch.ops import oak_gram_triton as ogt
+    from oak_tpu_torch.testing import kernel_error
+
+    tri = ogt.oak_gram_triton_op(*args)
+    torch.cuda.synchronize()
+    ok, _, text = kernel_error(tri, ref, ref64, KERNEL_TOL)
+    ok_k1, _, text_k1 = kernel_error(tri, k1, ref64, KERNEL_TOL)
+    if not (ok and ok_k1 and tri.shape == ref.shape and bool(torch.isfinite(tri).all())):
+        raise RuntimeError(f"Triton K1 {name}: vs plain {text}, vs K1 {text_k1}, over tol "
+                           f"{KERNEL_TOL} or non-finite")
+    return bool(torch.equal(tri, k1)), text, float((tri - ref).abs().max())
+
+
+def _triton_row(name, args):
+    """The Triton K1 timed at one shape: device ms (torch.profiler) in turns
+    with K1 (K1, Triton, Triton, K1), CUDA-event ms over TIMING_ITERS
+    launches in turns with the plain version, the bound and the share."""
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.ops import oak_gram_triton as ogt
+
+    with torch.no_grad():
+        fns = {"K1": lambda: og.oak_gram_fused(*args),
+               "Triton": lambda: ogt.oak_gram_triton_op(*args)}
+        dev = _turns(fns, _device_ms)
+        ev = _turns({"plain": lambda: og.oak_gram_plain(*args), "kernel": fns["Triton"]},
+                    lambda fn: _cuda_ms(fn, TIMING_ITERS))
+    D_, N_, M_, E_, depth = _shape(args)
+    bound, by, detail = gram_bound("K1", D_, N_, M_, E_, depth)
+    ms, ev_k, ev_p = (float(np.mean(v)) for v in (dev["Triton"], ev["kernel"], ev["plain"]))
+    text = (f"  K1 Triton {name}: device {dev['Triton']} ms (K1 in the same turns "
+            f"{dev['K1']} ms); CUDA events {ev_k:.4f} ms, plain {ev_p:.4f} ms; bound "
+            f"{bound:.4f} ms ({detail}); share {bound / ms:.2f}")
+    return text, dict(device_ms=ms, k1_device_ms=float(np.mean(dev["K1"])), bound_ms=bound,
+                      bound_by=by, share=bound / ms, event_ms=ev_k, plain_ms=ev_p)
+
+
 def phase_kernel(model, X, gpr, device, old):
     """K1 against the plain version (f32 and f64) at every case; the square
-    gram exactly symmetric; then, at the main path's three shapes, device
-    time (profiler) in turns with the earlier tree's kernel (old, new, new,
-    old) when ``old`` is given, CUDA-event times of kernel and plain, the
-    bound and the share."""
+    gram exactly symmetric; the Triton K1 at every case against the plain
+    version and K1 (_triton_checked); then, at the main path's three
+    shapes, device time (profiler) in turns with the earlier tree's kernel
+    (old, new, new, old) when ``old`` is given, CUDA-event times of kernel
+    and plain, the bound and the share; the Triton K1 timed at Kus
+    (_triton_row)."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import kernel_error
 
     with torch.no_grad():
-        findings, abs_err = [], {}
-        for name, args in _check_cases(model, X, gpr, device):
+        findings, abs_err, triton, bitwise = [], {}, [], 0
+        cases = _check_cases(model, X, gpr, device)
+        for name, args in cases:
             out = og.oak_gram_fused(*args)
             torch.cuda.synchronize()
             ref = og.oak_gram_plain(*args)
@@ -548,6 +609,9 @@ def phase_kernel(model, X, gpr, device, old):
             abs_err[name] = float((out - ref).abs().max())
             if not ok:
                 raise RuntimeError(f"kernel {name}: error {text} over tol {KERNEL_TOL}")
+            same, text, abs_err[f"Triton {name}"] = _triton_checked(name, args, out, ref, ref64)
+            triton.append(f"{name} {text}")
+            bitwise += same
             del out, ref, ref64
 
         rows, numbers = [], {}
@@ -565,9 +629,15 @@ def phase_kernel(model, X, gpr, device, old):
                                     float(np.mean(ev["kernel"])), float(np.mean(ev["plain"])))
             rows.append(text)
             numbers[name] = nums | dict(max_abs_err=abs_err[name])
+        name = "Kus/Kuf 512x8192"
+        text, nums = _triton_row(name, _timing_cases(model, X, gpr, device)[name])
+        rows.append(text)
+        numbers["Triton"] = nums | dict(max_abs_err=abs_err[f"Triton {name}"])
     print(f"phase 2 K1 vs plain (max err / max |plain|, tol {KERNEL_TOL}; past it, the "
           f"drift rule of oak_tpu_torch.testing.kernel_error against f64): "
-          f"{', '.join(findings)}; GPR K(X) exactly symmetric; device ms from "
+          f"{', '.join(findings)}; the Triton K1 (ops.oak_gram_triton) vs plain, and vs K1 "
+          f"under the same rule: {', '.join(triton)}; bitwise equal to K1 at {bitwise} of "
+          f"{len(cases)}; GPR K(X) exactly symmetric; device ms from "
           f"torch.profiler (turns old, new, new, old where the earlier kernel is given), "
           f"CUDA events over {TIMING_ITERS} launches (5 at the square) in turns plain, "
           f"kernel, kernel, plain:\n" + "\n".join(rows))
@@ -1323,42 +1393,256 @@ def _one_launch_per_request(name, f, X):
                            f"times, not once")
 
 
-def _serve_model(name, oak, X, bernoulli):
-    """Export on the card, load, serve SERVE_ROWS requests against the live
-    API (the rows of X repeated where it has fewer); each served call
-    launches K1 once (Kus; the factors are in the artifact). Returns a
-    findings line and the mean-only artifact's function."""
-    from oak_tpu_torch import deserialize_predict, serialize_predict
+def _kernel_names(fn):
+    """fn() under torch.profiler: (its output, {device operation name:
+    launches}). A profiled window can lose the kernels' events (the copies'
+    may remain), so one that records no kernel runs fn again, up to five
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    t0 = time.perf_counter()
-    blob = serialize_predict(oak)
-    t1 = time.perf_counter()
-    blob_v = serialize_predict(oak, include_var=True)
-    export_s = (t1 - t0, time.perf_counter() - t1)
-    f, fv = deserialize_predict(blob), deserialize_predict(blob_v)
+    seen = {}
+    for _ in range(5):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count}
+        if any(not k.startswith(("Memcpy", "Memset")) for k in seen):
+            return out, seen
+    raise RuntimeError(f"torch.profiler recorded no kernel in 5 windows (only {seen})")
+
+
+def _package_request(name, f, X, counts):
+    """One request of a compiled artifact, under torch.profiler: the package
+    launches the Triton K1 once (its kernel name) and the CUDA K1 not at all
+    (neither by name nor in ``og.LAUNCHES``). Adds its Triton K1 launches to
+    ``counts["triton"]`` and returns the output."""
+    from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.ops import oak_gram_triton as ogt
+
+    before = og.LAUNCHES
+    out, names = _kernel_names(lambda: f(X))
+    triton = sum(c for k, c in names.items() if ogt.KERNEL_NAME in k)
+    cuda_k1 = sum(c for k, c in names.items() if "oak_gram_fwd_kernel" in k)
+    if triton != 1 or cuda_k1 or og.LAUNCHES != before:
+        raise RuntimeError(f"{name}: a package request launched the Triton K1 {triton} "
+                           f"times and the CUDA K1 {cuda_k1} times by name, "
+                           f"{og.LAUNCHES - before} by count; device operations: {names}")
+    counts["triton"] += triton
+    return out
+
+
+def _program_blob(oak, include_var):
+    """The artifact an earlier tree wrote for the card: the torch.export
+    program as traced (its gram the registered CUDA-K1 op), not compiled."""
+    from oak_tpu_torch import serving
+
+    predict = oak.export_predict(include_var=include_var)
+    sample = torch.stack([predict.xmin, predict.xmax])
+    return serving._saved(serving._export(predict, sample, {"X": {0: torch.export.Dim("batch")}}))
+
+
+def _serve_model(name, oak, X, bernoulli, counts, compiled):
+    """Serialize on the card, load, serve SERVE_ROWS requests against the
+    live API (the rows of X repeated where it has fewer). The compiled
+    package: (mean, std) of a Gaussian model, the mean-only artifact of a
+    Bernoulli one, each request launching the Triton K1 once and the CUDA
+    K1 never (_package_request). The other artifact as an earlier tree
+    wrote it (_program_blob), each request launching the CUDA K1 once; for
+    a Gaussian model also its (mean, std) program, the package's like for
+    phase 13. ``compiled``: the package's blob and its compile seconds
+    (_compile_served). Returns a findings line and {"package": the
+    package's callable, its blob, "program": the (mean, std) program's
+    callable, "rows": the served rows}."""
+    from oak_tpu_torch import deserialize_predict
+
     X = np.resize(X, (max(SERVE_ROWS), X.shape[1]))
     live = oak.predict(X, clip=True)
-    errs = [_check_served(f"{name} {r} rows", f(X[:r]), live[:r]) for r in SERVE_ROWS]
-    _one_launch_per_request(name, f, X[:100])
-    mean, std = (t.cpu().numpy() for t in fv(X))
+    blob, compile_s = compiled
+    package = deserialize_predict(blob)
+    t0 = time.perf_counter()
+    program_blob = _program_blob(oak, include_var=bernoulli)
+    export_s = time.perf_counter() - t0
+    program = deserialize_predict(program_blob)
+    out = {"package": package, "blob": blob, "rows": X}
     if bernoulli:
+        errs = [_check_served(f"{name} package {r} rows",
+                              _package_request(name, package, X[:r], counts), live[:r])
+                for r in SERVE_ROWS]
         # (p, std) mirrors predict_proba: the posterior-predictive
         # probability and the outcome's std
+        _one_launch_per_request(f"{name} (p, std) program", program, X[:100])
+        mean, std = (t.cpu().numpy() for t in program(X))
         v_err = _check_served(f"{name} (p, std) p", mean, oak.predict_proba(X, clip=True))
         s_err = _check_served(f"{name} (p, std) std", std, np.sqrt(mean * (1.0 - mean)))
+        text = (f"mean-only package vs predict at "
+                + ", ".join(f"{r} rows {e:.2e}" for r, e in zip(SERVE_ROWS, errs))
+                + f"; (p, std) program vs predict_proba {v_err:.2e} / {s_err:.2e}")
     else:
         with torch.no_grad():
             var = oak.m.predict_f(oak._tensor(oak._scaled_input(X, True)))[1]
         latent_std = np.sqrt(np.maximum(var.cpu().numpy()[:, 0], 0.0)) * oak.scaler_y.scale_[0]
-        v_err = _check_served(f"{name} (mean, std) mean", mean, live)
-        s_err = _check_served(f"{name} (mean, std) std", std, latent_std)
-    line = (f"{name}: export {export_s[0]:.3f} s, {len(blob)} bytes ((mean, std): "
-            f"{export_s[1]:.3f} s, {len(blob_v)} bytes); mean-only vs {'predict' if bernoulli else 'the live mean'} at "
-            + ", ".join(f"{r} rows {e:.2e}" for r, e in zip(SERVE_ROWS, errs))
-            + f"; (mean, std) vs {'predict_proba' if bernoulli else 'live mean and latent std'}"
-            f" {v_err:.2e} / {s_err:.2e} (tol {SERVE_TOL} of max |live|); one K1 launch per "
-            f"served request")
-    return line, f
+        errs, s_errs = [], []
+        for r in SERVE_ROWS:
+            mean, std = _package_request(name, package, X[:r], counts)
+            errs.append(_check_served(f"{name} package {r} rows mean", mean, live[:r]))
+            s_errs.append(_check_served(f"{name} package {r} rows std", std, latent_std[:r]))
+        p_errs = [_check_served(f"{name} program {r} rows", program(X[:r]), live[:r])
+                  for r in SERVE_ROWS]
+        _one_launch_per_request(f"{name} program", program, X[:100])
+        t0 = time.perf_counter()
+        out["program"] = deserialize_predict(_program_blob(oak, include_var=True))
+        export_s += time.perf_counter() - t0
+        _check_served(f"{name} (mean, std) program", out["program"](X)[0], live)
+        # no Inductor kernel holds the per-dim grams: a request's peak above
+        # what was allocated stays under one [n, M, D] float32 buffer
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        package(X)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        grams = 4 * len(X) * oak.m.Z.value.shape[0] * X.shape[1]
+        if peak >= grams:
+            raise RuntimeError(f"{name}: a {len(X)}-row package request peaks {peak} bytes "
+                               f"above its inputs, past one [n, M, D] buffer ({grams})")
+        text = ("(mean, std) package vs the live mean and latent std at "
+                + ", ".join(f"{r} rows {e:.2e} / {s:.2e}"
+                            for r, e, s in zip(SERVE_ROWS, errs, s_errs))
+                + f"; a {len(X)}-row request's peak {peak / 1e6:.2f} MB above its inputs "
+                f"(one [n, M, D] buffer {grams / 1e6:.2f} MB); mean-only program vs the live "
+                "mean at " + ", ".join(f"{r} rows {e:.2e}" for r, e in zip(SERVE_ROWS, p_errs)))
+    line = (f"{name}: package compiled in {compile_s:.1f} s (in the compile process, beside "
+            f"phases 2-9), {len(blob)} bytes; programs "
+            f"exported in {export_s:.1f} s, {len(program_blob)} bytes; {text} (tol "
+            f"{SERVE_TOL} of max |live|); one Triton K1 launch and no CUDA K1 per package "
+            f"request, one CUDA K1 launch per program request")
+    return line, out
+
+
+STANDALONE = """
+import json, shutil, sys
+try:
+    import oak_tpu_torch
+except ImportError:
+    pass
+else:
+    raise SystemExit("oak_tpu_torch is importable")
+if shutil.which("nvcc") is not None:
+    raise SystemExit("nvcc is on PATH")
+import numpy, torch
+for name in json.loads(sys.argv[1]):
+    f = torch._inductor.aoti_load_package(f"../{name}.pt2")
+    out = f(torch.as_tensor(numpy.load(f"../{name}.npy"), device="cuda"))
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    numpy.savez(f"../{name}_out.npz", *[t.cpu().numpy() for t in outs])
+"""
+
+
+def _standalone_start(served, tmp):
+    """Each package of ``served`` ({name: _serve_model's dict}) written to
+    ``tmp`` with its rows, and loaded and served there by a ``python -I``
+    process started from an empty directory, with PATH stripped of the CUDA
+    toolkit: it cannot import oak_tpu_torch, finds no nvcc, and loads the
+    blob with torch._inductor.aoti_load_package alone. Started in the
+    background (phase 10.3 runs meanwhile); returns what _standalone_finish
+    needs: the process, this process's outputs, the start time."""
+    import os
+
+    ours = {}
+    for name, s in served.items():
+        Path(tmp, f"{name}.pt2").write_bytes(s["blob"])
+        X = np.asarray(s["rows"], np.float32)
+        np.save(Path(tmp, f"{name}.npy"), X)
+        out = s["package"](X)
+        ours[name] = [t.cpu().numpy() for t in (out if isinstance(out, tuple) else [out])]
+    empty = Path(tmp, "empty")
+    empty.mkdir()
+    path = os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                           if "cuda" not in p.lower())
+    proc = subprocess.Popen([sys.executable, "-I", "-c", STANDALONE, json.dumps(list(served))],
+                            cwd=empty, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ, PATH=path))
+    return proc, ours, time.perf_counter()
+
+
+def _standalone_finish(started, tmp):
+    """Waits for _standalone_start's process; its results must equal this
+    process's, bitwise. Returns its seconds."""
+    proc, ours, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the standalone load failed ({proc.returncode}):\n"
+                           f"{stdout[-2000:]}{stderr[-3000:]}")
+    for name, arrays in ours.items():
+        with np.load(Path(tmp, f"{name}_out.npz")) as f:
+            theirs = [f[k] for k in sorted(f.files, key=lambda k: int(k.split("_")[1]))]
+        if len(theirs) != len(arrays) or not all(np.array_equal(a, b)
+                                                 for a, b in zip(arrays, theirs)):
+            raise RuntimeError(f"{name}: the standalone process served other values")
+    return seconds
+
+
+# the artifacts phase 10.2 compiles: (model, include_var)
+COMPILED = (("pumadyn", False), ("heart", True))
+
+
+def compile_served(folder):
+    """The compile process of phase 10.2 (``--compile-served DIR``): the
+    committed pumadyn (mean, std) and heart mean-only artifacts serialized
+    on the card with serialize_predict, each blob written to DIR/<name>.pt2
+    and the seconds of each to DIR/compile.json."""
+    from oak_tpu_torch import load_oak_model, serialize_predict
+
+    seconds = {}
+    for name, bernoulli in COMPILED:
+        oak = load_oak_model(COMMITTED / name / "model_oak_0.npz")
+        t0 = time.perf_counter()
+        blob = serialize_predict(oak, include_var=not bernoulli)
+        seconds[name] = time.perf_counter() - t0
+        Path(folder, f"{name}.pt2").write_bytes(blob)
+    Path(folder, "compile.json").write_text(json.dumps(seconds))
+
+
+class _CompileServed:
+    """Phase 10.2's compiles, in a process of their own (compile_served)
+    started right after the build, so that they run while phases 2-9 do:
+    ~165 s of Inductor that would otherwise stand in line. ``result()``
+    waits for it and returns {name: (blob, compile seconds)}; ``close()``
+    stops it if it still runs."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.log = open(Path(self.tmp.name, "log.txt"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--compile-served", self.tmp.name],
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self):
+        self.proc.wait(timeout=900)
+        self.log.close()
+        if self.proc.returncode != 0:
+            log = Path(self.tmp.name, "log.txt").read_text()
+            raise RuntimeError(f"phase 10.2's compile process failed "
+                               f"({self.proc.returncode}):\n{log[-5000:]}")
+        seconds = json.loads(Path(self.tmp.name, "compile.json").read_text())
+        return {name: (Path(self.tmp.name, f"{name}.pt2").read_bytes(), seconds[name])
+                for name, _ in COMPILED}
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.tmp.cleanup()
 
 
 def _run_script(name, args):
@@ -1378,7 +1662,7 @@ def _run_script(name, args):
         sys.argv = argv
 
 
-def phase_committed(device):
+def phase_committed(device, compiles):
     """Phase 10, the committed models and serving on the card.
 
     10.1 examples/uci/outputs/pumadyn/model_oak_0.npz (oak_tpu's fold 0:
@@ -1388,13 +1672,25 @@ def phase_committed(device):
     against the same file in float64 on the card at float32's jitter
     (b1_gate), and the K1 launches of the path.
     10.2 that model and heart fold 0 (a Bernoulli SVGP whose binary and
-    categorical dims reach K1 as extra grams) serialized on the card and
-    served at 1, 100 and 1639 rows against the live API (the mean-only
-    artifact against predict, the (mean, std) one against the live mean and
-    latent std or against predict_proba); a served request launches K1
-    once; the export's seconds, the artifacts' bytes, and the host-clock
-    latency of a warm served request against a warm live predict, with the
-    device operations and device time of one of each (torch.profiler).
+    categorical dims reach K1 as extra grams) serialized on the card
+    (_serve_model): pumadyn's (mean, std) and heart's mean-only artifacts
+    compiled by serialize_predict into AOTInductor packages whose gram is
+    the Triton K1 (in the process ``compiles`` started after phase 1,
+    _CompileServed, so that the compiles run beside phases 2-9), served at
+    1, 100 and 1639 rows against the live API
+    (the mean against the live mean and the std against the latent std,
+    or the mean against predict), each request launching the Triton K1
+    once and the CUDA K1 never, a 1639-row pumadyn request's peak memory
+    under one [n, M, D] buffer; both packages served again in a python -I
+    process that cannot import oak_tpu_torch and has no nvcc, bitwise
+    equal (_standalone_start, running beside 10.3); the two other artifacts (pumadyn's mean-only and
+    heart's (p, std)) as the torch.export programs an earlier tree wrote,
+    against predict or predict_proba, each request launching K1 once; the
+    compile and export seconds, the blobs' bytes, and the host-clock
+    latency of a warm request of pumadyn's (mean, std) package, of its
+    program and of the live predict, with the device operations and
+    device time of one of each (torch.profiler). Only two artifacts are
+    compiled: a compile takes 40-45 s, the first one of a process ~120 s.
     10.3 the torch UCI scripts end to end on the card, each into a temporary
     --output_dir: uci_regression_train.py --dataset_name autoMPG and
     uci_classification_train.py --dataset_name heart, both with --k 2
@@ -1404,10 +1700,15 @@ def phase_committed(device):
     10.4 K1 and K2 against their plain versions (_kernels_at, phase 2's
     and 2b's rules) at the shapes this phase adds: heart's Kus and Kuf
     (binary and categorical grams through extra) and autoMPG's square
-    K(X) at depth 7 (_committed_shapes). These launches come after the
+    K(X) at depth 7 (_committed_shapes); the Triton K1 against the plain
+    version and K1 (_triton_checked) at the served Kus (pumadyn's at 1,
+    100 and 1639 rows, heart's at 1639 with 8 extra grams), timed at
+    pumadyn's 1639 rows (_triton_row). These launches come after the
     phase's count is read.
 
-    Returns the K1 and K2 launches of 10.1-10.3."""
+    Returns the K1 and K2 launches of 10.1-10.3, pumadyn's served
+    artifacts (_serve_model's dict) and {"triton": the packages' Triton K1
+    launches in 10.2, "numbers": its timing at pumadyn's served Kus}."""
     from oak_tpu_torch import load_oak_model
     from oak_tpu_torch.models import SGPR, SVGP
     from oak_tpu_torch.ops import oak_gram as og
@@ -1441,27 +1742,40 @@ def phase_committed(device):
     del oak64
 
     t0 = time.perf_counter()
-    puma_line, served = _serve_model("pumadyn", oak, Xte, bernoulli=False)
+    counts = {"triton": 0}
+    compiled = compiles.result()
+    wait_s = time.perf_counter() - t0
+    puma_line, served = _serve_model("pumadyn", oak, Xte, False, counts, compiled["pumadyn"])
     heart = load_oak_model(COMMITTED / "heart" / "model_oak_0.npz")
     Xh, _ = heart_fold0()
     if not (isinstance(heart.m, SVGP) and og.supports_fused(heart.m.kernel)
             and heart.binary_index and heart.categorical_index):
         raise RuntimeError("committed heart: not a fused-route SVGP with binary and "
                            "categorical dims")
-    heart_line, _ = _serve_model("heart", heart, Xh, bernoulli=True)
+    heart_line, heart_served = _serve_model("heart", heart, Xh, True, counts,
+                                            compiled["heart"])
+    standalone_tmp = tempfile.TemporaryDirectory()
+    standalone = _standalone_start({"pumadyn": served, "heart": heart_served},
+                                   standalone_tmp.name)
     latency = []
     for rows in (1, len(Xte)):
         Xr = Xte[:rows]
-        ms_served = _host_ms(lambda: served(Xr).cpu(), SERVE_REPEATS)
-        ms_live = _host_ms(lambda: oak.predict(Xr, clip=True), SERVE_REPEATS)
-        dev_served, n_served = _device_ms(lambda: served(Xr).cpu(), 1, 1, with_ops=True)
-        dev_live, n_live = _device_ms(lambda: oak.predict(Xr, clip=True), 1, 1, with_ops=True)
-        latency.append(f"{rows} rows served {ms_served:.3f} ms ({n_served} device operations, "
-                       f"{dev_served:.3f} ms on the device), live predict {ms_live:.3f} ms "
-                       f"({n_live} device operations, {dev_live:.3f} ms on the device)")
-    print(f"phase 10.2 serving ({time.perf_counter() - t0:.3f} s): {puma_line}; {heart_line}; "
-          f"warm host-clock latency, numpy in and out (median of {SERVE_REPEATS}; the kernels and "
-          f"copies of one more call, and their device time, from torch.profiler): " + "; ".join(latency))
+        calls = {"package": lambda: served["package"](Xr)[0].cpu(),
+                 "program": lambda: served["program"](Xr)[0].cpu(),
+                 "live predict": lambda: oak.predict(Xr, clip=True)}
+        parts = []
+        for what, fn in calls.items():
+            ms = _host_ms(fn, SERVE_REPEATS)
+            dev, ops = _device_ms(fn, 1, 1, with_ops=True)
+            parts.append(f"{what} {ms:.3f} ms ({ops} device operations, {dev:.3f} ms on "
+                         "the device)")
+        latency.append(f"{rows} rows: " + ", ".join(parts))
+    print(f"phase 10.2 serving ({time.perf_counter() - t0:.3f} s, of which {wait_s:.1f} s "
+          f"waiting for the compile process started after phase 1): {puma_line}; "
+          f"{heart_line}; Triton K1 launches by the packages {counts['triton']}; warm "
+          f"host-clock latency of pumadyn's (mean, std), numpy in and out (median of "
+          f"{SERVE_REPEATS}; the kernels and copies of one more call, and their device time, "
+          f"from torch.profiler): " + "; ".join(latency))
 
     t0 = time.perf_counter()
     runs = []
@@ -1493,15 +1807,53 @@ def phase_committed(device):
           f"launches over phase 10: K1 {launches['fwd']}, K2 {launches['bwd']}")
     if launches["bwd"] == 0:
         raise RuntimeError("phase 10's training runs did not launch K2")
+    try:
+        standalone_s = _standalone_finish(standalone, standalone_tmp.name)
+    finally:
+        standalone_tmp.cleanup()
+    print(f"phase 10.2 both packages loaded and served in a python -I process (no "
+          f"oak_tpu_torch, no nvcc on PATH), started before 10.3: equal to this one's, "
+          f"bitwise ({standalone_s:.1f} s)")
 
     t0 = time.perf_counter()
     text = []
-    for name, args in _committed_shapes(heart, Xh).items():
+    shapes = _committed_shapes(heart, Xh)
+    for name, args in shapes.items():
         _, lines = _kernels_at(name, args, device)
         text += [f"{name}, depth {args[-1]}: " + "; ".join(lines[:2])] + lines[2:]
-    print(f"phase 10.4 K1 and K2 vs plain at phase 10's shapes ({time.perf_counter() - t0:.1f} "
-          "s):\n" + "\n".join(text))
-    return launches, lambda rows: served(Xte[:rows]).cpu()
+    served_kus = _served_kus(oak, Xte)
+    served_kus.update({k: v for k, v in shapes.items() if k.startswith("heart Kus")})
+    bitwise, findings = 0, []
+    with torch.no_grad():
+        for name, args in served_kus.items():
+            k1 = og.oak_gram_fused(*args)
+            ref = og.oak_gram_plain(*args)
+            ref64 = og.oak_gram_plain(*[t.double() for t in args[:-1]], args[-1])
+            same, finding, _ = _triton_checked(name, args, k1, ref, ref64)
+            bitwise += same
+            findings.append(f"{name} {finding}")
+    row, triton_numbers = _triton_row(f"pumadyn Kus {PUMA_M}x{len(Xte)}",
+                                      served_kus[f"pumadyn Kus {PUMA_M}x{len(Xte)}"])
+    print(f"phase 10.4 K1 and K2 vs plain at phase 10's shapes, the Triton K1 at the served "
+          f"Kus ({time.perf_counter() - t0:.1f} s):\n" + "\n".join(text)
+          + f"\n  Triton K1 vs plain (and vs K1 under the same rule): {', '.join(findings)}; "
+          f"bitwise equal to K1 at {bitwise} of {len(served_kus)}\n{row}")
+    return launches, served, dict(counts, numbers=triton_numbers)
+
+
+def _served_kus(oak, Xte):
+    """Prescaled inputs of the committed pumadyn model's served Kus (Z
+    against the scaled test rows) at 1, 100 and len(Xte) rows, depth 8."""
+    from oak_tpu_torch.ops import oak_gram as og
+
+    k, Z = oak.m.kernel, oak.m.Z.value
+    out = {}
+    with torch.no_grad():
+        for rows in SERVE_ROWS:
+            Xs = oak._tensor(oak._scaled_input(Xte[:rows], True))
+            args = tuple(t.detach().contiguous() for t in og._prep(k, Z, Xs))
+            out[f"pumadyn Kus {Z.shape[0]}x{rows}"] = args + (k.max_interaction_depth,)
+    return out
 
 
 def _committed_shapes(heart, Xh):
@@ -2563,9 +2915,10 @@ def phase_grouped(device, served):
     one _prep and one K_diag at D 8 and D 32, which must be equal.
     13.2 launches, host ms (synchronised, median of GROUPED_REPEATS) and
     device ms of a warm fit_adam step, predict_y of 1 and 8192 rows, a full
-    Sobol, and a warm served request of phase 10.2's pumadyn artifact
-    (``served``: rows -> its callable's output on the host), and the peak
-    memory of phase 5's Sobol calls. Returns the phase's K1 and K2
+    Sobol, and a warm served request of phase 10.2's pumadyn (mean, std)
+    artifact, its compiled package beside its torch.export program
+    (``served``: _serve_model's dict; numpy in, the mean on the host), and
+    the peak memory of phase 5's Sobol calls. Returns the phase's K1 and K2
     launches."""
     from oak_tpu_torch import sobol as sb
     from oak_tpu_torch.kernels import stackable_groups
@@ -2635,7 +2988,10 @@ def phase_grouped(device, served):
              "predict_y 1 row": lambda: model.predict_y(Xr[1]),
              f"predict_y {N} rows": lambda: model.predict_y(Xr[N]),
              "full Sobol": lambda: sb.compute_sobol_oak(model)}
-    calls.update({f"served request {r} rows": (lambda r=r: served(r)) for r in (1, 1639)})
+    rows = served["rows"]
+    for what in ("package", "program"):
+        calls.update({f"served request, (mean, std) {what}, {r} rows":
+                      (lambda r=r, f=served[what]: f(rows[:r])[0].cpu()) for r in (1, 1639)})
     lines = []
     for name, fn in calls.items():
         with contextlib.nullcontext() if name == "fit_adam step" else torch.no_grad():
@@ -3125,23 +3481,29 @@ def profile_sobol(model, device, repeats=5):
 
 
 def profile_serving(repeats=7):
-    """Where a warm served request's time goes: phase 10.2's artifact of
-    oak_tpu's committed pumadyn fold 0 at 1 and 1639 of its test rows, numpy
-    in and out: host ms (synchronised, median of ``repeats``), kernel
-    launches and device ms of one request (torch.profiler)."""
+    """Where a warm served request's time goes: phase 10.2's (mean, std)
+    artifact of oak_tpu's committed pumadyn fold 0, its compiled package
+    beside its torch.export program, at 1 and 1639 of its test rows, numpy
+    in, the mean on the host: host ms (synchronised, median of
+    ``repeats``), kernel launches and device ms of one request
+    (torch.profiler)."""
     from oak_tpu_torch import deserialize_predict, load_oak_model, serialize_predict
 
     oak = load_oak_model(COMMITTED / "pumadyn" / "model_oak_0.npz")
     _, _, Xte, _ = pumadyn_fold0()
-    served = deserialize_predict(serialize_predict(oak))
+    t0 = time.perf_counter()
+    package = deserialize_predict(serialize_predict(oak, include_var=True))
+    print(f"profile served request: the package compiled in {time.perf_counter() - t0:.1f} s")
+    program = deserialize_predict(_program_blob(oak, include_var=True))
     for rows in (1, len(Xte)):
-        def request():
-            return served(Xte[:rows]).cpu()
+        for what, served in (("package", package), ("program", program)):
+            def request():
+                return served(Xte[:rows])[0].cpu()
 
-        launches, device_ms = _launches_device_ms(request)
-        print(f"profile served request, {rows} rows: host {_host_ms(request, repeats):.3f} ms "
-              f"(sync, median of {repeats}); {launches} kernel launches, device time "
-              f"{device_ms:.3f} ms")
+            launches, device_ms = _launches_device_ms(request)
+            print(f"profile served request, (mean, std) {what}, {rows} rows: host "
+                  f"{_host_ms(request, repeats):.3f} ms (sync, median of {repeats}); "
+                  f"{launches} kernel launches, device time {device_ms:.3f} ms")
 
 
 class _RankRows:
@@ -3202,10 +3564,15 @@ def main():
                              "tree unpacked there), to profile it with this script")
     parser.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD", "DIR", "BACKEND"),
                         help="run one rank of a phase-12 job (phase_parallel starts them)")
+    parser.add_argument("--compile-served", metavar="DIR",
+                        help="compile phase 10.2's packages into DIR (the script starts it)")
     args = parser.parse_args()
     if args.parallel_rank:
         rank, world, folder, backend = args.parallel_rank
         parallel_rank(int(rank), int(world), folder, backend)
+        return
+    if args.compile_served:
+        compile_served(args.compile_served)
         return
     if args.package:
         if not args.profile:
@@ -3237,24 +3604,29 @@ def main():
         print(f"phase {name} took {seconds[name]:.1f} s")
         return out
 
-    gpr = build_gpr_model(device)
-    old = _old_kernels(args.old) if args.old else None
-    kernel = timed("2", phase_kernel, model, X, gpr, device, old)
-    kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device, old)
-    del gpr
-    predict_launches = timed("3", phase_main_path, model, X, device)
-    train_launches, trained, X_train = timed("4", phase_training, device)
-    sobol_launches = timed("5", phase_sobol, trained, X_train)
-    del trained, X_train
-    sgpr_launches = timed("6", phase_sgpr, device)
-    gpr_launches = timed("7", phase_gpr, device)
-    timed("8", phase_defaults, device)
-    oak_launches, oak_kernels = timed("9", phase_oak_model, device)
-    committed_launches, served = timed("10", phase_committed, device)
-    surface_launches = timed("11", phase_surface, device)
-    parallel_launches = timed("12", phase_parallel, device)
-    grouped_launches = timed("13", phase_grouped, device, served)
-    lanes_launches, lanes_kernels, _ = timed("14", phase_lanes, device)
+    # phase 10.2's compiles run in a process of their own meanwhile
+    compiles = _CompileServed()
+    try:
+        gpr = build_gpr_model(device)
+        old = _old_kernels(args.old) if args.old else None
+        kernel = timed("2", phase_kernel, model, X, gpr, device, old)
+        kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device, old)
+        del gpr
+        predict_launches = timed("3", phase_main_path, model, X, device)
+        train_launches, trained, X_train = timed("4", phase_training, device)
+        sobol_launches = timed("5", phase_sobol, trained, X_train)
+        del trained, X_train
+        sgpr_launches = timed("6", phase_sgpr, device)
+        gpr_launches = timed("7", phase_gpr, device)
+        timed("8", phase_defaults, device)
+        oak_launches, oak_kernels = timed("9", phase_oak_model, device)
+        committed_launches, served, triton = timed("10", phase_committed, device, compiles)
+        surface_launches = timed("11", phase_surface, device)
+        parallel_launches = timed("12", phase_parallel, device)
+        grouped_launches = timed("13", phase_grouped, device, served)
+        lanes_launches, lanes_kernels, _ = timed("14", phase_lanes, device)
+    finally:
+        compiles.close()
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
           f"total {time.perf_counter() - t0:.1f} s")
 
@@ -3275,6 +3647,22 @@ def main():
                                                       "share")},
                 "lanes": {shape: lanes_kernels[shape][kind] for shape in lanes_kernels}}
 
+    def triton_entry(launches, n, served_kus):
+        # the Triton K1 in the compiled packages: launches counted by name in
+        # phase 10.2's profiled package requests (the package launches it
+        # from C++); ms, device_ms, plain_ms at the bench's Kus as above, and
+        # the same at pumadyn's served Kus (1639 rows) under "served_kus"
+        keys = ("event_ms", "device_ms", "k1_device_ms", "plain_ms", "bound_ms", "bound_by",
+                "share")
+        return {"name": "oak_gram_fwd_triton_kernel", "route": "triton",
+                "source": "oak_tpu_torch/ops/oak_gram_triton.py",
+                "replaces": "oak_tpu/ops/oak_gram_pallas.py:63", "launches": launches,
+                "max_abs_err": n["max_abs_err"], "ms": n["event_ms"],
+                "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
+                "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
+                "library_ms": None, "k1_device_ms": n["k1_device_ms"],
+                "served_kus": {k: served_kus[k] for k in keys}}
+
     print(json.dumps({"kernels": [
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:63",
@@ -3289,7 +3677,8 @@ def main():
               + oak_launches["bwd"] + committed_launches["bwd"] + surface_launches["bwd"]
               + parallel_launches["bwd"] + grouped_launches["bwd"] + lanes_launches["bwd"],
               kernel_bwd,
-              oak_kernels["K2"], "K2")]}))
+              oak_kernels["K2"], "K2"),
+        triton_entry(triton["triton"], kernel["Triton"], triton["numbers"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,15 @@
 """Serving-export walkthrough on the PyTorch port: train an OAK model,
-serialize its predict path as a ``torch.export`` artifact, and serve from
-the artifact.
+serialize its predict path, and serve from the artifact.
 
 The artifact (a graph with a dynamic batch dimension and the parameters
 as constants) needs no model rebuild, no checkpoint and no preprocessing
-objects at serving time: the flows and scalers are in the graph. Unlike
-``oak_tpu``'s StableHLO artifact (examples/serving_example.py), the
-serving process must be able to import ``oak_tpu_torch``, because a graph
-traced on the card calls the fused gram kernel through a registered op.
+objects at serving time: the flows and scalers are in the graph. On the
+card it is compiled, as ``oak_tpu``'s StableHLO artifact is
+(examples/serving_example.py): an AOTInductor package whose gram is the
+Triton K1, which a process with torch alone loads with
+``torch._inductor.aoti_load_package(path)``, without ``oak_tpu_torch`` or
+the CUDA toolkit. On the CPU it is a ``torch.export`` program
+(``torch.export.load(path).module()``).
 
     python examples/uci_torch/serving_example.py               # on the card
     python examples/uci_torch/serving_example.py --device cpu
@@ -57,6 +59,15 @@ def main():
         # ---- another process would start here: the artifact only ----
         serve = deserialize_predict(path)
         mean, std = (t.cpu().numpy() for t in serve(X[n_train:]))
+        if args.device.startswith("cuda"):
+            # the card's package needs torch alone
+            import torch
+
+            package = torch._inductor.aoti_load_package(path)
+            alone = package(torch.as_tensor(X[n_train:], dtype=torch.float32,
+                                            device=args.device))[0]
+            same = np.array_equal(alone.cpu().numpy(), mean)
+            print(f"loaded with torch alone: the same means {same}")
     rmse = float(np.sqrt(np.mean((mean - y[n_train:, 0]) ** 2)))
     inside = float(np.mean(np.abs(mean - y[n_train:, 0]) < 2 * std))
     print(f"served {len(mean)} predictions: rmse={rmse:.4f}, "

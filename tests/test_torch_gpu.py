@@ -1,5 +1,6 @@
-"""The CUDA kernels csrc/oak_gram_fwd.cu and csrc/oak_gram_bwd.cu against
-their plain torch versions, on the card, at the shapes chip_smoke.py drives,
+"""The CUDA kernels csrc/oak_gram_fwd.cu and csrc/oak_gram_bwd.cu and the
+Triton K1 (ops/oak_gram_triton.py) against their plain torch versions, on
+the card, at the shapes chip_smoke.py drives, the compiled serving artifact,
 and the Sobol layer in float32 on the card against float64 on the CPU.
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips when no
 card is present. This file imports no JAX, so on a machine with a card and
@@ -16,6 +17,7 @@ from oak_tpu_torch import sobol as sb
 from oak_tpu_torch.kernels import OAKKernel
 from oak_tpu_torch.models import SVGP, Gaussian
 from oak_tpu_torch.ops import oak_gram as og
+from oak_tpu_torch.ops import oak_gram_triton as ogt
 from oak_tpu_torch.testing import (KERNEL_CASES, SQUARE_CASE, kernel_error, prescaled_inputs,
                                    square_inputs)
 
@@ -335,34 +337,77 @@ def test_fit_lbfgs_on_the_card_reaches_the_cpu_f64_loss(cuda):
     assert np.isfinite(f32) and abs(f32 - f64) < 1e-3 * abs(f64), (f32, f64)
 
 
+def _package_request(f, X):
+    """f(X) under torch.profiler: (its output, launches of the Triton K1 and
+    of the CUDA K1, by kernel name). A window that records no kernel (the
+    profiler can lose them) runs f again, up to five times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = f(X)
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count}
+        if any(not k.startswith(("Memcpy", "Memset")) for k in names):
+            break
+    return (out, sum(c for k, c in names.items() if ogt.KERNEL_NAME in k),
+            sum(c for k, c in names.items() if "oak_gram_fwd_kernel" in k))
+
+
+def _card_program(blob):
+    """The traced program a card artifact holds (its PROGRAM record), run
+    on the card: its gram is the registered op, the CUDA K1."""
+    import io
+
+    from oak_tpu_torch import serving
+
+    module = torch.export.load(io.BytesIO(serving._program(blob))).module()
+    return lambda X: module(torch.as_tensor(X, dtype=torch.float32, device="cuda"))
+
+
 def test_exported_predict_on_the_card_matches_live_and_launches_k1(cuda, tmp_path):
     """A small default-built oak_model (float32 on the card) serialized with
-    serving.serialize_predict and loaded back: every batch size, 1 row
-    included, equals the live predict within 1e-5 of max |live| (the same
-    float32 arithmetic, the scalers in float32 here and float64 in the live
-    path), each served call launches K1, and the (mean, std) artifact's
-    mean equals the mean-only one. The card's artifact moved to the CPU
-    runs the op's plain version, and an artifact traced on the CPU the
-    plain route; both launch nothing and agree within 1e-3."""
+    serving.serialize_predict and loaded back. The traced program the blob
+    holds, run on the card: every batch size, 1 row included, equals the
+    live predict within 1e-5 of max |live| (the same float32 arithmetic,
+    the scalers in float32 here and float64 in the live path), each call
+    launches K1 once, and the (mean, std) program's mean equals the
+    mean-only one. The compiled package deserialize_predict serves: within
+    1e-4 of max |live| (chip_smoke.py's served gate: Inductor's fused
+    float32 arithmetic is not eager's), each call launching the package's
+    Triton K1 once and the CUDA K1 not at all. The card's artifact moved to
+    the CPU runs its traced program with the op's plain version, and an
+    artifact traced on the CPU the plain route; both launch nothing and
+    agree within 1e-3."""
     from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict
 
     X, y = _oak_data(n=200, seed=75)
     oak = oak_model(max_interaction_depth=2).fit(X, y, optimise=False)
     oak.optimise(max_iters=10)
-    serialize_predict(oak, tmp_path / "predict.pt2")
-    f = deserialize_predict(tmp_path / "predict.pt2")
-    fv = deserialize_predict(serialize_predict(oak, include_var=True))
+    blob = serialize_predict(oak, tmp_path / "predict.pt2")
+    blob_v = serialize_predict(oak, include_var=True)
+    f, fv = deserialize_predict(tmp_path / "predict.pt2"), deserialize_predict(blob_v)
+    program, program_v = _card_program(blob), _card_program(blob_v)
     live = oak.predict(X, clip=True)
     for rows in (1, 2, 37, 200):
         before = og.LAUNCHES
-        served = f(X[:rows])
+        traced = program(X[:rows])
         torch.cuda.synchronize()
         assert og.LAUNCHES == before + 1, rows
+        err = np.abs(traced.cpu().numpy() - live[:rows]).max() / np.abs(live).max()
+        assert err < 1e-5, (rows, err)
+        before = og.LAUNCHES
+        served, triton, cuda_k1 = _package_request(f, X[:rows])
+        assert og.LAUNCHES == before and (triton, cuda_k1) == (1, 0), rows
         assert served.is_cuda and served.shape == (rows,)
         err = np.abs(served.cpu().numpy() - live[:rows]).max() / np.abs(live).max()
-        assert err < 1e-5, (rows, err)
+        assert err < 1e-4, (rows, err)
+    assert torch.equal(program_v(X)[0], program(X))
     mean, std = fv(X)
-    assert torch.equal(mean, f(X)) and bool((std > 0).all())
+    assert bool((std > 0).all())
+    assert np.abs(mean.cpu().numpy() - live).max() < 1e-4 * np.abs(live).max()
     # the CPU copy runs the plain gram and LAPACK in float32: the card's
     # float32 against the CPU's, under phase 3's end-to-end bound of
     # chip_smoke.py (1e-3 of max |live|)
@@ -376,26 +421,85 @@ def test_exported_predict_on_the_card_matches_live_and_launches_k1(cuda, tmp_pat
 
 def test_cpu_model_serialized_for_the_card_traces_k1(cuda):
     """A float32 model on the CPU serialized with device="cuda" is traced on
-    the card from a moved copy: its graph holds the registered op, each
-    served call launches K1, and it agrees with the CPU's live predict
+    the card from a moved copy: its traced program holds the registered
+    op, each served call of its package launches the Triton K1 once (and
+    the CUDA K1 not at all), and it agrees with the CPU's live predict
     within 1e-3 (phase 3's end-to-end bound of chip_smoke.py)."""
     import io
 
-    from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict
+    from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict, serving
 
     X, y = _oak_data(n=200, seed=77)
     oak = oak_model(max_interaction_depth=2, dtype=torch.float32, device="cpu")
     oak.fit(X, y, optimise=False)
     blob = serialize_predict(oak, device="cuda")
-    ep = torch.export.load(io.BytesIO(blob))
+    ep = torch.export.load(io.BytesIO(serving._program(blob)))
     assert torch.ops.oak_tpu_torch.oak_gram_fwd.default in {n.target for n in ep.graph.nodes}
     f = deserialize_predict(blob)
     before = og.LAUNCHES
-    served = f(X)
-    torch.cuda.synchronize()
-    assert served.is_cuda and og.LAUNCHES == before + 1
+    served, triton, cuda_k1 = _package_request(f, X)
+    assert served.is_cuda and og.LAUNCHES == before and (triton, cuda_k1) == (1, 0)
     live = oak.predict(X, clip=True)
     assert np.abs(served.cpu().numpy() - live).max() < 1e-3 * np.abs(live).max()
+
+
+def test_card_artifact_serves_in_a_process_without_the_port(cuda, tmp_path):
+    """A card artifact's package loaded with torch._inductor.aoti_load_package
+    alone, in a python -I process started from an empty directory, which
+    first shows that it cannot import oak_tpu_torch: it serves what
+    deserialize_predict serves here, bitwise."""
+    import subprocess
+    import sys
+
+    from oak_tpu_torch import deserialize_predict, oak_model, serialize_predict
+
+    X, y = _oak_data(n=200, seed=78)
+    oak = oak_model(max_interaction_depth=2).fit(X, y, optimise=False)
+    (tmp_path / "predict.pt2").write_bytes(serialize_predict(oak, include_var=True))
+    np.save(tmp_path / "x.npy", X.astype(np.float32))
+    (tmp_path / "empty").mkdir()
+    code = """
+try:
+    import oak_tpu_torch
+except ImportError:
+    pass
+else:
+    raise SystemExit("oak_tpu_torch is importable")
+import numpy, torch
+f = torch._inductor.aoti_load_package("../predict.pt2")
+mean, std = f(torch.as_tensor(numpy.load("../x.npy"), device="cuda"))
+numpy.save("../mean.npy", mean.cpu().numpy())
+numpy.save("../std.npy", std.cpu().numpy())
+"""
+    run = subprocess.run([sys.executable, "-I", "-c", code], cwd=tmp_path / "empty",
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    mean, std = deserialize_predict(tmp_path / "predict.pt2")(X)
+    assert np.array_equal(np.load(tmp_path / "mean.npy"), mean.cpu().numpy())
+    assert np.array_equal(np.load(tmp_path / "std.npy"), std.cpu().numpy())
+
+
+TRITON_CASES = [("Kus 512x8192", 32, 512, 8192, 0, 3),
+                ("mixed 300x200 E=2", 30, 300, 200, 2, 8),
+                ("ragged 1000x77", 32, 1000, 77, 0, 32)]
+
+
+@pytest.mark.parametrize("name,D,N,M,E,depth", TRITON_CASES, ids=[c[0] for c in TRITON_CASES])
+def test_triton_kernel_matches_plain(cuda, name, D, N, M, E, depth):
+    """The Triton K1 (the compiled artifact's gram) against the plain
+    version, and against K1 under the same rule, at depths 3, 8 and 32."""
+    args = prescaled_inputs(62, D, N, M, E, depth, cuda)
+    before = ogt.LAUNCHES
+    out = ogt.oak_gram_triton_op(*args, depth)
+    torch.cuda.synchronize()
+    assert ogt.LAUNCHES == before + 1
+    ref = og.oak_gram_plain(*args, depth)
+    ref64 = og.oak_gram_plain(*[a.double() for a in args], depth)
+    assert out.shape == (N, M) and torch.isfinite(out).all()
+    ok, _, text = kernel_error(out, ref, ref64, TOL)
+    assert ok, text
+    ok, _, text = kernel_error(out, og.oak_gram_fused(*args, depth), ref64, TOL)
+    assert ok, text
 
 
 def test_registered_forward_op_passes_opcheck_on_the_card(cuda):
