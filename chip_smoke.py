@@ -22,8 +22,11 @@ non-zero before the result line:
    kernel and plain in turns, the bound and the share (with --old, the
    earlier tree's kernel in turns old, new, new, old); the Triton K1
    (ops/oak_gram_triton.py, the gram of the compiled serving artifact)
-   at every case against the plain version and against K1 under the same
-   rule (bitwise equality to K1 counted), timed at Kus in turns with K1;
+   at every case and at its own (TRITON_CASES: depths 16, 32 and 64, 8
+   extra grams, a 1-row request, 9000 rows) against the plain version
+   and against K1 under the same rule (bitwise equality to K1 counted),
+   timed at Kus at depths 3, 16 and 32 in turns with K1 (and with --old,
+   the earlier tree's Triton K1: K1, old, new, new, old, K1);
 2b. K2: every cotangent against autograd of the plain gram and against the
    written-out plain backward, for a seeded gbar, at the training path's
    Kuf and Kuu, the square gram and the same cases, under 1e-3 or the same
@@ -96,7 +99,7 @@ non-zero before the result line:
    versions at the shapes the phase adds (heart's Kus and Kuf with 8 extra
    grams at depth 4, autoMPG's square K(X) at depth 7), and the Triton K1
    at the served Kus (pumadyn's at 1, 100 and 1639 rows, heart's), timed
-   at pumadyn's;
+   at pumadyn's 1639 rows and heart's as in phase 2;
 11. the rest of the user surface (phase_surface): the effect-plot data
    (plotting's posterior math on plot_model's grids) of the committed
    pumadyn fold 0's top 5 components and summed order-1 profile, in float32
@@ -155,8 +158,10 @@ the last line {"ok": true, "device": {...}}. Imports no JAX.
 
     python3 chip_smoke.py --old DIR
 
-also builds the kernels of an earlier tree from DIR and times them in turns
-with these in phases 2 and 2b.
+also times an earlier tree's kernels in turns with these: DIR's *.cu (the C
+interface before the CUDA kernels' redesign) built and timed in phases 2
+and 2b, DIR's oak_gram_triton.py (an earlier ops/oak_gram_triton.py, loaded
+by file path) timed beside the Triton K1 in phases 2 and 10.4.
 
     python3 chip_smoke.py --profile
 
@@ -196,6 +201,16 @@ E2E_TOL = 1e-3  # f32 on the card against f64 on the CPU, relative to max magnit
 LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 1e-2  # the training gradient against f64
 BATCHES = (1, 100, 2048, 8192)
 TIMING_ITERS = 20
+# (name, D, N, M, E, depth): the Triton K1's cases beside phase 2's: the bench's
+# Kus at depths 16 and 32 (timed, as every "Kus" case), depth 64 with 8 extra
+# grams, a 1-row request, extra grams at a ragged batch, and a non-batch axis
+# of 9000 rows
+TRITON_CASES = [("Kus 512x8192 P=16", 32, 512, 8192, 0, 16),
+                ("Kus 512x8192 P=32", 32, 512, 8192, 0, 32),
+                ("D=60 E=8 P=64", 60, 300, 200, 8, 64),
+                ("1 row 500x1 P=8", 8, 500, 1, 0, 8),
+                ("E=8 200x37 P=4", 5, 200, 37, 8, 4),
+                ("9000x37 P=3", 32, 9000, 37, 0, 3)]
 ADAM_STEPS, BERNOULLI_STEPS, NATGRAD_STEPS = 50, 20, 20  # bench.py's --steps default
 GRAD_NAMES = ("du1", "du2", "dc1", "dc2", "dextra", "dlogb", "dsig2")
 GPR_N, GPR_D, GPR_DEPTH = 8192, 8, 2  # bench.py --gpr-scale (its second row)
@@ -434,19 +449,37 @@ def _device_ms(fn, iters=10, rounds=3, with_ops=False):
 
 
 def _old_kernels(old_dir):
-    """The fused gram kernels of an earlier tree (their C interface before
-    the redesign: K1 without a tile variant, K2 writing 32 x 64 tile
-    partials that torch sums), built from ``old_dir`` with the same flags,
-    as (forward, backward) callables on prescaled inputs."""
+    """The fused gram kernels of earlier trees, from ``old_dir``, as
+    {"fwd", "bwd", "triton"} callables on prescaled inputs (None where
+    ``old_dir`` has no such source). Its ``*.cu`` (the C interface before
+    the CUDA redesign: K1 without a tile variant, K2 writing 32 x 64 tile
+    partials that torch sums) are built with the same flags; its
+    ``oak_gram_triton.py`` (an earlier ops/oak_gram_triton.py) is loaded by
+    file path as a module of oak_tpu_torch.ops, its op registered under a
+    name of its own."""
     import ctypes
+    import importlib.util
 
     from oak_tpu_torch import _build
 
+    old = {"fwd": None, "bwd": None, "triton": None}
+    triton_src = Path(old_dir) / "oak_gram_triton.py"
+    if triton_src.exists():
+        source = triton_src.read_text().replace('"oak_tpu_torch::oak_gram_triton"',
+                                                '"oak_tpu_torch::oak_gram_triton_old"')
+        spec = importlib.util.spec_from_loader("oak_tpu_torch.ops._old_triton", loader=None)
+        module = importlib.util.module_from_spec(spec)
+        module.__package__ = "oak_tpu_torch.ops"
+        # compiled under the file's own path, so triton reads the kernel's source there
+        exec(compile(source, str(triton_src.resolve()), "exec"), module.__dict__)
+        old["triton"] = lambda *args: module._launch(args[:-1], args[-1], traced=False)
+    sources = sorted(Path(old_dir).glob("*.cu"))
+    if not sources:
+        return old
     out = REPO / ".kernel_build" / "old" / "liboak_kernels_old.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
-                    *map(str, sorted(Path(old_dir).glob("*.cu")))],
-                   check=True, capture_output=True, timeout=600)
+                    *map(str, sources)], check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
     ptr, num = ctypes.c_void_p, ctypes.c_int
     lib.oak_gram_fwd_f32.argtypes = [ptr] * 8 + [num] * 5 + [ptr]
@@ -480,7 +513,7 @@ def _old_kernels(old_dir):
         du1, dc1, du2, dc2, dlogb, dsig2 = (t.sum(0) for t in parts)
         return du1, du2, dc1, dc2, None, dlogb, dsig2
 
-    return fwd, bwd
+    return old | {"fwd": fwd, "bwd": bwd}
 
 
 def _timing_cases(model, X, gpr, device):
@@ -515,14 +548,13 @@ def _shape(args):
 
 
 def _turns(fns, measure):
-    """measure(fn) of each fn in turns a, b, b, a (a, b the first two keys of
-    fns), after one warm-up call each."""
-    a, b = list(fns)[:2]
+    """measure(fn) of each fn in turns that run the keys of fns forward, then
+    back (a, b, b, a; a, b, c, c, b, a), after one warm-up call each."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    turns = {a: [], b: []}
-    for which in (a, b, b, a):
+    turns = {k: [] for k in fns}
+    for which in list(fns) + list(fns)[::-1]:
         turns[which].append(measure(fns[which]))
     return turns
 
@@ -558,27 +590,33 @@ def _triton_checked(name, args, k1, ref, ref64):
     return bool(torch.equal(tri, k1)), text, float((tri - ref).abs().max())
 
 
-def _triton_row(name, args):
+def _triton_row(name, args, old_triton=None):
     """The Triton K1 timed at one shape: device ms (torch.profiler) in turns
-    with K1 (K1, Triton, Triton, K1), CUDA-event ms over TIMING_ITERS
-    launches in turns with the plain version, the bound and the share."""
+    with the CUDA K1 and, given ``old_triton`` (an earlier tree's, from
+    --old), with that (K1, old, Triton, Triton, old, K1), CUDA-event ms over
+    TIMING_ITERS launches in turns with the plain version, the bound and the
+    share."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.ops import oak_gram_triton as ogt
 
     with torch.no_grad():
-        fns = {"K1": lambda: og.oak_gram_fused(*args),
-               "Triton": lambda: ogt.oak_gram_triton_op(*args)}
+        fns = {"K1": lambda: og.oak_gram_fused(*args)}
+        if old_triton:
+            fns["old"] = lambda: old_triton(*args)
+        fns["Triton"] = lambda: ogt.oak_gram_triton_op(*args)
         dev = _turns(fns, _device_ms)
         ev = _turns({"plain": lambda: og.oak_gram_plain(*args), "kernel": fns["Triton"]},
                     lambda fn: _cuda_ms(fn, TIMING_ITERS))
     D_, N_, M_, E_, depth = _shape(args)
     bound, by, detail = gram_bound("K1", D_, N_, M_, E_, depth)
     ms, ev_k, ev_p = (float(np.mean(v)) for v in (dev["Triton"], ev["kernel"], ev["plain"]))
-    text = (f"  K1 Triton {name}: device {dev['Triton']} ms (K1 in the same turns "
-            f"{dev['K1']} ms); CUDA events {ev_k:.4f} ms, plain {ev_p:.4f} ms; bound "
-            f"{bound:.4f} ms ({detail}); share {bound / ms:.2f}")
+    old = f"{dev['old']} ms" if old_triton else "not measured"
+    text = (f"  K1 Triton {name}, depth {depth}: device {dev['Triton']} ms (before redesign "
+            f"{old}; the CUDA K1 in the same turns {dev['K1']} ms); CUDA events {ev_k:.4f} "
+            f"ms, plain {ev_p:.4f} ms; bound {bound:.4f} ms ({detail}); share {bound / ms:.2f}")
     return text, dict(device_ms=ms, k1_device_ms=float(np.mean(dev["K1"])), bound_ms=bound,
-                      bound_by=by, share=bound / ms, event_ms=ev_k, plain_ms=ev_p)
+                      bound_by=by, share=bound / ms, event_ms=ev_k, plain_ms=ev_p,
+                      old_device_ms=float(np.mean(dev["old"])) if old_triton else None)
 
 
 def phase_kernel(model, X, gpr, device, old):
@@ -590,7 +628,7 @@ def phase_kernel(model, X, gpr, device, old):
     and plain, the bound and the share; the Triton K1 timed at Kus
     (_triton_row)."""
     from oak_tpu_torch.ops import oak_gram as og
-    from oak_tpu_torch.testing import kernel_error
+    from oak_tpu_torch.testing import kernel_error, prescaled_inputs
 
     with torch.no_grad():
         findings, abs_err, triton, bitwise = [], {}, [], 0
@@ -613,13 +651,24 @@ def phase_kernel(model, X, gpr, device, old):
             triton.append(f"{name} {text}")
             bitwise += same
             del out, ref, ref64
+        # the Triton K1's own cases (deeper, a row, 9000 rows), held as above
+        triton_only = {name: tuple(prescaled_inputs(seed, d, n, m, e, p, device)) + (p,)
+                       for seed, (name, d, n, m, e, p) in enumerate(TRITON_CASES, start=40)}
+        for name, args in triton_only.items():
+            out = og.oak_gram_fused(*args)
+            ref = og.oak_gram_plain(*args)
+            ref64 = og.oak_gram_plain(*[a.double() for a in args[:-1]], args[-1])
+            same, text, abs_err[f"Triton {name}"] = _triton_checked(name, args, out, ref, ref64)
+            triton.append(f"{name} {text}")
+            bitwise += same
+            del out, ref, ref64
 
         rows, numbers = [], {}
         for name, args in _timing_cases(model, X, gpr, device).items():
             iters = TIMING_ITERS if name.startswith("K") else TIMING_ITERS // 4
             new = lambda a=args: og.oak_gram_fused(*a)  # noqa: E731
-            if old:
-                both = _turns({"old": lambda a=args: old[0](*a), "new": new}, _device_ms)
+            if old["fwd"]:
+                both = _turns({"old": lambda a=args: old["fwd"](*a), "new": new}, _device_ms)
                 dev, old_dev = both["new"], both["old"]
             else:
                 dev, old_dev = [_device_ms(new) for _ in range(2)], None
@@ -630,14 +679,20 @@ def phase_kernel(model, X, gpr, device, old):
             rows.append(text)
             numbers[name] = nums | dict(max_abs_err=abs_err[name])
         name = "Kus/Kuf 512x8192"
-        text, nums = _triton_row(name, _timing_cases(model, X, gpr, device)[name])
+        text, nums = _triton_row(name, _timing_cases(model, X, gpr, device)[name],
+                                 old["triton"])
         rows.append(text)
         numbers["Triton"] = nums | dict(max_abs_err=abs_err[f"Triton {name}"])
+        for name, args in triton_only.items():
+            if name.startswith("Kus"):
+                text, nums = _triton_row(name, args, old["triton"])
+                rows.append(text)
+                numbers[f"Triton {name}"] = nums | dict(max_abs_err=abs_err[f"Triton {name}"])
     print(f"phase 2 K1 vs plain (max err / max |plain|, tol {KERNEL_TOL}; past it, the "
           f"drift rule of oak_tpu_torch.testing.kernel_error against f64): "
           f"{', '.join(findings)}; the Triton K1 (ops.oak_gram_triton) vs plain, and vs K1 "
           f"under the same rule: {', '.join(triton)}; bitwise equal to K1 at {bitwise} of "
-          f"{len(cases)}; GPR K(X) exactly symmetric; device ms from "
+          f"{len(cases) + len(triton_only)}; GPR K(X) exactly symmetric; device ms from "
           f"torch.profiler (turns old, new, new, old where the earlier kernel is given), "
           f"CUDA events over {TIMING_ITERS} launches (5 at the square) in turns plain, "
           f"kernel, kernel, plain:\n" + "\n".join(rows))
@@ -695,8 +750,8 @@ def phase_kernel_bwd(model, X, gpr, device, old):
             device=device)
         iters = TIMING_ITERS if name.startswith("K") else TIMING_ITERS // 4
         new = lambda i=inputs, g=gbar, d=depth: og.oak_gram_bwd(*i, g, d)  # noqa: E731
-        if old:
-            both = _turns({"old": lambda i=inputs, g=gbar, d=depth: old[1](*i, g, d),
+        if old["bwd"]:
+            both = _turns({"old": lambda i=inputs, g=gbar, d=depth: old["bwd"](*i, g, d),
                            "new": new}, _device_ms)
             dev, old_dev = both["new"], both["old"]
         else:
@@ -1393,16 +1448,17 @@ def _one_launch_per_request(name, f, X):
                            f"times, not once")
 
 
-def _kernel_names(fn):
+def _kernel_names(fn, holds=None):
     """fn() under torch.profiler: (its output, {device operation name:
-    launches}). A profiled window can lose the kernels' events (the copies'
-    may remain), so one that records no kernel runs fn again, up to five
-    times."""
+    launches}). A profiled window can lose kernels' events, all of them (the
+    copies' may remain) or those at its start, so a window that records no
+    kernel, or whose names fail ``holds``, runs fn again, up to five times;
+    then the last window with a kernel is returned for the caller's check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    seen = {}
+    seen, found = {}, None
     for _ in range(5):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
@@ -1410,20 +1466,28 @@ def _kernel_names(fn):
         seen = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.count}
         if any(not k.startswith(("Memcpy", "Memset")) for k in seen):
-            return out, seen
-    raise RuntimeError(f"torch.profiler recorded no kernel in 5 windows (only {seen})")
+            found = out, seen
+            if holds is None or holds(seen):
+                return found
+    if found is None:
+        raise RuntimeError(f"torch.profiler recorded no kernel in 5 windows (only {seen})")
+    return found
 
 
 def _package_request(name, f, X, counts):
     """One request of a compiled artifact, under torch.profiler: the package
     launches the Triton K1 once (its kernel name) and the CUDA K1 not at all
-    (neither by name nor in ``og.LAUNCHES``). Adds its Triton K1 launches to
+    (neither by name nor in ``og.LAUNCHES``), in a window that recorded a
+    gram kernel (_kernel_names). Adds its Triton K1 launches to
     ``counts["triton"]`` and returns the output."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.ops import oak_gram_triton as ogt
 
     before = og.LAUNCHES
-    out, names = _kernel_names(lambda: f(X))
+    # a window that lost the gram's event among the request's first kernels
+    # is run again
+    out, names = _kernel_names(lambda: f(X), lambda seen: any(
+        ogt.KERNEL_NAME in k or "oak_gram_fwd_kernel" in k for k in seen))
     triton = sum(c for k, c in names.items() if ogt.KERNEL_NAME in k)
     cuda_k1 = sum(c for k, c in names.items() if "oak_gram_fwd_kernel" in k)
     if triton != 1 or cuda_k1 or og.LAUNCHES != before:
@@ -1662,7 +1726,7 @@ def _run_script(name, args):
         sys.argv = argv
 
 
-def phase_committed(device, compiles):
+def phase_committed(device, compiles, old_triton=None):
     """Phase 10, the committed models and serving on the card.
 
     10.1 examples/uci/outputs/pumadyn/model_oak_0.npz (oak_tpu's fold 0:
@@ -1703,12 +1767,14 @@ def phase_committed(device, compiles):
     K(X) at depth 7 (_committed_shapes); the Triton K1 against the plain
     version and K1 (_triton_checked) at the served Kus (pumadyn's at 1,
     100 and 1639 rows, heart's at 1639 with 8 extra grams), timed at
-    pumadyn's 1639 rows (_triton_row). These launches come after the
-    phase's count is read.
+    pumadyn's 1639 rows and heart's (_triton_row; in turns with
+    ``old_triton``, an earlier tree's Triton K1, when given). These
+    launches come after the phase's count is read.
 
     Returns the K1 and K2 launches of 10.1-10.3, pumadyn's served
     artifacts (_serve_model's dict) and {"triton": the packages' Triton K1
-    launches in 10.2, "numbers": its timing at pumadyn's served Kus}."""
+    launches in 10.2, "numbers": its timings at pumadyn's and heart's
+    served Kus by name}."""
     from oak_tpu_torch import load_oak_model
     from oak_tpu_torch.models import SGPR, SVGP
     from oak_tpu_torch.ops import oak_gram as og
@@ -1832,12 +1898,15 @@ def phase_committed(device, compiles):
             same, finding, _ = _triton_checked(name, args, k1, ref, ref64)
             bitwise += same
             findings.append(f"{name} {finding}")
-    row, triton_numbers = _triton_row(f"pumadyn Kus {PUMA_M}x{len(Xte)}",
-                                      served_kus[f"pumadyn Kus {PUMA_M}x{len(Xte)}"])
+    timed_rows, triton_numbers = [], {}
+    for name in (f"pumadyn Kus {PUMA_M}x{len(Xte)}", next(k for k in served_kus
+                                                          if k.startswith("heart Kus"))):
+        row, triton_numbers[name] = _triton_row(name, served_kus[name], old_triton)
+        timed_rows.append(row)
     print(f"phase 10.4 K1 and K2 vs plain at phase 10's shapes, the Triton K1 at the served "
           f"Kus ({time.perf_counter() - t0:.1f} s):\n" + "\n".join(text)
           + f"\n  Triton K1 vs plain (and vs K1 under the same rule): {', '.join(findings)}; "
-          f"bitwise equal to K1 at {bitwise} of {len(served_kus)}\n{row}")
+          f"bitwise equal to K1 at {bitwise} of {len(served_kus)}\n" + "\n".join(timed_rows))
     return launches, served, dict(counts, numbers=triton_numbers)
 
 
@@ -3557,8 +3626,10 @@ def main():
     parser.add_argument("--old", metavar="DIR",
                         help="a directory holding an earlier tree's csrc/*.cu with the C "
                              "interface before the redesign (git show "
-                             "ef6e3b3:oak_tpu_torch/csrc/oak_gram_fwd.cu, and _bwd.cu): "
-                             "phases 2 and 2b time those kernels in turns with these")
+                             "ef6e3b3:oak_tpu_torch/csrc/oak_gram_fwd.cu, and _bwd.cu), "
+                             "an earlier ops/oak_gram_triton.py (git show "
+                             "4328220:oak_tpu_torch/ops/oak_gram_triton.py), or both: "
+                             "phases 2, 2b and 10.4 time them in turns with these")
     parser.add_argument("--package", metavar="DIR",
                         help="with --profile: import oak_tpu_torch from DIR (an earlier "
                              "tree unpacked there), to profile it with this script")
@@ -3608,7 +3679,7 @@ def main():
     compiles = _CompileServed()
     try:
         gpr = build_gpr_model(device)
-        old = _old_kernels(args.old) if args.old else None
+        old = _old_kernels(args.old) if args.old else dict(fwd=None, bwd=None, triton=None)
         kernel = timed("2", phase_kernel, model, X, gpr, device, old)
         kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device, old)
         del gpr
@@ -3620,7 +3691,8 @@ def main():
         gpr_launches = timed("7", phase_gpr, device)
         timed("8", phase_defaults, device)
         oak_launches, oak_kernels = timed("9", phase_oak_model, device)
-        committed_launches, served, triton = timed("10", phase_committed, device, compiles)
+        committed_launches, served, triton = timed("10", phase_committed, device, compiles,
+                                                     old["triton"])
         surface_launches = timed("11", phase_surface, device)
         parallel_launches = timed("12", phase_parallel, device)
         grouped_launches = timed("13", phase_grouped, device, served)
@@ -3647,13 +3719,15 @@ def main():
                                                       "share")},
                 "lanes": {shape: lanes_kernels[shape][kind] for shape in lanes_kernels}}
 
-    def triton_entry(launches, n, served_kus):
+    def triton_entry(launches, n, shapes):
         # the Triton K1 in the compiled packages: launches counted by name in
         # phase 10.2's profiled package requests (the package launches it
-        # from C++); ms, device_ms, plain_ms at the bench's Kus as above, and
-        # the same at pumadyn's served Kus (1639 rows) under "served_kus"
-        keys = ("event_ms", "device_ms", "k1_device_ms", "plain_ms", "bound_ms", "bound_by",
-                "share")
+        # from C++); ms, device_ms, plain_ms at the bench's Kus as above,
+        # old_device_ms the earlier tree's (--old; else null), and the same
+        # at the other timed shapes (the bench's Kus at depths 16 and 32,
+        # pumadyn's and heart's served Kus) under "shapes"
+        keys = ("event_ms", "device_ms", "k1_device_ms", "old_device_ms", "plain_ms",
+                "bound_ms", "bound_by", "share")
         return {"name": "oak_gram_fwd_triton_kernel", "route": "triton",
                 "source": "oak_tpu_torch/ops/oak_gram_triton.py",
                 "replaces": "oak_tpu/ops/oak_gram_pallas.py:63", "launches": launches,
@@ -3661,7 +3735,8 @@ def main():
                 "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
                 "library_ms": None, "k1_device_ms": n["k1_device_ms"],
-                "served_kus": {k: served_kus[k] for k in keys}}
+                "old_device_ms": n["old_device_ms"],
+                "shapes": {name: {k: v[k] for k in keys} for name, v in shapes.items()}}
 
     print(json.dumps({"kernels": [
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
@@ -3678,7 +3753,9 @@ def main():
               + parallel_launches["bwd"] + grouped_launches["bwd"] + lanes_launches["bwd"],
               kernel_bwd,
               oak_kernels["K2"], "K2"),
-        triton_entry(triton["triton"], kernel["Triton"], triton["numbers"])]}))
+        triton_entry(triton["triton"], kernel["Triton"],
+                     {name.removeprefix("Triton "): v for name, v in kernel.items()
+                      if name.startswith("Triton ")} | triton["numbers"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ reference at float64; opcheck; the swap of a program's CUDA-gram nodes for
 the Triton op, on a program whose card route was forced onto CPU tensors;
 one AOTInductor compile of that program through ``serving.compile_package``,
 loaded in a ``python -I`` process that cannot import oak_tpu_torch; a CPU
-artifact loaded there with ``torch.export.load``; and a failed compile
-raising before anything is written."""
+artifact loaded there with ``torch.export.load``; a failed compile raising
+before anything is written; and the kernel's launch configuration (tile,
+warps and unroll from the depth alone, within the register budget; one
+program a tile)."""
 
 import io
 import json
@@ -220,3 +222,53 @@ def test_failed_compile_raises_and_writes_nothing(monkeypatch, card_route, tmp_p
     with pytest.raises(RuntimeError, match="compile failed"):
         serving.serialize_predict(card_route["oak"], path=path)
     assert not path.exists()
+
+
+# --------------------------------------------------------------------------- #
+# The launch configuration (ops/oak_gram_triton.py _config, _launch). The
+# kernel runs only on the card; its tile, warps and grid are plain Python.
+SERVED = {"pumadyn": (8, 500), "heart": (4, 200)}  # (clamped depth, inducing points)
+BUCKET_EDGES = (1, 4, 5, 8, 9, 16, 17, 32, 33, 64)  # each depth bucket's first and last
+
+
+@pytest.mark.parametrize("P", BUCKET_EDGES)
+def test_launch_config_fits_the_register_budget(P):
+    """Each depth bucket, at both its edges, gets power-of-two tiles, 4 or 8
+    warps, an unroll of the dim loop of 1 or 2, and at most ORDER_REGISTERS
+    registers of orders e_1..e_P a thread (the budget grows with P, so a
+    bucket that fits at its last depth fits at every depth in it)."""
+    BN, BM, warps, unroll = ogt._config(P)
+    assert BN & (BN - 1) == 0 and BM & (BM - 1) == 0 and BN >= 2 and BM >= 16
+    assert warps in (4, 8) and unroll in (1, 2)
+    assert P * BN * BM <= ogt.ORDER_REGISTERS * 32 * warps
+
+
+class _Recorder:
+    """Stands in for the jitted kernel: records each launch's grid and
+    keyword arguments."""
+
+    def __init__(self):
+        self.launches = []
+
+    def __getitem__(self, grid):
+        return lambda *args, **kw: self.launches.append((grid, kw))
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_launch_takes_its_tile_from_the_depth_only(name, monkeypatch):
+    """``_launch`` on a served Kus at batches of 1, 37, 1639 and 8192 rows
+    (the input checks and the kernel stubbed, CPU tensors): one tile, warps
+    and unroll for every batch, and a 1-D grid of one program a tile."""
+    P, rows = SERVED[name]
+    recorder = _Recorder()
+    monkeypatch.setattr(og, "_check_cuda_inputs", lambda *args, **kw: None)
+    monkeypatch.setattr(ogt, "_kernel", lambda: recorder)
+    for M in (1, 37, 1639, 8192):
+        a = _prescaled(np.random.default_rng(M), D=P, N=rows, M=M, E=0, depth=P)
+        out = ogt._launch(_torch_args(a, torch.float32), P, traced=False)
+        assert out.shape == (rows, M)
+    configs = {(kw["BN"], kw["BM"], kw["num_warps"], kw["UNROLL"])
+               for _, kw in recorder.launches}
+    assert configs == {ogt._config(P)}
+    for (grid, kw), M in zip(recorder.launches, (1, 37, 1639, 8192)):
+        assert grid == (-(-rows // kw["BN"]) * -(-M // kw["BM"]),)
