@@ -27,6 +27,7 @@ from ..config import like
 from ..kernels.oak_kernel import OAKKernel
 from ..ops.psd import cholesky, solve_lower, solve_upper
 from ..params import Param, fixed, log_prior_density, param
+from ..utils.profiling import spanned
 from .gpr import as_data
 from .likelihoods import Gaussian
 
@@ -121,9 +122,11 @@ class SGPR(nn.Module):
         return self.elbo_from_terms(self.elbo_terms(self.X, self.Y, sigma), self.Y.shape[0],
                                     sigma2, sigma)
 
+    @spanned("oak.bound")
     def training_loss_from_terms(self, terms, num_rows: int) -> torch.Tensor:
         return -(self.elbo_from_terms(terms, num_rows) + log_prior_density(self))
 
+    @spanned("oak.bound")
     def training_loss(self) -> torch.Tensor:
         return -(self.elbo() + log_prior_density(self))
 

@@ -18,6 +18,7 @@ from ..kernels.oak_kernel import OAKKernel
 from ..ops.psd import (cholesky, cholesky_solve, safe_cholesky, solve_lower,
                        solve_upper, tri_inv_lower)
 from ..params import Param, fixed, log_prior_density, param, positive
+from ..utils.profiling import spanned
 
 
 class SVGP(nn.Module):
@@ -177,9 +178,11 @@ class SVGP(nn.Module):
     def elbo(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return self.elbo_from_terms(self.elbo_terms(X, Y), X.shape[0])
 
+    @spanned("oak.bound")
     def training_loss_from_terms(self, terms, num_rows: int) -> torch.Tensor:
         return -(self.elbo_from_terms(terms, num_rows) + log_prior_density(self))
 
+    @spanned("oak.bound")
     def training_loss(self, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         return self.training_loss_from_terms(self.elbo_terms(X, Y), X.shape[0])
 

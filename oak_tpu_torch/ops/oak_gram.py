@@ -30,7 +30,9 @@ lane axis (as ``jax.vmap`` prepends a grid axis to a ``pallas_call``). A CUDA
 input launches a kernel or raises; nothing falls back. The forward saves
 only the prescaled inputs, and the backward recomputes the per-dim grams
 (``oak_tpu`` measured that storing the [D, N, M] grams loses,
-oak_gram_pallas.py:523-535).
+oak_gram_pallas.py:523-535). The prescale, the forward and the backward are
+the spans ``oak.prep``, ``oak.gram.fwd`` and ``oak.gram.bwd``
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -43,11 +45,13 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .newton_girard import newton_girard
 
 # Launches of the forward and the backward CUDA kernel in this process; a run
 # resets them to 0 and reads them afterwards to show that its path went
-# through the kernels.
+# through the kernels. The same launches count as ``k1.launches`` and
+# ``k2.launches`` in ``utils.profiling``'s counters while a session records.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -74,6 +78,7 @@ def _in_dim_order(parts: List[torch.Tensor], order: List[int]) -> torch.Tensor:
     return out
 
 
+@profiling.spanned("oak.prep")
 def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
     """Prescaled inputs (u1, u2, c1, c2, extra, logb, sig2) in X's dtype:
     u1, c1 [D, N]; u2, c2 [D, M]; extra [E, N, M]; logb [D]; sig2 [P + 1].
@@ -354,6 +359,7 @@ def _launch_fwd(inputs: Sequence[torch.Tensor], depth: int, lanes: int = 0,
     if rc != 0:
         raise RuntimeError(f"oak_gram_fwd_f32 launch failed with cudaError {rc}")
     LAUNCHES += 1
+    profiling.count("k1.launches")
     return out
 
 
@@ -443,6 +449,7 @@ def _launch_bwd(inputs: Sequence[torch.Tensor], depth: int, with_dextra: bool,
     if rc != 0:
         raise RuntimeError(f"oak_gram_bwd_f32 launch failed with cudaError {rc}")
     BWD_LAUNCHES += 1
+    profiling.count("k2.launches")
     if P < depth:
         # orders above the clamped depth have e_n = 0, so their cotangent is 0
         dsig2 = torch.nn.functional.pad(dsig2, (0, depth - P))
@@ -536,7 +543,7 @@ class FusedGram(torch.autograd.Function):
         need = ctx.needs_input_grad[:7]
         # under no_grad the backward op runs below autograd (torch.func's
         # grad runs backward with create_graph)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.trace_annotation("oak.gram.bwd"):
             grads = oak_gram_bwd(*ctx.saved_tensors, gbar, ctx.depth, with_dextra=need[4])
         return tuple(g if n else None for g, n in zip(grads, need)) + (None,)
 
@@ -553,7 +560,8 @@ def oak_gram_fused(u1, u2, c1, c2, extra, logb, sig2, depth: int) -> torch.Tenso
     over lanes each kernel launches once for all of them."""
     inputs = (u1, u2, c1, c2, extra, logb, sig2)
     if not any(t.is_cuda for t in inputs):
-        return oak_gram_plain(*inputs, depth)
+        with profiling.trace_annotation("oak.gram.fwd"):
+            return oak_gram_plain(*inputs, depth)
     return fused_op(inputs, depth)
 
 
@@ -571,10 +579,11 @@ def fused_op(inputs: Sequence[torch.Tensor], depth: int) -> torch.Tensor:
     (K2 entered as often as for one lane, the gradient as in turn) and
     ``chip_smoke.py``'s phase 12 (batched against in turn on the card)
     fail then."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad or torch._C._functorch.is_batchedtensor(t) for t in inputs):
-        return FusedGram.apply(*inputs, depth)
-    return oak_gram_fwd_op(*inputs, depth)
+    with profiling.trace_annotation("oak.gram.fwd"):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad or torch._C._functorch.is_batchedtensor(t) for t in inputs):
+            return FusedGram.apply(*inputs, depth)
+        return oak_gram_fwd_op(*inputs, depth)
 
 
 def oak_gram(oak, X: torch.Tensor, X2: Optional[torch.Tensor] = None) -> torch.Tensor:

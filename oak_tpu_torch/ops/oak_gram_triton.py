@@ -69,11 +69,13 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import oak_gram as og
 
-# Launches of the Triton kernel by the eager op in this process. The
-# compiled package launches its copy from C++, which no counter here sees:
-# torch.profiler's kernel names count those.
+# Launches of the Triton kernel by the eager op in this process, also
+# ``k1_triton.launches`` in ``utils.profiling``'s counters while a session
+# records. The compiled package launches its copy from C++, which no counter
+# here sees: torch.profiler's kernel names count those.
 LAUNCHES = 0
 
 # Its name, as it shows in torch.profiler's kernel names.
@@ -407,6 +409,7 @@ def _cuda(u1, u2, c1, c2, extra, logb, sig2, depth):
     with torch.cuda.device(u1.device):
         out = _launch(inputs, depth, traced=False)
     LAUNCHES += 1
+    profiling.count("k1_triton.launches")
     return out
 
 

@@ -18,6 +18,10 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import default_jitter
+from ..utils.profiling import spanned
+
+# Each public call below is the span oak.linalg, one however they nest.
+_linalg = spanned("oak.linalg")
 
 
 def _eye_like(K: torch.Tensor) -> torch.Tensor:
@@ -44,10 +48,12 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, torch.nan).tril()
 
 
+@_linalg
 def cholesky(K: torch.Tensor, jitter: Optional[float] = None) -> torch.Tensor:
     return cholesky_lower(add_jitter(K, jitter))
 
 
+@_linalg
 def safe_cholesky(K: torch.Tensor, jitter: Optional[float] = None,
                   max_tries: int = 5) -> Tuple[torch.Tensor, float]:
     """Cholesky with deterministic jitter escalation.
@@ -67,22 +73,26 @@ def safe_cholesky(K: torch.Tensor, jitter: Optional[float] = None,
     return torch.full_like(K, float("nan")), j
 
 
+@_linalg
 def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """L⁻¹ B for lower-triangular L."""
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 
+@_linalg
 def solve_upper(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """L⁻ᵀ B for lower-triangular L."""
     return torch.linalg.solve_triangular(L.mT, B, upper=True)
 
 
+@_linalg
 def tri_inv_lower(L: torch.Tensor) -> torch.Tensor:
     """L⁻¹ for lower-triangular L (batched), by a triangular solve."""
     eye = _eye_like(L).expand(L.shape)
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
+@_linalg
 def chol_of_inv(P: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Lower-triangular T with T Tᵀ = (P + jitter·I)⁻¹, batched, in one
     Cholesky and one triangular inverse by the reversal identity: with J the
@@ -94,10 +104,12 @@ def chol_of_inv(P: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     return torch.flip(tri_inv_lower(Lr).mT, dims=(-2, -1))
 
 
+@_linalg
 def cholesky_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """(L Lᵀ)⁻¹ B."""
     return solve_upper(L, solve_lower(L, B))
 
 
+@_linalg
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)))

@@ -18,6 +18,11 @@ L-BFGS is written out here as what ``optax.lbfgs(memory_size=30)`` computes
 the linesearch): the vectors stay on the model's device, and the
 linesearch's decisions are taken on the host from one scalar read per
 evaluation.
+
+The layers are spans (``utils.profiling``): ``oak.eval`` each evaluation
+of all lanes, ``oak.update`` the optimizer's own work, ``oak.linesearch``
+the host linesearch; the counters ``evals.*``, ``lanes.*``,
+``host_reads``, ``lbfgs.iters`` and ``lbfgs.trials`` go with them.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from scipy import optimize as sciopt
 
 from ..params import assign_trainable, call_with, flatten_trainable, unflatten_trainable
+from ..utils.profiling import count, evaluation, span_steps, spanned, trace_annotation
 
 
 @dataclasses.dataclass
@@ -49,8 +55,17 @@ class FitResult:
 
 
 def adam(vec: torch.Tensor, lr: float = 1e-2) -> torch.optim.Adam:
-    """Adam on the leaf ``vec`` with optax's defaults."""
-    return torch.optim.Adam([vec], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """Adam on the leaf ``vec`` with optax's defaults; each of its steps is
+    the span ``oak.update``, however it is called."""
+    return span_steps(torch.optim.Adam([vec], lr=lr, betas=(0.9, 0.999), eps=1e-8),
+                      "oak.update")
+
+
+def host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: a read that waits for the device, counted as
+    ``host_reads`` (at its site, whatever the tensor's device)."""
+    count("host_reads")
+    return t.cpu()
 
 
 def _leaf(model) -> torch.Tensor:
@@ -77,11 +92,13 @@ def value_and_grad(model, loss_fn: Callable, vec: torch.Tensor,
     """(loss, d loss / d vec) of ``loss_fn(model, *args)`` at the trainable
     vector ``vec``; the loss is detached and stays on the device."""
     vec = vec.detach().requires_grad_(True)
-    loss, (grad,) = loss_and_grads(model, loss_fn, unflatten_trainable(model, vec),
-                                   [vec], args)
+    with evaluation("grad", 1):
+        loss, (grad,) = loss_and_grads(model, loss_fn, unflatten_trainable(model, vec),
+                                       [vec], args)
     return loss, grad
 
 
+@spanned("oak.update")
 def finite_or_zero(g: torch.Tensor) -> torch.Tensor:
     """Non-finite gradient entries (a transient Cholesky failure at the edge
     of the feasible region) become 0 instead of poisoning Adam's moments."""
@@ -113,13 +130,13 @@ def fit_adam(model, loss_fn: Callable, steps: int = 1000, lr: float = 1e-2,
         for i in range(steps):
             losses.append(_adam_step(model, loss_fn, vec, opt, batch_fn(i), mask=False))
         assign_trainable(model, vec.detach())
-        v = float(losses[-1]) if losses else float("inf")
+        v = float(host(losses[-1])) if losses else float("inf")
         return FitResult(model=model, fun=v, num_iters=steps, success=True,
                          losses=_stack(losses, vec))
 
     best_vec, best_v, losses = adam_best(LaneLoss(model, loss_fn), vec[None], steps, lr)
     assign_trainable(model, best_vec[0])
-    return FitResult(model=model, fun=float(best_v[0]), num_iters=steps,
+    return FitResult(model=model, fun=float(host(best_v[0])), num_iters=steps,
                      success=True, losses=losses[:, 0])
 
 
@@ -154,21 +171,23 @@ class LaneLoss:
         """(losses [R], gradients [R, n]) at the lanes ``vecs`` [R, n],
         detached, on the device."""
         vecs = vecs.detach()
-        if not self._batched(vecs):
-            return in_turn(lambda v: value_and_grad(self.model, self.loss_fn, v))(vecs)
-        if self.lanes_form:
-            return self.loss_fn.lanes_value_and_grad(self.model, vecs)
-        grads, values = self._grad_and_value(vecs)
-        return values.detach(), grads.detach()
+        with evaluation("grad", vecs.shape[0]):
+            if not self._batched(vecs):
+                return in_turn(lambda v: value_and_grad(self.model, self.loss_fn, v))(vecs)
+            if self.lanes_form:
+                return self.loss_fn.lanes_value_and_grad(self.model, vecs)
+            grads, values = self._grad_and_value(vecs)
+            return values.detach(), grads.detach()
 
     @torch.no_grad()
     def values(self, vecs: torch.Tensor) -> torch.Tensor:
         """The losses [R] at the lanes ``vecs`` [R, n], no gradient."""
-        if not self._batched(vecs):
-            return torch.stack([self._loss(v).reshape(()) for v in vecs])
-        if self.lanes_form:
-            return self.loss_fn.lanes_values(self.model, vecs.detach())
-        return self._values(vecs.detach())
+        with evaluation("value", vecs.shape[0]):
+            if not self._batched(vecs):
+                return torch.stack([self._loss(v).reshape(()) for v in vecs])
+            if self.lanes_form:
+                return self.loss_fn.lanes_values(self.model, vecs.detach())
+            return self._values(vecs.detach())
 
 
 def adam_best(lanes: "LaneLoss", vecs0: torch.Tensor, steps: int, lr: float
@@ -189,9 +208,10 @@ def adam_best(lanes: "LaneLoss", vecs0: torch.Tensor, steps: int, lr: float
 
     def consider(v):
         nonlocal best_v, best_vec
-        better = torch.isfinite(v) & (v < best_v)
-        best_v = torch.where(better, v, best_v)
-        best_vec = torch.where(better[:, None], vec.detach(), best_vec)
+        with trace_annotation("oak.update"):
+            better = torch.isfinite(v) & (v < best_v)
+            best_v = torch.where(better, v, best_v)
+            best_vec = torch.where(better[:, None], vec.detach(), best_vec)
 
     for _ in range(steps):
         v, g = lanes.value_and_grad(vec)
@@ -262,7 +282,7 @@ def load_train_state(path, dtype=None, device=None
 
 
 def _numpy(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return host(t.detach()).numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 # --------------------------------------------------------------------------- #
@@ -338,7 +358,7 @@ def fit_adam_scan(model, loss_fn: Callable, steps: int = 1000, lr: float = 1e-2,
         return FitResult(model=model, fun=float("nan"), num_iters=0, success=True,
                          message=f"checkpoint at step {start} >= steps={steps};"
                                  " nothing to run")
-    v = float(v)
+    v = float(host(v))
     return FitResult(model=model, fun=v, num_iters=steps - start,
                      success=bool(np.isfinite(v)))
 
@@ -359,9 +379,9 @@ def fit_scipy(model, loss_fn: Callable, method: str = "BFGS", max_iters: int = 1
     def fun(x):
         v, g = value_and_grad(model, loss_fn, torch.as_tensor(x, dtype=vec0.dtype,
                                                               device=vec0.device))
-        return float(v), g.double().cpu().numpy()
+        return float(host(v)), host(g.double()).numpy()
 
-    res = sciopt.minimize(fun, vec0.double().cpu().numpy(), jac=True, method=method,
+    res = sciopt.minimize(fun, host(vec0.double()).numpy(), jac=True, method=method,
                           tol=tol, options={"maxiter": max_iters})
     assign_trainable(model, torch.as_tensor(res.x, dtype=vec0.dtype, device=vec0.device))
     return FitResult(model=model, fun=float(res.fun), num_iters=int(res.get("nit", -1)),
@@ -571,11 +591,12 @@ def _evaluate(value_and_grad_fn: ValueAndGrad, vec: torch.Tensor, u: torch.Tenso
     """The loss and gradient of the lanes ``rows`` at vec + step·u: one
     evaluation of those lanes and one host read of their (value, slope,
     ‖grad‖²); ``step`` holds one stepsize a lane."""
+    count("lbfgs.trials")
     u = _rows(u, rows)
     at = _rows(vec, rows) + torch.as_tensor(step, dtype=vec.dtype, device=vec.device)[:, None] * u
     value, grad = value_and_grad_fn(at)
-    table = torch.stack([value.to(grad.dtype).reshape(-1), _dot(grad, u), _dot(grad, grad)],
-                        dim=1).cpu().numpy().astype(np.float64)
+    table = host(torch.stack([value.to(grad.dtype).reshape(-1), _dot(grad, u),
+                              _dot(grad, grad)], dim=1)).numpy().astype(np.float64)
     return _Point(np.asarray(step, np.float64), table[:, 0], grad, table[:, 1], table[:, 2])
 
 
@@ -587,7 +608,11 @@ def zoom_linesearch(value_and_grad_fn: ValueAndGrad, vec: torch.Tensor, u: torch
     approximate-decrease switch, and the fallback to the best step with
     sufficient decrease. Every lane takes its own branches, as the vmapped
     ``oak_tpu`` search does; each round evaluates the lanes still searching
-    in one call. Returns the points where the lanes end."""
+    in one call. Returns the points where the lanes end.
+
+    Each round's host arithmetic, before and after its evaluation, is the
+    span ``oak.linesearch``; the gradients' bookkeeping on the device is
+    ``oak.update``."""
     R = len(start.step)
     with np.errstate(all="ignore"):
         v0, s0 = start.value, start.slope
@@ -599,63 +624,66 @@ def zoom_linesearch(value_and_grad_fn: ValueAndGrad, vec: torch.Tensor, u: torch
         found, done, failed = (np.zeros(R, bool) for _ in range(3))
         count = np.zeros(R, np.int64)
         while True:
-            act = ~(done | failed)
-            if not act.any():
-                break
-            grow, zoom = act & ~found, act & found
-            delta = np.abs(high.step - low.step)
-            left, right = np.minimum(high.step, low.step), np.maximum(high.step, low.step)
-            mc = _cubicmin(low.step, low.value, low.slope, high.step, high.value,
-                           cubic.step, cubic.value)
-            mq = _quadmin(low.step, low.value, low.slope, high.step, high.value)
-            middle = np.where((left + 0.2 * delta < mc) & (mc < right - 0.2 * delta), mc,
-                              np.where((left + 0.1 * delta < mq) & (mq < right - 0.1 * delta),
-                                       mq, (low.step + high.step) / 2.0))
-            step = np.where(found, middle, np.where(count == 0, 1.0, _INCREASE * cur.step))
-            rows = np.flatnonzero(act)
+            with trace_annotation("oak.linesearch"):
+                act = ~(done | failed)
+                if not act.any():
+                    break
+                grow, zoom = act & ~found, act & found
+                delta = np.abs(high.step - low.step)
+                left, right = np.minimum(high.step, low.step), np.maximum(high.step, low.step)
+                mc = _cubicmin(low.step, low.value, low.slope, high.step, high.value,
+                               cubic.step, cubic.value)
+                mq = _quadmin(low.step, low.value, low.slope, high.step, high.value)
+                middle = np.where((left + 0.2 * delta < mc) & (mc < right - 0.2 * delta), mc,
+                                  np.where((left + 0.1 * delta < mq) & (mq < right - 0.1 * delta),
+                                           mq, (low.step + high.step) / 2.0))
+                step = np.where(found, middle, np.where(count == 0, 1.0, _INCREASE * cur.step))
+                rows = np.flatnonzero(act)
             got = _evaluate(value_and_grad_fn, vec, u, rows, step[rows])
-            new = cur.where(np.ones(R, bool), cur)
-            for k in _FIELDS:
-                getattr(new, k)[rows] = getattr(got, k)
-            new_err = _decrease_error(new.step, new.value, new.slope, v0, s0)
-            err = np.maximum(new_err, _curvature_error(new.slope, s0))
-            dec_err = np.where(act, new_err, dec_err)
-            ok = err <= 0.0
-            # the interval search
-            set_high = (new_err > 0.0) | ((new.value >= cur.value) & (count > 0))
-            set_low = (new.slope >= 0.0) & ~set_high
-            grow_low = new.where(set_low, cur)
-            grow_high = cur.where(set_low, new)
-            # the zoom
-            high_to_middle = (new_err > 0.0) | (new.value >= low.value)
-            high_to_low = (new.slope * (high.step - low.step) >= 0.0) & ~high_to_middle
-            zoom_cubic = high.where(high_to_middle | high_to_low, low)
-            zoom_high = new.where(high_to_middle, low.where(high_to_low, high))
-            zoom_low = low.where(high_to_middle, new)
-            to_safe = (grow & (new_err <= 0.0)) | (zoom & (new_err <= 0.0)
-                                                   & (new.value < safe.value))
-            safe = new.where(to_safe, safe)
-            low, high, cubic = (grow_low.where(grow, zoom_low.where(zoom, low)),
-                                grow_high.where(grow, zoom_high.where(zoom, high)),
-                                grow_low.where(grow, zoom_cubic.where(zoom, cubic)))
-            last = count + 1 >= max_steps
-            failed = np.where(grow, last & ~ok, np.where(
-                zoom, (last | ((delta <= _STEPSIZE_PRECISION) & (safe.step > 0.0))) & ~ok,
-                failed))
-            found = np.where(grow, set_high | set_low | ok, found)
-            done = np.where(act, ok, done)
-            cur = new.where(act, cur)
-            count = count + act
-            back = act & failed & ((safe.step > 0.0) | np.isinf(dec_err))
-            cur = safe.where(back, cur)
+            with trace_annotation("oak.linesearch"):
+                new = cur.where(np.ones(R, bool), cur)
+                for k in _FIELDS:
+                    getattr(new, k)[rows] = getattr(got, k)
+                new_err = _decrease_error(new.step, new.value, new.slope, v0, s0)
+                err = np.maximum(new_err, _curvature_error(new.slope, s0))
+                dec_err = np.where(act, new_err, dec_err)
+                ok = err <= 0.0
+                # the interval search
+                set_high = (new_err > 0.0) | ((new.value >= cur.value) & (count > 0))
+                set_low = (new.slope >= 0.0) & ~set_high
+                grow_low = new.where(set_low, cur)
+                grow_high = cur.where(set_low, new)
+                # the zoom
+                high_to_middle = (new_err > 0.0) | (new.value >= low.value)
+                high_to_low = (new.slope * (high.step - low.step) >= 0.0) & ~high_to_middle
+                zoom_cubic = high.where(high_to_middle | high_to_low, low)
+                zoom_high = new.where(high_to_middle, low.where(high_to_low, high))
+                zoom_low = low.where(high_to_middle, new)
+                to_safe = (grow & (new_err <= 0.0)) | (zoom & (new_err <= 0.0)
+                                                       & (new.value < safe.value))
+                safe = new.where(to_safe, safe)
+                low, high, cubic = (grow_low.where(grow, zoom_low.where(zoom, low)),
+                                    grow_high.where(grow, zoom_high.where(zoom, high)),
+                                    grow_low.where(grow, zoom_cubic.where(zoom, cubic)))
+                last = count + 1 >= max_steps
+                failed = np.where(grow, last & ~ok, np.where(
+                    zoom, (last | ((delta <= _STEPSIZE_PRECISION) & (safe.step > 0.0))) & ~ok,
+                    failed))
+                found = np.where(grow, set_high | set_low | ok, found)
+                done = np.where(act, ok, done)
+                cur = new.where(act, cur)
+                count = count + act
+                back = act & failed & ((safe.step > 0.0) | np.isinf(dec_err))
+                cur = safe.where(back, cur)
             # the gradients of the lanes' running and safe points
-            safe_rows = np.flatnonzero(to_safe[rows])
-            if len(safe_rows):
-                safe_grad = _put(safe_grad, rows[safe_rows], _rows(got.grad, safe_rows))
-            cur_grad = _put(cur_grad, rows, got.grad)
-            if back.any():
-                back_rows = np.flatnonzero(back)
-                cur_grad = _put(cur_grad, back_rows, _rows(safe_grad, back_rows))
+            with trace_annotation("oak.update"):
+                safe_rows = np.flatnonzero(to_safe[rows])
+                if len(safe_rows):
+                    safe_grad = _put(safe_grad, rows[safe_rows], _rows(got.grad, safe_rows))
+                cur_grad = _put(cur_grad, rows, got.grad)
+                if back.any():
+                    back_rows = np.flatnonzero(back)
+                    cur_grad = _put(cur_grad, back_rows, _rows(safe_grad, back_rows))
         cur.grad = cur_grad
         return cur
 
@@ -668,21 +696,25 @@ def lbfgs_step(value_and_grad_fn: ValueAndGrad, vec: torch.Tensor,
     afresh for the lanes where that value is not finite; ``state`` is
     updated in place; returns the new vectors [R, n]. ``value_and_grad_fn``
     takes lanes [r, n] to (losses [r], gradients [r, n])."""
+    count("lbfgs.iters")
     value, grad, gsq = state.value.copy(), state.grad, state.grad_sq.copy()
     fresh = np.flatnonzero(~np.isfinite(value))
     if len(fresh):
+        count("lbfgs.trials")
         v, g = value_and_grad_fn(_rows(vec, fresh))
-        read = torch.stack([v.to(g.dtype).reshape(-1), _dot(g, g)], dim=1).cpu().numpy()
+        read = host(torch.stack([v.to(g.dtype).reshape(-1), _dot(g, g)], dim=1)).numpy()
         value[fresh], gsq[fresh] = read[:, 0], read[:, 1]
         grad = _put(grad, fresh, g)
-    u = -_direction(state, vec, grad)
-    slope = _dot(u, grad).cpu().numpy().astype(np.float64)
+    with trace_annotation("oak.update"):
+        u = -_direction(state, vec, grad)
+        slope = host(_dot(u, grad)).numpy().astype(np.float64)
     start = _Point(np.zeros(len(value)), value.astype(np.float64), grad, slope,
                    gsq.astype(np.float64))
     end = zoom_linesearch(value_and_grad_fn, vec, u, start)
     state.value, state.grad, state.grad_sq = end.value, end.grad, end.grad_sq
     state.learning_rate = end.step
-    return vec + torch.as_tensor(end.step, dtype=vec.dtype, device=vec.device)[:, None] * u
+    with trace_annotation("oak.update"):
+        return vec + torch.as_tensor(end.step, dtype=vec.dtype, device=vec.device)[:, None] * u
 
 
 def lbfgs_lanes(value_and_grad_fn: ValueAndGrad, tol: float, memory_size: int = 30):
@@ -836,7 +868,7 @@ def fit_lbfgs(model, loss_fn: Callable, max_iters: int = 500, tol: float = 1e-8,
         vec, state, it = run_range(vec, state, it, max_iters)
     value, _ = stats(state)
     gnorm = math.sqrt(state.grad_sq[0])
-    if not bool(torch.isfinite(vec).all()):
+    if not bool(host(torch.isfinite(vec).all())):
         value = float("inf")
     assign_trainable(model, vec)
     converged = gnorm <= tol

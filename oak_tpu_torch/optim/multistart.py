@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..params import assign_trainable, flatten_trainable
-from .fit import (FitResult, LaneLoss, LBFGSState, adam, adam_best, finite_or_zero,
+from .fit import (FitResult, LaneLoss, LBFGSState, adam, adam_best, finite_or_zero, host,
                   lbfgs_lanes, load_lbfgs_state, save_lbfgs_state, writes_checkpoints)
 from .natgrad import natgrad_lanes_step, warn_if_q_diag
 
@@ -43,7 +43,7 @@ def _make_starts(vec0: torch.Tensor, n_starts: int, jitter: float, seed: int,
     ``default_rng(seed)``, drawn as ``oak_tpu`` draws them (so the starts
     are bitwise equal); the first is vec0 itself with ``include_init``."""
     rng = np.random.default_rng(seed)
-    v0 = vec0.detach().cpu().numpy()
+    v0 = host(vec0.detach()).numpy()
     starts = v0[None, :] + jitter * rng.standard_normal(
         (n_starts, v0.shape[0])).astype(v0.dtype)
     if include_init and n_starts > 0:
@@ -76,7 +76,7 @@ def _gather_lanes(axis, n_starts: int, vecs: torch.Tensor, *columns):
                               device=vecs.device)
     table = axis.gather_rows(torch.cat([vecs.double(), numbers], dim=1), n_starts)
     n = vecs.shape[1]
-    cols = table[:, n:].cpu().numpy().T
+    cols = host(table[:, n:]).numpy().T
     return (table[:, :n].to(vecs.dtype), *[list(c) for c in cols])
 
 
@@ -84,7 +84,7 @@ def _any(axis, flag: bool, device) -> bool:
     """``flag`` on any rank of the axis (every rank takes the same branch)."""
     if axis is None:
         return flag
-    return bool(axis.all_reduce(torch.tensor([float(flag)], device=device)).item() > 0)
+    return bool(host(axis.all_reduce(torch.tensor([float(flag)], device=device))).item() > 0)
 
 
 def _pack_state(vecs: torch.Tensor, state: LBFGSState, its) -> torch.Tensor:
@@ -102,7 +102,7 @@ def _unpack_state(table: torch.Tensor, like: torch.Tensor, memory_size: int):
     sizes = [n, n, n, memory_size * n, memory_size * n, memory_size, n, 5]
     vecs, params, updates, S, Y, rho, grad, scalars = torch.split(table, sizes, dim=1)
     kw = dict(dtype=like.dtype)
-    count, value, grad_sq, lr, its = scalars.cpu().numpy().T
+    count, value, grad_sq, lr, its = host(scalars).numpy().T
     state = LBFGSState(count.astype(np.int64), params.to(**kw), updates.to(**kw),
                        S.reshape(R, memory_size, n).to(**kw),
                        Y.reshape(R, memory_size, n).to(**kw), rho.to(**kw), value.copy(),
@@ -232,11 +232,11 @@ def _final_losses(loss: LaneLoss, vecs: torch.Tensor) -> np.ndarray:
     """The loss OF each lane's returned vector, not the state's last
     accepted value, which stays finite when a lane's last update poisoned
     its vector: inf where the vector is not finite."""
-    finite = torch.isfinite(vecs).all(dim=1).cpu().numpy()
+    finite = host(torch.isfinite(vecs).all(dim=1)).numpy()
     values = np.full(vecs.shape[0], np.inf)
     rows = np.flatnonzero(finite)
     if len(rows):
-        values[rows] = loss.values(vecs[torch.as_tensor(rows, device=vecs.device)]).cpu().numpy()
+        values[rows] = host(loss.values(vecs[torch.as_tensor(rows, device=vecs.device)])).numpy()
     return values
 
 
@@ -257,7 +257,7 @@ def fit_adam_multistart(model, loss_fn: Callable, n_starts: int = 4, jitter: flo
         vecs.grad = finite_or_zero(loss.value_and_grad(vecs)[1])
         opt.step()
     vecs = vecs.detach()
-    vecs, values = _gather_lanes(axis, n_starts, vecs, loss.values(vecs).cpu().numpy())
+    vecs, values = _gather_lanes(axis, n_starts, vecs, host(loss.values(vecs)).numpy())
     return _finish_multistart(vecs, values, model, accept_fn, "adam", steps)
 
 
@@ -281,6 +281,6 @@ def fit_natgrad_multistart(model, loss_fn: Callable, n_starts: int = 4,
     for _ in range(steps):
         step()
     vecs = vecs.detach()
-    values = LaneLoss(model, loss_fn).values(vecs).cpu().numpy()
+    values = host(LaneLoss(model, loss_fn).values(vecs)).numpy()
     vecs, values = _gather_lanes(axis, n_starts, vecs, values)
     return _finish_multistart(vecs, values, model, accept_fn, "natgrad", steps)

@@ -753,3 +753,43 @@ def test_vmapped_gradient_launches_each_kernel_once_per_gram(cuda):
         v, g = fit.value_and_grad(model, loss_fn, starts[r])
         assert abs(float(values[r] - v)) <= 1e-4 * abs(float(v))
         assert float((grads[r] - g).abs().max()) <= GRAD_TOL * float(g.abs().max())
+
+
+def test_launch_counters_agree_over_a_step(cuda):
+    """One SVGP Adam step on the card, recorded (``utils.profiling``): the
+    launch globals and the counters ``k1.launches`` and ``k2.launches`` move
+    alike (Kuu and Kuf), every span of the step is recorded with the step's
+    one evaluation, and K2's spans, opened on autograd's device thread, have
+    no parent there and count inside the evaluation's self time."""
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(71)
+    X = torch.as_tensor(rng.normal(size=(600, 6)), dtype=torch.float32, device=cuda)
+    Y = torch.sin(X[:, :1])
+    k = OAKKernel.create(num_dims=6, max_interaction_depth=3, dtype=torch.float32,
+                         device=cuda)
+    m = SVGP.create(k, Gaussian.create(0.1, dtype=torch.float32, device=cuda), X[:64],
+                    num_data=600)
+    vec = fit._leaf(m)
+    opt = fit.adam(vec)
+    loss_fn = lambda mm: mm.training_loss(X, Y)  # noqa: E731
+    fit._adam_step(m, loss_fn, vec, opt)  # warm
+    before = og.LAUNCHES, og.BWD_LAUNCHES
+    with profiling.recording():
+        fit._adam_step(m, loss_fn, vec, opt)
+        torch.cuda.synchronize()
+    rec = profiling.record()
+    c = rec.counters
+    assert (c["k1.launches"], c["k2.launches"]) == (og.LAUNCHES - before[0],
+                                                    og.BWD_LAUNCHES - before[1]) == (2, 2)
+    assert {s.name for s in rec.spans} == {"oak.eval", "oak.bound", "oak.prep",
+                                           "oak.gram.fwd", "oak.gram.bwd", "oak.linalg",
+                                           "oak.update"}
+    assert {s.eval for s in rec.spans} == {1}
+    ev = next(s for s in rec.spans if s.name == "oak.eval")
+    for s, own in zip(rec.spans, rec.self_ns()):
+        assert 0 <= own <= s.end_ns - s.start_ns
+        if s.name == "oak.gram.bwd":
+            assert s.parent == -1 and s.thread != ev.thread
+            assert ev.start_ns <= s.start_ns <= s.end_ns <= ev.end_ns
