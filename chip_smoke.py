@@ -32,6 +32,10 @@ non-zero before the result line:
    Kuf and Kuu, the square gram and the same cases, under 1e-3 or the same
    drift rule; a repeat launch bitwise equal; then timed as in phase 2, and
    forward plus backward against plain autograd in turns;
+2c. the training bounds' triangular solve (csrc/tri_solve.cu), forward and
+   transposed, at SVGP's 512 x 8192, SGPR's 4 lanes x 500 x 6553 and the
+   narrow widths of minibatch and data-sharded fits against float64, then
+   timed beside its bound and torch.linalg.solve_triangular;
 3. predict path: the bench's SVGP (N = 8192, D = 32, M = 512, depth 3,
    q_diag, whitened, float32) on the card answers predict_y requests of 1,
    100, 2048 and 8192 rows; the outputs are finite, the kernel was launched,
@@ -43,7 +47,11 @@ non-zero before the result line:
    gradient within 1e-2 of max |g|); 50 fit_adam steps;
    20 Adam steps of the bench's Bernoulli variant; 20 fit_natgrad_adam steps
    (γ 0.1) on a q_diag=False copy. Every loss is finite, each best loss is
-   below its first, and both kernels were launched;
+   below its first, and both kernels were launched; the solve kernel
+   launched once forward and once transposed for each gradient evaluation
+   and once for each value-only one (2 at the gradient check, whose float64
+   model takes the library's solve; 2 x steps + 1 in each fit_adam; some in
+   the natural-gradient fit), counted from 0 at the phase's start;
 5. Sobol: the full decomposition (5,488 components) of phase 4's trained
    SVGP in float32 against the same parameters in float64 on the card
    (normalised values within 1e-3), and its time; the
@@ -369,8 +377,12 @@ def phase_build():
         if m:
             k = re.search(r"oak_gram_(fwd|bwd)_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
                           m.group(1))
+            t = re.search(r"tri_solve_kernelILi(\d+)ELb(\d)E", m.group(1))
             entry = (f"{k.group(1)} P={k.group(2)} {k.group(3)}x{k.group(4)}"
                      + (" lanes" if k.group(5) == "1" else "") if k
+                     else f"solve NB={t.group(1)}" + (" transposed" if t.group(2) == "1" else "")
+                     if t
+                     else "diag_inv" if "diag_inv" in m.group(1)
                      else re.sub(r".*(oak_gram_\w+?)[A-Z]?\d*P.*", r"\1", m.group(1)))
         elif "registers" in line:
             regs.append(f"{entry} {re.search(r'Used (\d+) registers', line).group(1)}")
@@ -782,6 +794,71 @@ def phase_kernel_bwd(model, X, gpr, device, old):
     return numbers
 
 
+# The training bounds' wide solves, L⁻¹Kuf forward and L⁻ᵀdA transposed:
+# SVGP's at the bench width and SGPR's 4 lanes at the pumadyn setting; then
+# the narrow ones that take the same route: a minibatch of 256 rows
+# (optimise_minibatch's default, at its 200 inducing points and at 512), a
+# 4-rank mesh's 64 rows a rank of it, and one rank's 1,638 rows of the
+# pumadyn fit sharded 4 ways, 4 lanes.
+SOLVE_SHAPES = (("svgp32 512x8192", 512, 8192, 1), ("sgpr8 4 lanes 500x6553", 500, 6553, 4),
+                ("minibatch 200x256", 200, 256, 1), ("minibatch 512x256", 512, 256, 1),
+                ("mesh rank minibatch 200x64", 200, 64, 1),
+                ("mesh rank 4 lanes 500x1638", 500, 1638, 4))
+
+
+def phase_solve(device):
+    """The triangular-solve kernel (csrc/tri_solve.cu) at the cells' shapes,
+    both forms: against the float64 solve of the same float32 inputs, within
+    4x the library's own float32 error and 1e-5 of max |X|
+    (tests/test_torch_gpu.py::_solve_ok); then device ms (torch.profiler,
+    both of its launches), the bound (M^2 N / 2 FFMAs a lane at PEAK_FP32)
+    and torch.linalg.solve_triangular's device ms (library_ms, cuBLAS's
+    trsm; it is also the plain version), and CUDA-event ms of both in turns
+    library, kernel, kernel, library."""
+    from oak_tpu_torch.ops import tri_solve as ts
+
+    rows, numbers = [], {}
+    for name, M, N, lanes in SOLVE_SHAPES:
+        g = torch.Generator().manual_seed(M + N)
+        A = torch.randn(lanes, M, M, generator=g, dtype=torch.float64)
+        L = torch.linalg.cholesky(A @ A.mT / M + 0.05 * torch.eye(M, dtype=torch.float64))
+        L = L.float().contiguous().to(device)
+        B = torch.randn(lanes, M, N, generator=g).to(device)
+        if lanes == 1:
+            L, B = L[0], B[0]
+        for transpose in (False, True):
+            form = "transposed" if transpose else "forward"
+            kernel = (lambda L=L, B=B, t=transpose: ts._launch(L, B, t)) if lanes == 1 else \
+                (lambda L=L, B=B, t=transpose: ts._launch(L, B, t, lanes, (True, True)))
+            library = lambda L=L, B=B, t=transpose: ts.tri_solve_plain(L, B, t)  # noqa: E731
+            X, lib = kernel(), library()
+            ref = ts.tri_solve_plain(L.double(), B.double(), transpose)
+            err = float((X.double() - ref).abs().max() / ref.abs().max())
+            lib_err = float((lib.double() - ref).abs().max() / ref.abs().max())
+            if not err <= min(4 * lib_err + 1e-7, 1e-5):
+                raise RuntimeError(f"solve {name} {form}: error {err:.2e} against float64, "
+                                   f"the library's {lib_err:.2e}")
+            del X, lib, ref
+            dev = _turns({"library": library, "kernel": kernel}, _device_ms)
+            ev = _turns({"library": library, "kernel": kernel},
+                        lambda fn: _cuda_ms(fn, TIMING_ITERS))
+            bound = 1e3 * lanes * M * M * N / 2 / PEAK_FP32
+            ms, lib_ms = float(np.mean(dev["kernel"])), float(np.mean(dev["library"]))
+            numbers[f"{name} {form}"] = dict(
+                device_ms=ms, library_ms=lib_ms, plain_ms=lib_ms, bound_ms=bound,
+                bound_by="operations", share=bound / ms, event_ms=float(np.mean(ev["kernel"])),
+                library_event_ms=float(np.mean(ev["library"])), err=err, library_err=lib_err,
+                panel=ts._panel(M, N, lanes, device))
+            rows.append(f"  solve {name} {form}: device {dev['kernel']} ms, library "
+                        f"{dev['library']} ms; CUDA events {ev['kernel']} / {ev['library']} ms; "
+                        f"bound {bound:.4f} ms (FP32: {lanes * M * M * N / 2e9:.2f} GFMA), share "
+                        f"{bound / ms:.3f}; error {err:.2e} (library {lib_err:.2e}); panel "
+                        f"{numbers[f'{name} {form}']['panel']}")
+    print("phase 2c triangular solve vs torch.linalg.solve_triangular (device ms by "
+          "torch.profiler in turns library, kernel, kernel, library):\n" + "\n".join(rows))
+    return numbers
+
+
 def phase_main_path(model, X, device):
     from oak_tpu_torch.ops import oak_gram as og
 
@@ -866,17 +943,30 @@ def phase_training(device):
     """The training path at full width: the gradient against float64, then
     fit_adam, the Bernoulli variant and natural gradients."""
     from oak_tpu_torch.ops import oak_gram as og
+    from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.optim import fit_adam, fit_natgrad_adam
 
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    og.LAUNCHES = og.BWD_LAUNCHES = ts.SOLVE_LAUNCHES = 0
+
+    def solves(name, before, expected=None):
+        # the bound's L⁻¹Kuf and its backward L⁻ᵀdA launch the solve kernel:
+        # one forward and one transposed launch a gradient evaluation, one
+        # a value-only evaluation
+        n = ts.SOLVE_LAUNCHES - before
+        if n == 0 or (expected is not None and n != expected):
+            raise RuntimeError(f"{name}: {n} solve launches, expected "
+                               f"{expected if expected is not None else 'some'}")
+        return n
+
     model, X, Y = build_bench_model(device)
     # 4.1: f32 through the kernels against f64 through the plain route, on
     # the card, each factoring Kuu at its dtype's default jitter (1e-5 and
     # 1e-6 relative to the mean diagonal)
     line = _check_grad_against_f64("SVGP", model, lambda m: m.training_loss(X, Y),
                                    lambda m: m.training_loss(X.double(), Y.double()))
+    solves("the gradient at the start point (f32, then f64 on the library's solve)", 0, 2)
     print(f"phase 4.1 training gradient at the start point, f32 kernels vs f64 per-dim "
-          f"route on the card: {line}")
+          f"route on the card: {line}; solve launches 2")
 
     # 4.2: fit_adam, with the host clock read at every loss call (fit_adam
     # does not synchronise between steps, so an interval is one step's issue
@@ -887,7 +977,7 @@ def phase_training(device):
         stamps.append(time.perf_counter())
         return m.training_loss(X, Y)
 
-    first = (og.LAUNCHES, og.BWD_LAUNCHES)
+    first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fit_adam(model, loss_fn, steps=ADAM_STEPS)
@@ -895,6 +985,7 @@ def phase_training(device):
     wall = time.perf_counter() - t0
     steps_ms = 1e3 * np.diff(stamps[:ADAM_STEPS + 1])  # the last stamp is the final eval
     adam_line = _check_losses(f"fit_adam {ADAM_STEPS} steps", res.losses, *first)
+    adam_solves = solves("fit_adam", first_solve, 2 * ADAM_STEPS + 1)
     if not res.fun <= float(res.losses.min()):
         raise RuntimeError(f"fit_adam returned {res.fun}, above its best step loss")
     print(f"phase 4.2 {adam_line}, returned {res.fun:.6g}, loss at step {NATGRAD_STEPS} "
@@ -903,28 +994,31 @@ def phase_training(device):
           f"{steps_ms.mean():.3f}, first {steps_ms[0]:.3f}, max {steps_ms.max():.3f}; "
           f"whole call {wall:.3f} s incl. the final evaluation and sync; launches over "
           f"the steps and the final evaluation: K1 {og.LAUNCHES - first[0]}, K2 "
-          f"{og.BWD_LAUNCHES - first[1]}")
+          f"{og.BWD_LAUNCHES - first[1]}, solve {adam_solves}")
 
     # 4.3: the Bernoulli variant with Adam; natural gradients on a full q
     bmodel, bX, bY = build_bench_model(device, likelihood="bernoulli")
-    first = (og.LAUNCHES, og.BWD_LAUNCHES)
+    first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES
     t0 = time.perf_counter()
     bres = fit_adam(bmodel, lambda m: m.training_loss(bX, bY), steps=BERNOULLI_STEPS)
     b_ms = 1e3 * (time.perf_counter() - t0) / BERNOULLI_STEPS
     b_line = _check_losses(f"Bernoulli fit_adam {BERNOULLI_STEPS} steps", bres.losses, *first)
+    b_solves = solves("Bernoulli fit_adam", first_solve, 2 * BERNOULLI_STEPS + 1)
     del bmodel
     nmodel, nX, nY = build_bench_model(device, q_diag=False)
-    first = (og.LAUNCHES, og.BWD_LAUNCHES)
+    first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES
     t0 = time.perf_counter()
     nres = fit_natgrad_adam(nmodel, lambda m: m.training_loss(nX, nY),
                             steps=NATGRAD_STEPS, gamma=0.1)
     n_ms = 1e3 * (time.perf_counter() - t0) / NATGRAD_STEPS
     n_line = _check_losses(f"fit_natgrad_adam (gamma 0.1, full q) {NATGRAD_STEPS} steps",
                            nres.losses, *first)
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
-    print(f"phase 4.3 {b_line} ({b_ms:.3f} ms per step incl. sync); {n_line} "
-          f"({n_ms:.3f} ms per step incl. sync); training path launches: forward "
-          f"{launches['fwd']}, backward {launches['bwd']}")
+    n_solves = solves("fit_natgrad_adam", first_solve)
+    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES, "solve": ts.SOLVE_LAUNCHES}
+    print(f"phase 4.3 {b_line} ({b_ms:.3f} ms per step incl. sync, {b_solves} solve "
+          f"launches); {n_line} ({n_ms:.3f} ms per step incl. sync, {n_solves} solve "
+          f"launches); training path launches: forward {launches['fwd']}, backward "
+          f"{launches['bwd']}, solve {launches['solve']}")
     return launches, model, X
 
 
@@ -3682,6 +3776,7 @@ def main():
         old = _old_kernels(args.old) if args.old else dict(fwd=None, bwd=None, triton=None)
         kernel = timed("2", phase_kernel, model, X, gpr, device, old)
         kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device, old)
+        solve = timed("2c", phase_solve, device)
         del gpr
         predict_launches = timed("3", phase_main_path, model, X, device)
         train_launches, trained, X_train = timed("4", phase_training, device)
@@ -3738,6 +3833,19 @@ def main():
                 "old_device_ms": n["old_device_ms"],
                 "shapes": {name: {k: v[k] for k in keys} for name, v in shapes.items()}}
 
+    def solve_entry(numbers, launches):
+        # the training bounds' solve, which replaces no TPU kernel: its
+        # launches on phase 4's training path (each phase counted and checked
+        # there), the numbers of phase 2c at SVGP's forward solve, and every
+        # timed shape and form under "shapes"
+        n = numbers["svgp32 512x8192 forward"]
+        return {"name": "tri_solve_f32", "route": "cuda",
+                "source": "oak_tpu_torch/csrc/tri_solve.cu", "replaces": None,
+                "launches": launches, "max_abs_err": None, "ms": n["event_ms"],
+                "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
+                "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
+                "library_ms": n["library_ms"], "shapes": numbers}
+
     print(json.dumps({"kernels": [
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
               "oak_tpu/ops/oak_gram_pallas.py:63",
@@ -3753,6 +3861,7 @@ def main():
               + parallel_launches["bwd"] + grouped_launches["bwd"] + lanes_launches["bwd"],
               kernel_bwd,
               oak_kernels["K2"], "K2"),
+        solve_entry(solve, train_launches["solve"]),
         triton_entry(triton["triton"], kernel["Triton"],
                      {name.removeprefix("Triton "): v for name, v in kernel.items()
                       if name.startswith("Triton ")} | triton["numbers"])]}))

@@ -56,6 +56,14 @@ SIGNATURES = {
     "oak_gram_bwd_tile": ([ctypes.c_int] * 2 + [_INT_P] * 2, ctypes.c_int),
     # D, N, M, P, variant, lanes -> floats of workspace
     "oak_gram_bwd_workspace": ([ctypes.c_int] * 6, ctypes.c_longlong),
+    # L, B, X, work; M, N, lanes, lanes_L, transpose, nb; lane strides of L
+    # and B; stream
+    "oak_tri_solve_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                          + [ctypes.c_longlong] * 2 + [ctypes.c_void_p], ctypes.c_int),
+    # M, N, lanes -> the panel width (0: M too tall for one panel)
+    "oak_tri_solve_panel": ([ctypes.c_int] * 3 + [_INT_P], ctypes.c_int),
+    # M, lanes_L -> floats of workspace
+    "oak_tri_solve_workspace": ([ctypes.c_int] * 2, ctypes.c_longlong),
 }
 
 

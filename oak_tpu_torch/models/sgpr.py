@@ -3,13 +3,15 @@
 
 Fields in ``oak_tpu``'s order: kernel, likelihood, the inducing inputs Z (a
 Param, fixed by default), and the data buffers X, Y. On a float32 CUDA input
-Kuu and Kuf run through the fused CUDA kernels, forward and backward.
+Kuu and Kuf run through the fused CUDA kernels, forward and backward, and the
+bound's L⁻¹Kuf (``elbo_terms``) through the triangular-solve kernel
+(``ops.psd.solve_lower_wide``); the prediction paths keep the library's solve.
 
 One set of factors (``_common``: L = chol(Kuu + jitter), A = L⁻¹Kuf/σ,
-LB = chol(I + AAᵀ), c = LB⁻¹AY/σ) and one solve route, triangular solves,
-serve the bound, ``predict_f`` and ``posterior_alpha`` / ``posterior_stats``,
-so that the per-component predictions of ``sobol.get_prediction_component``
-sum to ``predict_f``'s mean. The bound takes them from its sums over rows
+LB = chol(I + AAᵀ), c = LB⁻¹AY/σ), by triangular solves, serves the bound,
+``predict_f`` and ``posterior_alpha`` / ``posterior_stats``; the
+predictions share one solve route, so that the per-component predictions of
+``sobol.get_prediction_component`` sum to ``predict_f``'s mean. The bound takes them from its sums over rows
 (``elbo_terms``), which the shards of a data-sharded fit add. ``oak_tpu``'s
 refined variant of the factors exists for the bf16 inside XLA:TPU's solvers
 and is not needed here.
@@ -25,7 +27,7 @@ from torch import nn
 
 from ..config import like
 from ..kernels.oak_kernel import OAKKernel
-from ..ops.psd import cholesky, solve_lower, solve_upper
+from ..ops.psd import cholesky, solve_lower, solve_lower_wide, solve_upper
 from ..params import Param, fixed, log_prior_density, param
 from ..utils.profiling import spanned
 from .gpr import as_data
@@ -80,7 +82,7 @@ class SGPR(nn.Module):
             sigma = torch.sqrt(self.likelihood.variance.value)
         Z = self.Z.value
         L = cholesky(self.kernel.K(Z))
-        A = solve_lower(L, self.kernel.K(Z, X)) / sigma  # [M, n]
+        A = solve_lower_wide(L, self.kernel.K(Z, X)) / sigma  # [M, n]
         return (A @ A.T, A @ Y, torch.sum(Y * Y), torch.sum(self.kernel.K_diag(X)),
                 torch.sum(A * A))
 

@@ -3,7 +3,9 @@
 
 On a float32 CUDA input the OAK gram runs through the fused CUDA kernels,
 forward and backward, so ``elbo`` and ``training_loss`` differentiate on the
-card (``ops.oak_gram.FusedGram``).
+card (``ops.oak_gram.FusedGram``), and the ELBO's wide Luu⁻¹Kuf through the
+triangular-solve kernel (``ops.psd.solve_lower_wide``); the prediction paths
+keep the library's solve.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 from ..config import like
 from ..kernels.oak_kernel import OAKKernel
 from ..ops.psd import (cholesky, cholesky_solve, safe_cholesky, solve_lower,
-                       solve_upper, tri_inv_lower)
+                       solve_lower_wide, solve_upper, tri_inv_lower)
 from ..params import Param, fixed, log_prior_density, param, positive
 from ..utils.profiling import spanned
 
@@ -114,10 +116,15 @@ class SVGP(nn.Module):
         ``kernel``, if given, takes the model kernel's place in K and K_diag:
         the posterior of one additive component (``plotting``)."""
         k = self.kernel if kernel is None else kernel
+        A = solve_lower(factors["Luu"], k.K(factors["Z"], Xnew))  # Luu⁻¹ Kus
+        return self._moments(factors, A, k, Xnew, full_cov)
+
+    def _moments(self, factors: Dict[str, torch.Tensor], A: torch.Tensor, k,
+                 Xnew: torch.Tensor, full_cov: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``predict_f_from``'s moments from A = Luu⁻¹ Kus [M, S]."""
         Luu, q_mu, q_sqrt = factors["Luu"], factors["q_mu"], factors["q_sqrt"]
-        Kus = k.K(factors["Z"], Xnew)  # [M, S]
         R = q_mu.shape[1]
-        A = solve_lower(Luu, Kus)  # Luu⁻¹ Kus
         W = A if self.whiten else solve_upper(Luu, A)  # Kuu⁻¹ Kus unwhitened
 
         mean = W.T @ q_mu  # [S, R]
@@ -143,8 +150,8 @@ class SVGP(nn.Module):
     def predict_f(self, Xnew: torch.Tensor, full_cov: bool = False,
                   safe: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Predictive mean [S, R] and variance [S, R] (or covariance
-        [R, S, S] with ``full_cov``). ``safe=False`` (the ELBO's call) uses
-        the single-jitter Cholesky. Both solves are triangular solves
+        [R, S, S] with ``full_cov``). ``safe=False`` uses the ELBO's
+        single-jitter Cholesky. Both solves are triangular solves
         against Kus, whatever its width."""
         return self.predict_f_from(self.predict_factors(safe), Xnew, full_cov)
 
@@ -165,7 +172,11 @@ class SVGP(nn.Module):
         batch add their terms (``parallel``)."""
         if Y.dim() == 1:
             Y = Y[:, None]
-        fmu, fvar = self.predict_f(X, safe=False)
+        factors = self.predict_factors(safe=False)
+        # the bound's wide L⁻¹Kuf takes the kernel csrc/tri_solve.cu on the
+        # card; the prediction paths keep solve_lower
+        A = solve_lower_wide(factors["Luu"], self.kernel.K(factors["Z"], X))
+        fmu, fvar = self._moments(factors, A, self.kernel, X)
         return (torch.sum(self.likelihood.variational_expectations(fmu, fvar, Y)),)
 
     def elbo_from_terms(self, terms, num_rows: int) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 
 from ..config import default_jitter
 from ..utils.profiling import spanned
+from .tri_solve import TriSolve
 
 # Each public call below is the span oak.linalg, one however they nest.
 _linalg = spanned("oak.linalg")
@@ -77,6 +78,19 @@ def safe_cholesky(K: torch.Tensor, jitter: Optional[float] = None,
 def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """L⁻¹ B for lower-triangular L."""
     return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+@_linalg
+def solve_lower_wide(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ B for lower-triangular L and a wide B, the training bounds'
+    L⁻¹Kuf, differentiable in both: ``ops.tri_solve.TriSolve``, whose
+    float32 CUDA route is the kernel ``csrc/tri_solve.cu``, forward and
+    backward, and whose CPU route is ``solve_triangular``. A float64 CUDA
+    input takes ``solve_lower``'s library solve, as the gram's routing does;
+    the op raises for any other CUDA dtype."""
+    if L.is_cuda and L.dtype == torch.float64:
+        return torch.linalg.solve_triangular(L, B, upper=False)
+    return TriSolve.apply(L.contiguous(), B.contiguous(), False)
 
 
 @_linalg

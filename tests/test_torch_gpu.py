@@ -793,3 +793,154 @@ def test_launch_counters_agree_over_a_step(cuda):
         if s.name == "oak.gram.bwd":
             assert s.parent == -1 and s.thread != ev.thread
             assert ev.start_ns <= s.start_ns <= s.end_ns <= ev.end_ns
+
+
+# ---------------------------------------------------------------------------
+# The training bounds' triangular solve (csrc/tri_solve.cu, ops/tri_solve.py)
+# ---------------------------------------------------------------------------
+# (M, N, lanes): the two cells' shapes, the sizes where the lanes build of K1
+# and K2 faults at small sizes, M not a multiple of 32 with odd N, a single
+# narrow panel, and an M past one panel's shared memory (split in two)
+SOLVE_CASES = [(512, 8192, 1), (500, 6553, 4), (20, 1100, 4), (40, 2100, 4), (37, 9, 1),
+               (33, 131, 2), (100, 64, 1), (1600, 300, 1)]
+
+
+def _solve_inputs(M, N, lanes, seed, device):
+    """A lower-triangular L of a well-conditioned SPD matrix and a B, float32
+    on ``device``, each [lanes, ...]."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(lanes, M, M, generator=g, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.mT / M + 0.05 * torch.eye(M, dtype=torch.float64))
+    B = torch.randn(lanes, M, N, generator=g, dtype=torch.float64)
+    return L.float().contiguous().to(device), B.float().to(device)
+
+
+def _rel(x, ref):
+    return float((x.double() - ref).abs().max() / ref.abs().max())
+
+
+# The kernel rounds a blocked substitution with inverted 32 x 32 diagonal
+# blocks in FP32, the library a substitution of its own order: its error
+# against float64 at the same float32 inputs may be a few times the
+# library's, never of another order (a wrong index reads O(1)); 4x the
+# library's error, and under 1e-5 of max |X|.
+def _solve_ok(x, lib, ref):
+    err, lib_err = _rel(x, ref), _rel(lib, ref)
+    return err <= min(4 * lib_err + 1e-7, 1e-5), f"kernel {err:.2e}, library {lib_err:.2e}"
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["forward", "transposed"])
+@pytest.mark.parametrize("M,N,lanes", SOLVE_CASES, ids=[f"{m}x{n}x{r}" for m, n, r in SOLVE_CASES])
+def test_tri_solve_kernel_matches_float64(cuda, M, N, lanes, transpose):
+    """Both forms, one launch for all lanes, against the float64 solve of
+    the same float32 inputs."""
+    from oak_tpu_torch.ops import tri_solve as ts
+
+    L, B = _solve_inputs(M, N, lanes, M + N + lanes, cuda)
+    before = ts.SOLVE_LAUNCHES
+    X = ts._launch(L, B, transpose, lanes, (True, True)) if lanes > 1 else \
+        ts._launch(L[0], B[0], transpose)[None]
+    torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES > before
+    ok, text = _solve_ok(X, ts.tri_solve_plain(L, B, transpose),
+                         ts.tri_solve_plain(L.double(), B.double(), transpose))
+    assert ok, text
+
+
+def test_tri_solve_kernel_reads_the_lower_triangle_and_passes_nan(cuda):
+    """An upper triangle of NaN is never read; an all-NaN L (a failed
+    Cholesky) gives an all-NaN X in both forms, and a NaN in B reaches X."""
+    from oak_tpu_torch.ops import tri_solve as ts
+
+    L, B = _solve_inputs(70, 333, 1, 5, cuda)
+    L, B = L[0], B[0]
+    garbage = (L + torch.full_like(L, float("nan")).triu(1)).contiguous()
+    for transpose in (False, True):
+        ok, text = _solve_ok(ts._launch(garbage, B, transpose), ts.tri_solve_plain(L, B, transpose),
+                             ts.tri_solve_plain(L.double(), B.double(), transpose))
+        assert ok, text
+        assert torch.isnan(ts._launch(torch.full_like(L, float("nan")), B, transpose)).all()
+        Bn = B.clone()
+        Bn[40, 7] = float("nan")
+        assert torch.isnan(ts._launch(L, Bn, transpose)[:, 7]).any()
+
+
+def test_tri_solve_gradient_through_the_kernel(cuda):
+    """TriSolve's gradients for a non-contiguous cotangent dA, against
+    float64 autograd of the library solve, as close as the library's own
+    float32 gradients are: one forward and one transposed launch."""
+    from oak_tpu_torch.ops import psd
+    from oak_tpu_torch.ops import tri_solve as ts
+
+    L, B = _solve_inputs(500, 2049, 1, 9, cuda)
+    L, B = L[0], B[0]
+    G = torch.randn(2049, 500, generator=torch.Generator().manual_seed(10)).to(cuda).mT
+    assert not G.is_contiguous()
+
+    def grads(fn, L_, B_):
+        Lr, Br = L_.clone().requires_grad_(True), B_.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(Lr, Br), (Lr, Br), G.to(L_.dtype))
+
+    before = ts.SOLVE_LAUNCHES
+    ours = grads(psd.solve_lower_wide, L, B)
+    torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES == before + 2
+    lib = grads(lambda a, b: torch.linalg.solve_triangular(a, b, upper=False), L, B)
+    ref = grads(lambda a, b: torch.linalg.solve_triangular(a, b, upper=False),
+                L.double(), B.double())
+    assert torch.equal(ours[0].triu(1), torch.zeros_like(ours[0]))  # dL is lower
+    for name, o, li, r in zip(("dL", "dB"), ours, lib, ref):
+        ok, text = _solve_ok(o, li, r)
+        assert ok, (name, text)
+
+
+def test_tri_solve_routes_by_dtype(cuda):
+    """float32 launches the kernel, float64 on the card takes the library's
+    solve (no launch) and agrees, float16 raises."""
+    from oak_tpu_torch.ops import psd
+    from oak_tpu_torch.ops import tri_solve as ts
+
+    L, B = _solve_inputs(64, 300, 1, 11, cuda)
+    L, B = L[0], B[0]
+    before = ts.SOLVE_LAUNCHES
+    X = psd.solve_lower_wide(L, B)
+    X64 = psd.solve_lower_wide(L.double(), B.double())
+    torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES == before + 1
+    assert _rel(X, X64) < 1e-5
+    with pytest.raises(TypeError, match="float32"):
+        psd.solve_lower_wide(L.half(), B.half())
+
+
+def test_vmapped_lanes_launch_each_solve_once(cuda):
+    """The vmapped loss and gradient of 4 lanes of a float32 SGPR on the card
+    launch the solve once forward and once transposed, as one lane does,
+    and agree with the lanes one by one; predict_f launches none."""
+    from oak_tpu_torch.models import SGPR
+    from oak_tpu_torch.ops import tri_solve as ts
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.optim.multistart import _make_starts
+    from oak_tpu_torch.params import flatten_trainable
+
+    rng = np.random.default_rng(74)
+    X = rng.normal(size=(3000, 6))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(3000, 1))
+    kw = dict(dtype=torch.float32, device=cuda)
+    model = SGPR.create(X, Y, OAKKernel.create(num_dims=6, max_interaction_depth=3, **kw),
+                        X[:100], noise_variance=0.1, **kw)
+    loss_fn = lambda m: m.training_loss()  # noqa: E731
+    starts = _make_starts(flatten_trainable(model).detach(), 4, 0.3, 0, True)
+    before = ts.SOLVE_LAUNCHES
+    fit.value_and_grad(model, loss_fn, starts[0])
+    assert ts.SOLVE_LAUNCHES == before + 2
+    values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
+    torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES == before + 4
+    for r in range(4):
+        v, g = fit.value_and_grad(model, loss_fn, starts[r])
+        assert abs(float(values[r] - v)) <= 1e-4 * abs(float(v))
+        assert float((grads[r] - g).abs().max()) <= GRAD_TOL * float(g.abs().max())
+    before = ts.SOLVE_LAUNCHES
+    with torch.no_grad():
+        model.predict_f(torch.as_tensor(X[:500], **kw))
+    assert ts.SOLVE_LAUNCHES == before
