@@ -27,7 +27,10 @@ Workspace workspace(int D, int N, int M, int P, int blocks_n, int blocks_m) {
   w.colp = w.rowp + 2 * (size_t)blocks_m * D * N;
   w.dlogbp = w.colp + 2 * (size_t)blocks_n * D * M;
   w.dsig2p = w.dlogbp + blocks * D;
-  w.total = w.dsig2p + blocks * (P + 1);
+  // a lane's share rounded up to 4 floats, so that every lane's partials
+  // start 16-byte aligned: the row and column partials take 8-byte stores
+  // and loads, which an odd total misaligned in lanes 1, 3, ...
+  w.total = (w.dsig2p + blocks * (P + 1) + 3) & ~(size_t)3;
   return w;
 }
 

@@ -85,7 +85,8 @@ def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
 
     Each group of ``kernels.stackable_groups`` is prescaled in one batched
     call; the RBF-form groups' rows and the other groups' extra grams are
-    then put in dim order.
+    then put in dim order. The extra grams (the binary and categorical
+    groups' gathers and their stack) are the span ``oak.extra``.
 
     Two floors keep gradients finite when a sparsity prior prunes a dim:
     var_s is floored at sqrt(tiny) before its rsqrt (with cov and var_s both
@@ -100,7 +101,8 @@ def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
     def prescale(k, col1, col2):
         col2 = col2.to(dtype)
         if not isinstance(k, (OrthogonalRBF, UnconstrainedRBF)):
-            return kernel_K(k, col1, col2).to(dtype)
+            with profiling.trace_annotation("oak.extra"):
+                return kernel_K(k, col1, col2).to(dtype)
         ls2 = (k.lengthscale.value.to(dtype) * _SQRT2)[:, None]
         if isinstance(k, OrthogonalRBF):
             rs = torch.rsqrt(torch.clamp_min(ortho_rbf.var_s(k).to(dtype),
@@ -132,8 +134,11 @@ def _prep(oak, X: torch.Tensor, X2: torch.Tensor) -> Prepped:
         u2 = torch.zeros((0, M), dtype=dtype, device=device)
         c1, c2 = u1, u2
         logb = torch.zeros((0,), dtype=dtype, device=device)
-    extra = (_in_dim_order(extras, extra_dims) if extras
-             else torch.zeros((0, N, M), dtype=dtype, device=device))
+    if extras:
+        with profiling.trace_annotation("oak.extra"):
+            extra = _in_dim_order(extras, extra_dims)
+    else:
+        extra = torch.zeros((0, N, M), dtype=dtype, device=device)
 
     if oak.share_var_across_orders:
         sig2 = torch.stack([v.value.reshape(()) for v in oak.variances]).to(dtype)
@@ -360,7 +365,15 @@ def _launch_fwd(inputs: Sequence[torch.Tensor], depth: int, lanes: int = 0,
         raise RuntimeError(f"oak_gram_fwd_f32 launch failed with cudaError {rc}")
     LAUNCHES += 1
     profiling.count("k1.launches")
+    _count_extra(E * L)
     return out
+
+
+def _count_extra(grams: int) -> None:
+    """The counter ``gram.extra``: extra grams handed to one K1 launch (E a
+    lane), or to its plain version on the CPU; nothing for E = 0."""
+    if grams:
+        profiling.count("gram.extra", grams)
 
 
 @torch.library.custom_op("oak_tpu_torch::oak_gram_fwd", mutates_args=(),
@@ -378,6 +391,7 @@ def oak_gram_fwd_op(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor,
 
 @oak_gram_fwd_op.register_kernel("cpu")
 def _oak_gram_fwd_cpu(u1, u2, c1, c2, extra, logb, sig2, depth):
+    _count_extra(extra.shape[0])
     return oak_gram_plain(u1, u2, c1, c2, extra, logb, sig2, depth)
 
 
@@ -400,7 +414,9 @@ def _oak_gram_fwd_vmap(info, in_dims, u1, u2, c1, c2, extra, logb, sig2, depth):
     on the CPU."""
     inputs, dims = (u1, u2, c1, c2, extra, logb, sig2), tuple(in_dims[:7])
     if not any(t.is_cuda for t in inputs):
-        return oak_gram_plain(*_lanes_first(inputs, dims, info.batch_size), depth), 0
+        inputs = _lanes_first(inputs, dims, info.batch_size)
+        _count_extra(math.prod(inputs[4].shape[:-2]))
+        return oak_gram_plain(*inputs, depth), 0
     return _launch_fwd(_lanes_first(inputs, dims), depth, info.batch_size,
                        [d is not None for d in dims]), 0
 

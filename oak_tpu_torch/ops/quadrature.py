@@ -1,5 +1,6 @@
 """Gauss–Hermite quadrature over 1-D Gaussians (``oak_tpu.ops.quadrature``),
-for the Bernoulli likelihood's variational expectations and predictions."""
+for the Bernoulli likelihood's variational expectations and predictions.
+Each call is the span ``oak.quad`` (``utils.profiling``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import spanned
 
 DEFAULT_NUM_POINTS = 20  # GPflow's default
 
@@ -36,6 +39,7 @@ def _grid(mean: torch.Tensor, var: torch.Tensor, num_points: int):
     return mean[..., None] + _safe_scale(var)[..., None] * x, w
 
 
+@spanned("oak.quad")
 def gauss_hermite(fn: Callable, mean: torch.Tensor, var: torch.Tensor,
                   num_points: int = DEFAULT_NUM_POINTS) -> torch.Tensor:
     """E_{x ~ N(mean, var)}[fn(x)], elementwise over mean and var."""
@@ -43,6 +47,7 @@ def gauss_hermite(fn: Callable, mean: torch.Tensor, var: torch.Tensor,
     return torch.sum(fn(grid) * w, dim=-1)
 
 
+@spanned("oak.quad")
 def log_gauss_hermite(log_fn: Callable, mean: torch.Tensor, var: torch.Tensor,
                       num_points: int = DEFAULT_NUM_POINTS) -> torch.Tensor:
     """log E[exp(log_fn(x))], through a logsumexp."""

@@ -680,7 +680,12 @@ def test_grouped_route_matches_the_per_dim_loop_on_the_card(cuda):
 LANE_CASES = [("pumadyn Kuf 500x6553", 8, 500, 6553, 0, 8, ()),
               ("mixed E=2 ragged", 30, 300, 77, 2, 3, ()),
               ("shared u2, c2", 32, 512, 700, 0, 3, ("u2", "c2")),
-              ("deep P=12", 32, 300, 200, 0, 12, ("sig2",))]
+              ("deep P=12", 32, 300, 200, 0, 12, ("sig2",)),
+              # K2's 35 tiles of 32 x 32 at P 3 leave a lane's workspace an
+              # odd number of floats before its rounding to 4, which keeps
+              # lane 1's 8-byte partial stores aligned
+              ("D 3, P 3, odd tiles", 3, 20, 1100, 0, 3, ()),
+              ("heart Kuf 200x237, E 8", 5, 200, 237, 8, 4, ())]
 
 
 @pytest.mark.parametrize("name,D,N,M,E,depth,shared", LANE_CASES,
