@@ -35,7 +35,11 @@ non-zero before the result line:
 2c. the training bounds' triangular solve (csrc/tri_solve.cu), forward and
    transposed, at SVGP's 512 x 8192, SGPR's 4 lanes x 500 x 6553 and the
    narrow widths of minibatch and data-sharded fits against float64, then
-   timed beside its bound and torch.linalg.solve_triangular;
+   timed beside its bound and torch.linalg.solve_triangular; the Cholesky's
+   reverse pass (ops/psd.py CholeskyVjp: two transposed solves, one launch
+   each for all lanes) at the cells' 4 x 500^2, 4 x 200^2 and 1 x 512^2
+   against float64 autograd of the library's Cholesky, then timed alone
+   beside its bound and autograd's own backward (cuBLAS's trsm);
 3. predict path: the bench's SVGP (N = 8192, D = 32, M = 512, depth 3,
    q_diag, whitened, float32) on the card answers predict_y requests of 1,
    100, 2048 and 8192 rows; the outputs are finite, the kernel was launched,
@@ -48,10 +52,11 @@ non-zero before the result line:
    20 Adam steps of the bench's Bernoulli variant; 20 fit_natgrad_adam steps
    (γ 0.1) on a q_diag=False copy. Every loss is finite, each best loss is
    below its first, and both kernels were launched; the solve kernel
-   launched once forward and once transposed for each gradient evaluation
-   and once for each value-only one (2 at the gradient check, whose float64
-   model takes the library's solve; 2 x steps + 1 in each fit_adam; some in
-   the natural-gradient fit), counted from 0 at the phase's start;
+   launched once forward and once transposed for each gradient evaluation,
+   twice more for the Cholesky of Kuu it differentiates, and once for each
+   value-only one (4 at the gradient check, whose float64 model takes the
+   library's solves; 4 x steps + 1 in each fit_adam; some in the
+   natural-gradient fit), counted from 0 at the phase's start;
 5. Sobol: the full decomposition (5,488 components) of phase 4's trained
    SVGP in float32 against the same parameters in float64 on the card
    (normalised values within 1e-3), and its time; the
@@ -804,6 +809,10 @@ SOLVE_SHAPES = (("svgp32 512x8192", 512, 8192, 1), ("sgpr8 4 lanes 500x6553", 50
                 ("minibatch 200x256", 200, 256, 1), ("minibatch 512x256", 512, 256, 1),
                 ("mesh rank minibatch 200x64", 200, 64, 1),
                 ("mesh rank 4 lanes 500x1638", 500, 1638, 4))
+# The Cholesky's reverse pass, (name, M, lanes): sgpr8-fit4's Kuu and
+# I + AAᵀ over 4 lanes, heart-fit4's Kuu over 4 lanes, svgp32-train's Kuu.
+VJP_SHAPES = (("sgpr8 4 lanes 500^2", 500, 4), ("heart 4 lanes 200^2", 200, 4),
+              ("svgp32 512^2", 512, 1))
 
 
 def phase_solve(device):
@@ -854,9 +863,68 @@ def phase_solve(device):
                         f"bound {bound:.4f} ms (FP32: {lanes * M * M * N / 2e9:.2f} GFMA), share "
                         f"{bound / ms:.3f}; error {err:.2e} (library {lib_err:.2e}); panel "
                         f"{numbers[f'{name} {form}']['panel']}")
-    print("phase 2c triangular solve vs torch.linalg.solve_triangular (device ms by "
-          "torch.profiler in turns library, kernel, kernel, library):\n" + "\n".join(rows))
+    rows += _chol_vjp_rows(device, numbers)
+    print("phase 2c triangular solve vs torch.linalg.solve_triangular, and the Cholesky's "
+          "reverse pass vs autograd's (device ms by torch.profiler in turns library, "
+          "kernel, kernel, library):\n" + "\n".join(rows))
     return numbers
+
+
+def _chol_vjp_rows(device, numbers):
+    """The Cholesky's reverse pass alone (ops/psd.py CholeskyVjp) at
+    VJP_SHAPES: its gradient of a seeded cotangent against float64 autograd
+    of the library's Cholesky, within 4x the library's own float32 error and
+    1e-5 (tests/test_torch_gpu.py::_solve_ok), two solve launches for all
+    lanes; then device ms of the backward alone (the factor held), events ms
+    and the share of its bound, M^3 FFMAs a lane (two solves) at PEAK_FP32,
+    beside autograd's backward (library_ms: cuBLAS's trsm, a call a lane)."""
+    from oak_tpu_torch.ops import psd
+    from oak_tpu_torch.ops import tri_solve as ts
+
+    rows = []
+    for name, M, lanes in VJP_SHAPES:
+        g = torch.Generator().manual_seed(M + lanes)
+        X = torch.randn(lanes, M, M, generator=g, dtype=torch.float64)
+        A64 = X @ X.mT / M + 0.05 * torch.eye(M, dtype=torch.float64)
+        A = A64.float().to(device)
+        G = torch.randn(lanes, M, M, generator=g).tril().to(device)
+
+        def factor(fn, a):
+            a = a.clone().requires_grad_(True)
+            return a, fn(a)[0]
+
+        mine, lib, ref = (factor(psd.CholeskyLower.apply, A),
+                          factor(torch.linalg.cholesky_ex, A),
+                          factor(torch.linalg.cholesky_ex, A.double()))
+        kernel = lambda f=mine: torch.autograd.grad(f[1], f[0], G, retain_graph=True)[0]  # noqa: E731
+        library = lambda f=lib: torch.autograd.grad(f[1], f[0], G, retain_graph=True)[0]  # noqa: E731
+        before = ts.SOLVE_LAUNCHES
+        gA = kernel()
+        torch.cuda.synchronize()
+        if ts.SOLVE_LAUNCHES != before + 2:
+            raise RuntimeError(f"Cholesky VJP {name}: {ts.SOLVE_LAUNCHES - before} solve "
+                               "launches, expected 2")
+        gref = torch.autograd.grad(ref[1], ref[0], G.double())[0]
+        err = float((gA.double() - gref).abs().max() / gref.abs().max())
+        lib_err = float((library().double() - gref).abs().max() / gref.abs().max())
+        if not err <= min(4 * lib_err + 1e-7, 1e-5):
+            raise RuntimeError(f"Cholesky VJP {name}: error {err:.2e} against float64, the "
+                               f"library's {lib_err:.2e}")
+        del gA, gref, ref
+        dev = _turns({"library": library, "kernel": kernel}, _device_ms)
+        ev = _turns({"library": library, "kernel": kernel}, lambda fn: _cuda_ms(fn, TIMING_ITERS))
+        bound = 1e3 * lanes * M ** 3 / PEAK_FP32
+        ms, lib_ms = float(np.mean(dev["kernel"])), float(np.mean(dev["library"]))
+        numbers[f"chol vjp {name}"] = dict(
+            device_ms=ms, library_ms=lib_ms, plain_ms=lib_ms, bound_ms=bound,
+            bound_by="operations", share=bound / ms, event_ms=float(np.mean(ev["kernel"])),
+            library_event_ms=float(np.mean(ev["library"])), err=err, library_err=lib_err,
+            panel=ts._panel(M, M, lanes, device))
+        rows.append(f"  chol vjp {name}: device {dev['kernel']} ms, library {dev['library']} ms; "
+                    f"CUDA events {ev['kernel']} / {ev['library']} ms; bound {bound:.4f} ms "
+                    f"(FP32: {lanes * M ** 3 / 1e9:.2f} GFMA), share {bound / ms:.3f}; error "
+                    f"{err:.2e} (library {lib_err:.2e}); panel {numbers[f'chol vjp {name}']['panel']}")
+    return rows
 
 
 def phase_main_path(model, X, device):
@@ -949,9 +1017,9 @@ def phase_training(device):
     og.LAUNCHES = og.BWD_LAUNCHES = ts.SOLVE_LAUNCHES = 0
 
     def solves(name, before, expected=None):
-        # the bound's L⁻¹Kuf and its backward L⁻ᵀdA launch the solve kernel:
-        # one forward and one transposed launch a gradient evaluation, one
-        # a value-only evaluation
+        # the bound's L⁻¹Kuf and its backward L⁻ᵀdA launch the solve kernel,
+        # and so does the reverse pass of Kuu's Cholesky (two transposed
+        # launches): four a gradient evaluation, one a value-only evaluation
         n = ts.SOLVE_LAUNCHES - before
         if n == 0 or (expected is not None and n != expected):
             raise RuntimeError(f"{name}: {n} solve launches, expected "
@@ -964,9 +1032,9 @@ def phase_training(device):
     # 1e-6 relative to the mean diagonal)
     line = _check_grad_against_f64("SVGP", model, lambda m: m.training_loss(X, Y),
                                    lambda m: m.training_loss(X.double(), Y.double()))
-    solves("the gradient at the start point (f32, then f64 on the library's solve)", 0, 2)
+    solves("the gradient at the start point (f32, then f64 on the library's solves)", 0, 4)
     print(f"phase 4.1 training gradient at the start point, f32 kernels vs f64 per-dim "
-          f"route on the card: {line}; solve launches 2")
+          f"route on the card: {line}; solve launches 4")
 
     # 4.2: fit_adam, with the host clock read at every loss call (fit_adam
     # does not synchronise between steps, so an interval is one step's issue
@@ -985,7 +1053,7 @@ def phase_training(device):
     wall = time.perf_counter() - t0
     steps_ms = 1e3 * np.diff(stamps[:ADAM_STEPS + 1])  # the last stamp is the final eval
     adam_line = _check_losses(f"fit_adam {ADAM_STEPS} steps", res.losses, *first)
-    adam_solves = solves("fit_adam", first_solve, 2 * ADAM_STEPS + 1)
+    adam_solves = solves("fit_adam", first_solve, 4 * ADAM_STEPS + 1)
     if not res.fun <= float(res.losses.min()):
         raise RuntimeError(f"fit_adam returned {res.fun}, above its best step loss")
     print(f"phase 4.2 {adam_line}, returned {res.fun:.6g}, loss at step {NATGRAD_STEPS} "
@@ -1003,7 +1071,7 @@ def phase_training(device):
     bres = fit_adam(bmodel, lambda m: m.training_loss(bX, bY), steps=BERNOULLI_STEPS)
     b_ms = 1e3 * (time.perf_counter() - t0) / BERNOULLI_STEPS
     b_line = _check_losses(f"Bernoulli fit_adam {BERNOULLI_STEPS} steps", bres.losses, *first)
-    b_solves = solves("Bernoulli fit_adam", first_solve, 2 * BERNOULLI_STEPS + 1)
+    b_solves = solves("Bernoulli fit_adam", first_solve, 4 * BERNOULLI_STEPS + 1)
     del bmodel
     nmodel, nX, nY = build_bench_model(device, q_diag=False)
     first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES

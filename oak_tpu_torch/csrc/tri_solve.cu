@@ -7,7 +7,8 @@
 // its own L (or one L that every lane shares) against its own B (or a shared
 // one) on the blocks whose blockIdx.y is l. The training bounds take it for
 // A = L^-1 Kuf and, in autograd's backward, dKuf = L^-T dA
-// (oak_tpu_torch/ops/tri_solve.py).
+// (oak_tpu_torch/ops/tri_solve.py); the Cholesky's reverse pass for its two
+// square solves L^-T P and L^-T Y^T (oak_tpu_torch/ops/psd.py).
 //
 // It replaces no TPU kernel: oak_tpu left its triangular solves to XLA. It
 // was added because cuBLAS's trsm ran these wide solves at 12-14 % of the
@@ -19,9 +20,9 @@
 // (0.01 ms). The recurrence runs down the rows (up, transposed), so the
 // parallelism is across columns.
 //
-// Design: a block owns one lane and one panel of NB columns (64, or 32
-// where the waves over the SMs come out better or M is too tall for 64;
-// oak_tri_solve_panel chooses from M, N and the lanes) and keeps the
+// Design: a block owns one lane and one panel of NB columns (64, 32 or 16:
+// oak_tri_solve_panel chooses from M, N and the lanes, by the waves over
+// the SMs and whether M fits a panel's shared memory) and keeps the
 // panel's solved rows of X in shared memory (M x NB floats), so that the
 // product's right operand never leaves the SM. It walks L in blocks of 32
 // rows, down (up, transposed). For row block i it forms R = B_i - L_i,<i
@@ -59,7 +60,7 @@ constexpr int kStages = 2;        // tiles of L in flight or in use
 constexpr int kPad = kBlock + 4;  // row stride of the staged tiles (16-byte rows)
 constexpr int kThreads = 256;     // 8 row groups x NB / 4 column groups x k groups
 
-// k groups of the solve kernel at panel width nb (32 or 64 columns)
+// k groups of the solve kernel at panel width nb (16, 32 or 64 columns)
 __host__ __device__ constexpr int k_groups(int nb) { return 128 / nb; }
 
 // Shared memory of the solve kernel at panel width nb over mpad rows: the
@@ -114,17 +115,20 @@ __global__ void __launch_bounds__(kBlock)
   for (int r = 0; r < kBlock; ++r) Dinv[r * kBlock + c] = (r < n && c < n) ? inv[r] : 0.f;
 }
 
-// CT consecutive floats from shared memory, as float4s or one float2.
+// CT consecutive floats from shared memory, as float4s, one float2 or one
+// float.
 template <int CT>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[CT]) {
-  if constexpr (CT % 4 == 0) {
+  if constexpr (CT == 1) {
+    v[0] = *p;
+  } else if constexpr (CT % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < CT; q += 4) {
       const float4 a = *reinterpret_cast<const float4*>(p + q);
       v[q] = a.x, v[q + 1] = a.y, v[q + 2] = a.z, v[q + 3] = a.w;
     }
   } else {
-    static_assert(CT == 2, "a row of 2 or a multiple of 4 floats");
+    static_assert(CT == 2, "a row of 1, 2 or a multiple of 4 floats");
     const float2 a = *reinterpret_cast<const float2*>(p);
     v[0] = a.x, v[1] = a.y;
   }
@@ -141,7 +145,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int LPT = kDepth * kBlock / T;        // values of a tile of L a thread copies
   constexpr int DPT = kBlock * kBlock / T;        // values of D_i a thread loads
   constexpr int CT = NB * 16 / T;                 // columns a thread solves in X_i = D_i R
-  static_assert(RG * CG * KG == T && kBlock % KG == 0 && CT % 2 == 0, "thread layout");
+  static_assert(RG * CG * KG == T && kBlock % KG == 0 && (CT == 1 || CT % 2 == 0),
+                "thread layout");
 
   extern __shared__ float4 smem4[];
   const int nblk = (M + kBlock - 1) / kBlock;
@@ -356,10 +361,17 @@ int occupancy(int mpad, int optin) {
 using namespace oak_trsm;
 
 // The panel width for M rows, N columns and `lanes` lanes on the current
-// device: of 64 and 32 columns, the one whose waves over the SMs take
-// the least time, counting a block's time as its width times the blocks that
-// share its SM; the wider on a tie. 0 when M is too tall for any panel's
-// shared memory (the wrapper then splits L). Returns a cudaError_t.
+// device: of 64, 32 and 16 columns, the one whose waves over the SMs take
+// the least time, counting a block's time as kWalk + its width, times the
+// blocks that share its SM; the wider on a tie. kWalk stands for the walk
+// down the row blocks that every panel pays whatever its width: on an H100
+// at M 512 a lone block took 0.081, 0.096 and 0.128 ms at widths 16, 32 and
+// 64, about (65 + width) us. So the narrow panels win where the blocks of
+// one underfill the card (a square right-hand side), and the wide ones where
+// the blocks come in waves (N >> M). 16 columns are taken only where 32 fit
+// too: they narrow a panel for parallelism, not for height, so an L past
+// 1,504 rows is split as before. 0 when M is too tall for a panel's shared
+// memory (the wrapper then splits L). Returns a cudaError_t.
 extern "C" int oak_tri_solve_panel(int M, int N, int lanes, int* nb) {
   *nb = 0;
   if (M < 1 || N < 1 || lanes < 1) return (int)cudaErrorInvalidValue;
@@ -370,16 +382,19 @@ extern "C" int oak_tri_solve_panel(int M, int N, int lanes, int* nb) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   const int mpad = (M + kBlock - 1) / kBlock * kBlock;
-  const int widths[2] = {64, 32};
-  const int occs[2] = {occupancy<64>(mpad, optin), occupancy<32>(mpad, optin)};
+  constexpr int kWalk = 64;
+  const int widths[3] = {64, 32, 16};
+  const int occ32 = occupancy<32>(mpad, optin);
+  const int occs[3] = {occupancy<64>(mpad, optin), occ32,
+                       occ32 > 0 ? occupancy<16>(mpad, optin) : 0};
   long long best = -1;
-  for (int v = 0; v < 2; ++v) {
+  for (int v = 0; v < 3; ++v) {
     if (occs[v] < 1) continue;
     const long long blocks = (long long)lanes * ((N + widths[v] - 1) / widths[v]);
     const long long per_wave = (long long)sms * occs[v];
     const long long waves = (blocks + per_wave - 1) / per_wave;
     const long long sharing = std::min<long long>(occs[v], (blocks + sms - 1) / sms);
-    const long long cost = waves * sharing * widths[v];
+    const long long cost = waves * sharing * (kWalk + widths[v]);
     if (best < 0 || cost < best) best = cost, *nb = widths[v];
   }
   return 0;
@@ -412,6 +427,7 @@ extern "C" int oak_tri_solve_f32(const float* L, const float* B, float* X, float
   switch (nb) {
     case 64: return (int)launch_form<64>(trans, L, work, B, X, M, N, lanes, sL, sD, sB, s);
     case 32: return (int)launch_form<32>(trans, L, work, B, X, M, N, lanes, sL, sD, sB, s);
+    case 16: return (int)launch_form<16>(trans, L, work, B, X, M, N, lanes, sL, sD, sB, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

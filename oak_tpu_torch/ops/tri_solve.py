@@ -1,6 +1,8 @@
 """The triangular solve with a wide right-hand side that the training bounds
 take, A = L⁻¹B for a lower-triangular L [M, M] and B [M, N] with N ≫ M
-(L⁻¹Kuf), and the wrapper of its CUDA kernel ``csrc/tri_solve.cu``.
+(L⁻¹Kuf), and the wrapper of its CUDA kernel ``csrc/tri_solve.cu``. The
+Cholesky's reverse pass (``ops.psd.CholeskyLower``) takes its transposed form
+with a square right-hand side.
 
 ``TriSolve`` is a ``torch.autograd.Function``, differentiable to any
 order: its forward is the registered op ``torch.ops.oak_tpu_torch.tri_solve``,
@@ -50,6 +52,20 @@ def _panel(M: int, N: int, lanes: int, device: torch.device) -> int:
     if rc != 0:
         raise RuntimeError(f"oak_tri_solve_panel({M}, {N}, {lanes}) failed with cudaError {rc}")
     return nb.value
+
+
+def takes(L: torch.Tensor, one_panel: bool = False) -> bool:
+    """Whether the op's own routes take L: on the CPU the plain route; on
+    CUDA anything but float64, which its callers leave to the library
+    (float32 launches the kernel, any other dtype raises in the op). With
+    ``one_panel`` a CUDA L must also fit one panel of the kernel's shared
+    memory (M ≤ 1,504 on an H100), which a taller L would only reach by
+    ``_split``'s products."""
+    if not L.is_cuda:
+        return True
+    if L.dtype == torch.float64:
+        return False
+    return not one_panel or _panel(L.shape[-1], L.shape[-1], 1, L.device) != 0
 
 
 def _check(L: torch.Tensor, B: torch.Tensor, lanes: int, batched: Sequence[bool]) -> None:
@@ -122,14 +138,35 @@ def _split(L, B, transpose, lanes, batched):
     return torch.cat([X1, X2], dim=-2)
 
 
+def _folded(L: torch.Tensor, B: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """``_launch`` for L [..., M, M] and B [..., M, N] whose leading dims
+    broadcast: they fold into the kernel's one lane axis, so one launch
+    solves them all, and an operand whose leading dims hold one matrix is
+    shared by every lane. X has the broadcast leading dims."""
+    lead = torch.broadcast_shapes(L.shape[:-2], B.shape[:-2])
+    lanes = lead.numel()
+    if lanes == 0:
+        return B.new_empty(lead + B.shape[-2:])
+    ops, batched = [], []
+    for t in (L, B):
+        shared = t.shape[:-2].numel() == 1
+        core = t.shape[-2:]
+        ops.append((t.reshape(core) if shared
+                    else t.expand(lead + core).reshape((lanes,) + core)).contiguous())
+        batched.append(not shared)
+    X = _launch(*ops, transpose, lanes if any(batched) else 0, batched)
+    return X.reshape(lead + X.shape[-2:])
+
+
 @torch.library.custom_op("oak_tpu_torch::tri_solve", mutates_args=(), device_types="cuda")
 def tri_solve_op(L: torch.Tensor, B: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """L⁻¹B, or L⁻ᵀB with ``transpose``, for lower-triangular L [M, M] and
-    B [M, N] as a registered op: on CUDA tensors the kernel (float32, or
-    raise; ``SOLVE_LAUNCHES`` counts it), on CPU tensors ``tri_solve_plain``.
-    No autograd of its own: ``TriSolve`` gives it one. Under
-    ``torch.func.vmap`` its rule launches the kernel once for every lane."""
-    return _launch(L, B, transpose)
+    """L⁻¹B, or L⁻ᵀB with ``transpose``, for lower-triangular L [..., M, M]
+    and B [..., M, N] whose leading dims broadcast, as a registered op: on
+    CUDA tensors the kernel, one launch for every matrix of the leading dims
+    (float32, or raise; ``SOLVE_LAUNCHES`` counts it), on CPU tensors
+    ``tri_solve_plain``. No autograd of its own: ``TriSolve`` gives it one.
+    Under ``torch.func.vmap`` its rule folds the lanes into that launch."""
+    return _folded(L, B, transpose)
 
 
 @tri_solve_op.register_kernel("cpu")
@@ -140,19 +177,29 @@ def _tri_solve_cpu(L, B, transpose):
 
 @tri_solve_op.register_fake
 def _tri_solve_fake(L, B, transpose):
-    return B.new_empty(B.shape)
+    return B.new_empty(torch.broadcast_shapes(L.shape[:-2], B.shape[:-2]) + B.shape[-2:])
+
+
+def lanes_first(in_dims, *ts: torch.Tensor):
+    """The tensors a ``torch.func.vmap`` rule is handed, as the physical
+    operands of one lane-batched call: the lane axis first (a 1 where a
+    tensor has none), and each tensor's own leading dims aligned right
+    behind it (1s where it has fewer), so that they broadcast against each
+    other as the logical tensors do."""
+    own = [t.dim() - 2 - (d is not None) for t, d in zip(ts, in_dims)]
+    out = []
+    for t, d, k in zip(ts, in_dims, own):
+        t = t.unsqueeze(0) if d is None else t.movedim(d, 0)
+        out.append(t.reshape(t.shape[:1] + (1,) * (max(own) - k) + t.shape[1:]))
+    return out
 
 
 @tri_solve_op.register_vmap
 def _tri_solve_vmap(info, in_dims, L, B, transpose):
-    """The lanes' X [lanes, M, N]: one lane-batched launch on CUDA, the
-    plain version over the lane axis (one call) on the CPU."""
-    dims = tuple(in_dims[:2])
-    L, B = (t if d is None else t.movedim(d, 0) for t, d in zip((L, B), dims))
-    if not (L.is_cuda or B.is_cuda):
-        return tri_solve_plain(L, B, transpose), 0
-    return _launch(L.contiguous(), B.contiguous(), transpose, info.batch_size,
-                   [d is not None for d in dims]), 0
+    """The lanes' X [lanes, ..., M, N]: on CUDA one launch for the lanes and
+    any leading dims of a lane, on the CPU one plain call."""
+    L, B = lanes_first(in_dims[:2], L, B)
+    return (_folded if L.is_cuda or B.is_cuda else _tri_solve_cpu)(L, B, transpose), 0
 
 
 class TriSolve(torch.autograd.Function):
@@ -162,11 +209,8 @@ class TriSolve(torch.autograd.Function):
     through ``TriSolve``.
 
     It composes with ``torch.func``: ``setup_context`` lets ``grad`` take
-    it, and under ``vmap`` the generated rule runs forward and backward on
-    the lane-batched tensors, so the op's own vmap rule launches the kernel
-    once for every lane."""
-
-    generate_vmap_rule = True
+    it, and its ``vmap`` rule applies it once to the lane-batched tensors,
+    so forward and backward launch the kernel once for every lane."""
 
     @staticmethod
     def forward(L, B, transpose):
@@ -187,3 +231,7 @@ class TriSolve(torch.autograd.Function):
             if need_L:
                 dL = -torch.tril(X @ dB.mT if ctx.transpose else dB @ X.mT)
         return dL, dB if need_B else None, None
+
+    @staticmethod
+    def vmap(info, in_dims, L, B, transpose):
+        return TriSolve.apply(*lanes_first(in_dims[:2], L, B), transpose), 0

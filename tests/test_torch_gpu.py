@@ -919,8 +919,10 @@ def test_tri_solve_routes_by_dtype(cuda):
 
 def test_vmapped_lanes_launch_each_solve_once(cuda):
     """The vmapped loss and gradient of 4 lanes of a float32 SGPR on the card
-    launch the solve once forward and once transposed, as one lane does,
-    and agree with the lanes one by one; predict_f launches none."""
+    launch each solve once for all lanes, as one lane does: the wide solve
+    forward and transposed, and the two transposed solves of each of the
+    two Choleskys' reverse passes (6); they agree with the lanes one by one;
+    predict_f launches none."""
     from oak_tpu_torch.models import SGPR
     from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.optim import fit
@@ -937,10 +939,10 @@ def test_vmapped_lanes_launch_each_solve_once(cuda):
     starts = _make_starts(flatten_trainable(model).detach(), 4, 0.3, 0, True)
     before = ts.SOLVE_LAUNCHES
     fit.value_and_grad(model, loss_fn, starts[0])
-    assert ts.SOLVE_LAUNCHES == before + 2
+    assert ts.SOLVE_LAUNCHES == before + 6
     values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
     torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before + 4
+    assert ts.SOLVE_LAUNCHES == before + 12
     for r in range(4):
         v, g = fit.value_and_grad(model, loss_fn, starts[r])
         assert abs(float(values[r] - v)) <= 1e-4 * abs(float(v))
@@ -949,3 +951,138 @@ def test_vmapped_lanes_launch_each_solve_once(cuda):
     with torch.no_grad():
         model.predict_f(torch.as_tensor(X[:500], **kw))
     assert ts.SOLVE_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The Cholesky's reverse pass (ops/psd.py CholeskyVjp) on the solve kernel
+# ---------------------------------------------------------------------------
+# (M, lanes): sgpr8-fit4's Kuu and I + AAᵀ, svgp32-train's Kuu, heart-fit4's Kuu
+VJP_CASES = [(500, 4), (512, 1), (200, 4)]
+
+
+@pytest.mark.parametrize("M,lanes", VJP_CASES, ids=[f"{r}x{m}" for m, r in VJP_CASES])
+def test_cholesky_vjp_through_the_kernel(cuda, M, lanes):
+    """The gradient of a random cotangent through ``cholesky_lower``, vmapped
+    over the lanes as a multistart's are, against float64 autograd of the
+    library's Cholesky, as close as the library's own float32 backward is
+    (``_solve_ok``): two launches of the solve for all lanes, one
+    ``chol.vjp``, and a factor bitwise the library's."""
+    from oak_tpu_torch.ops import psd
+    from oak_tpu_torch.ops import tri_solve as ts
+    from oak_tpu_torch.utils import profiling
+
+    L0, _ = _solve_inputs(M, 1, lanes, 3 * M + lanes, cuda)
+    A = (L0 @ L0.mT).contiguous()
+    G = torch.randn(lanes, M, M, generator=torch.Generator().manual_seed(M)).to(cuda)
+
+    def vjp(a, g):
+        L, pull = torch.func.vjp(psd.cholesky_lower, a)
+        return L, pull(g)[0]
+
+    before = ts.SOLVE_LAUNCHES
+    with profiling.recording():
+        L, ours = torch.func.vmap(vjp)(A, G)
+        torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES == before + 2
+    assert profiling.record().counters["chol.vjp"] == 1
+    assert torch.equal(L, torch.linalg.cholesky(A))
+
+    def library(a):
+        a = a.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.linalg.cholesky_ex(a)[0], a, G.tril().to(a.dtype))[0]
+
+    lib, ref = library(A), library(A.double())
+    assert ts.SOLVE_LAUNCHES == before + 2
+    ok, text = _solve_ok(ours, lib, ref)
+    assert ok, text
+
+
+def test_cholesky_vjp_keeps_the_library_past_one_panel_and_in_float64(cuda):
+    """A GPR at N 1,600 (past one panel of the solve kernel) and a float64
+    Cholesky on the card take autograd's backward: no solve launched, no
+    ``chol.vjp``; the float32 GPR's gradient agrees with float64 within
+    chip_smoke.py's training gate (1e-2 of max |g|)."""
+    from oak_tpu_torch.models import GPR
+    from oak_tpu_torch.ops import psd
+    from oak_tpu_torch.ops import tri_solve as ts
+    from oak_tpu_torch.optim import fit
+    from oak_tpu_torch.params import flatten_trainable
+    from oak_tpu_torch.utils import profiling
+
+    assert ts._panel(1600, 1600, 1, cuda) == 0 and ts._panel(1504, 1504, 1, cuda) > 0
+    rng = np.random.default_rng(75)
+    X = rng.normal(size=(1600, 4))
+    Y = np.sin(X[:, :1]) + 0.1 * rng.normal(size=(1600, 1))
+    kw = dict(dtype=torch.float32, device=cuda)
+    model = GPR.create(X, Y, OAKKernel.create(num_dims=4, max_interaction_depth=2, **kw),
+                       noise_variance=0.1, **kw)
+    loss_fn = lambda m: m.training_loss()  # noqa: E731
+    before = ts.SOLVE_LAUNCHES
+    with profiling.recording():
+        _, g = fit.value_and_grad(model, loss_fn, flatten_trainable(model).detach())
+        A = torch.eye(300, dtype=torch.float64, device=cuda).requires_grad_(True)
+        torch.autograd.grad(psd.cholesky_lower(A).sum(), A)
+        torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES == before
+    assert "chol.vjp" not in profiling.record().counters
+    model64 = model.to(dtype=torch.float64)
+    _, g64 = fit.value_and_grad(model64, loss_fn, flatten_trainable(model64).detach())
+    assert float((g.double() - g64).abs().max()) <= 1e-2 * float(g64.abs().max())
+
+
+def test_natural_gradient_lanes_launch_each_solve_once(cuda):
+    """Two vmapped natural-gradient steps over 3 lanes of a full-q float32
+    SVGP with 2 latent GPs and 100 inducing points on the card: q's
+    [R, M, M] Cholesky folds its lanes and R into one launch per solve, so
+    a step launches 6 (the wide solve forward and transposed, two for Kuu's
+    factor, two for q's), as a lane stepped alone does. The losses agree with the lanes stepped one by
+    one, and the iterates are as close to the float64 steps as those are
+    (float32 rounding moves a natural step's q by ~1e-3 of max |x|);
+    ``fit_natgrad_multistart`` runs to a finite loss."""
+    import copy
+
+    from oak_tpu_torch.ops import tri_solve as ts
+    from oak_tpu_torch.optim import fit, natgrad
+    from oak_tpu_torch.optim.multistart import _make_starts, fit_natgrad_multistart
+    from oak_tpu_torch.params import flatten_trainable
+
+    rng = np.random.default_rng(76)
+    X = rng.normal(size=(2000, 4))
+    Y = np.hstack([np.sin(X[:, :1]), np.cos(X[:, 1:2])]) + 0.1 * rng.normal(size=(2000, 2))
+    kw = dict(dtype=torch.float32, device=cuda)
+    model = SVGP.create(OAKKernel.create(num_dims=4, max_interaction_depth=2, **kw),
+                        Gaussian.create(0.1, **kw), X[:100], num_latent=2, q_diag=False,
+                        num_data=len(X), **kw)
+    model64 = copy.deepcopy(model).to(dtype=torch.float64)
+
+    def loss_in(dtype):
+        Xt, Yt = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (X, Y))
+        return lambda m: m.training_loss(Xt, Yt)
+
+    loss_fn = loss_in(torch.float32)
+    vecs = _make_starts(flatten_trainable(model).detach(), 3, 0.3, 1, True)
+    leaf = vecs.clone().requires_grad_(True)
+    step = natgrad.natgrad_lanes_step(fit.adam(leaf, 1e-2), leaf, model, loss_fn, 0.2)
+    before = ts.SOLVE_LAUNCHES
+    losses = torch.stack([step() for _ in range(2)])
+    torch.cuda.synchronize()
+    assert ts.SOLVE_LAUNCHES == before + 12
+
+    def alone(m, lf, v):
+        one = v.clone().requires_grad_(True)
+        single = natgrad.natgrad_adam_step(fit.adam(one, 1e-2), one, m, lf, 0.2)
+        return torch.stack([single() for _ in range(2)]).detach(), one.detach()
+
+    err_lanes, err_alone = [], []
+    for r in range(3):
+        before = ts.SOLVE_LAUNCHES
+        v, one = alone(model, loss_fn, vecs[r])
+        torch.cuda.synchronize()
+        assert ts.SOLVE_LAUNCHES == before + 12
+        assert float((losses[:, r] - v).abs().max()) <= 1e-4 * float(v.abs().max()), r
+        _, one64 = alone(model64, loss_in(torch.float64), vecs[r].double())
+        err_lanes.append(_rel(leaf[r].detach(), one64))
+        err_alone.append(_rel(one, one64))
+    assert max(err_lanes) <= 2 * max(err_alone) + 1e-4, (err_lanes, err_alone)
+    res = fit_natgrad_multistart(model, loss_fn, n_starts=3, steps=2, gamma=0.2)
+    assert np.isfinite(res.fun)

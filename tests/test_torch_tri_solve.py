@@ -3,17 +3,20 @@ CPU, where ``TriSolve`` runs its plain route (the registered op's CPU
 implementation, ``torch.linalg.solve_triangular``), at float64:
 
 - the SVGP and SGPR training losses and gradients equal those of the
-  library's solve, which the bounds took before, to 1e-12;
+  library's solve and autograd's Cholesky backward, which the bounds took
+  before, to 1e-12;
 - ``TriSolve`` (through ``ops.psd.solve_lower_wide``) passes ``gradcheck``,
   both of its forms pass ``gradgradcheck``, and a second derivative under
   ``torch.func`` equals the library's; both forms of the op pass
   ``opcheck``, and ``torch.func.vmap`` of ``grad_and_value`` over lanes
   (L, B or both batched) agrees with the lanes one by one;
-- a gradient evaluation of either bound runs the op twice (A = L⁻¹Kuf and
-  dKuf = L⁻ᵀdA) and counts ``solve.launches`` so, with the op's plain route
-  standing in for the card's launch; ``predict_f`` and the trace of an
-  exported predict count none: the prediction paths keep the library's
-  solve.
+- a gradient evaluation of either bound runs the op twice for its wide
+  solve (A = L⁻¹Kuf and dKuf = L⁻ᵀdA) and twice for each Cholesky it
+  differentiates (``ops.psd.CholeskyVjp``'s two transposed solves: one in
+  the SVGP, two in the SGPR), and counts ``solve.launches`` so, with the
+  op's plain route standing in for the card's launch; ``predict_f`` and the
+  trace of an exported predict count none: the prediction paths keep the
+  library's solve.
 
 The kernel itself runs only on the card (``tests/test_torch_gpu.py``).
 """
@@ -85,6 +88,7 @@ def test_bound_matches_the_library_solve_in_float64(monkeypatch, kind):
     with monkeypatch.context() as mp:
         mp.setattr(psd.TriSolve, "apply",
                    lambda L, B, transpose: torch.linalg.solve_triangular(L, B, upper=False))
+        mp.setattr(psd, "_own_vjp", lambda A: False)
         grad0, loss0 = _loss_and_grad(model, loss_fn)
     assert torch.isfinite(loss) and torch.isfinite(grad).all()
     assert abs(loss - loss0) <= 1e-12 * abs(loss0)
@@ -170,30 +174,36 @@ def counted(monkeypatch):
     monkeypatch.setattr(ts, "SOLVE_LAUNCHES", 0)
 
 
+# solves of one gradient evaluation: the wide solve's two forms and two for
+# each differentiated Cholesky (the SVGP's Kuu; the SGPR's Kuu and I + AAᵀ)
+GRAD_SOLVES = {"svgp": 2 + 2, "sgpr": 2 + 2 * 2}
+
+
 @pytest.mark.parametrize("kind", ["svgp", "sgpr"])
-def test_a_gradient_evaluation_solves_twice_and_predict_f_never(counted, kind):
+def test_a_gradient_evaluation_counts_its_solves_and_predict_f_none(counted, kind):
     model, loss_fn = _model(kind)
+    n = GRAD_SOLVES[kind]
     with profiling.recording():
         _loss_and_grad(model, loss_fn)
-    assert ts.SOLVE_LAUNCHES == 2 and profiling.record().counters["solve.launches"] == 2
+    assert ts.SOLVE_LAUNCHES == n and profiling.record().counters["solve.launches"] == n
     with profiling.recording():
         with torch.no_grad():
             loss_fn(model)
-    assert ts.SOLVE_LAUNCHES == 3
+    assert ts.SOLVE_LAUNCHES == n + 1
     X, _ = _data(n=11, seed=5)
     with profiling.recording():
         model.predict_f(torch.as_tensor(X))
         model.predict_y(torch.as_tensor(X))
-    assert ts.SOLVE_LAUNCHES == 3
+    assert ts.SOLVE_LAUNCHES == n + 1
     assert "solve.launches" not in profiling.record().counters
 
 
-def test_vmapped_lanes_solve_once_per_form(counted):
+def test_vmapped_lanes_solve_once_for_all_lanes(counted):
     model, loss_fn = _model("sgpr")
     vec0 = tp.flatten_trainable(model).detach()
     vecs = vec0 + 0.05 * torch.as_tensor(np.random.default_rng(2).normal(size=(4, vec0.shape[0])))
     torch.func.vmap(torch.func.grad_and_value(_at(model, loss_fn)))(vecs)
-    assert ts.SOLVE_LAUNCHES == 2
+    assert ts.SOLVE_LAUNCHES == GRAD_SOLVES["sgpr"]
 
 
 def test_exported_predict_traces_no_solve(counted):
