@@ -18,15 +18,13 @@ non-zero before the result line:
    and a depth clamped to its number of grams; max error relative to max
    |plain| under 1e-4, or, where the f32 plain version drifts, within twice
    its error against f64 (oak_tpu_torch.testing.kernel_error); at Kus, Kuu
-   and the square: device time from torch.profiler, CUDA-event times of
-   kernel and plain in turns, the bound and the share (with --old, the
-   earlier tree's kernel in turns old, new, new, old); the Triton K1
+   and the square: the device time of kernel and plain in turns, the bound
+   and the share; the Triton K1
    (ops/oak_gram_triton.py, the gram of the compiled serving artifact)
    at every case and at its own (TRITON_CASES: depths 16, 32 and 64, 8
    extra grams, a 1-row request, 9000 rows) against the plain version
    and against K1 under the same rule (bitwise equality to K1 counted),
-   timed at Kus at depths 3, 16 and 32 in turns with K1 (and with --old,
-   the earlier tree's Triton K1: K1, old, new, new, old, K1);
+   timed at Kus at depths 3, 16 and 32 in turns with K1 and plain;
 2b. K2: every cotangent against autograd of the plain gram and against the
    written-out plain backward, for a seeded gbar, at the training path's
    Kuf and Kuu, the square gram and the same cases, under 1e-3 or the same
@@ -35,7 +33,8 @@ non-zero before the result line:
 2c. the training bounds' triangular solve (csrc/tri_solve.cu), forward and
    transposed, at SVGP's 512 x 8192, SGPR's 4 lanes x 500 x 6553 and the
    narrow widths of minibatch and data-sharded fits against float64, then
-   timed beside its bound and torch.linalg.solve_triangular; the Cholesky's
+   timed beside its bound (M^2 N / 2 FFMAs a lane, a count the benchmark
+   does not have) and torch.linalg.solve_triangular; the Cholesky's
    reverse pass (ops/psd.py CholeskyVjp: two transposed solves, one launch
    each for all lanes) at the cells' 4 x 500^2, 4 x 200^2 and 1 x 512^2
    against float64 autograd of the library's Cholesky, then timed alone
@@ -59,7 +58,7 @@ non-zero before the result line:
    natural-gradient fit), counted from 0 at the phase's start;
 5. Sobol: the full decomposition (5,488 components) of phase 4's trained
    SVGP in float32 against the same parameters in float64 on the card
-   (normalised values within 1e-3), and its time; the
+   (normalised values within 1e-3), and its peak memory; the
    per-order totals against the components' sums (1e-3 relative); the
    per-component predictions of 1024 rows plus the constant against
    predict_f's mean (1e-3 of max |mean|);
@@ -106,7 +105,8 @@ non-zero before the result line:
    request, and served again, bitwise equal, in a python -I process that
    cannot import oak_tpu_torch and has no nvcc; the other two artifacts as
    the torch.export programs an earlier tree wrote, one K1 launch per
-   request; compile and export seconds, bytes and warm latencies; the
+   request; compile and export seconds, bytes, and a warm request's device
+   operations and device time; the
    torch UCI scripts (examples/uci_torch/) run end to end with --k 2
    --max_iters 30 --restarts 0; then K1 and K2 held against their plain
    versions at the shapes the phase adds (heart's Kus and Kuf with 8 extra
@@ -133,8 +133,8 @@ non-zero before the result line:
    with 4 starts on a 1 x 2 and a 2 x 2 (restart x data) mesh (4 and 2
    lanes a rank in one batched evaluation, two all-reduces each; checked
    after the main path against the same lanes in turn, also for phase 6's
-   SGPR and, at world 2, phase 7's GPR: values, launches, all-reduces, host
-   and device ms, the fit's wall time); phase 6's SGPR through
+   SGPR and, at world 2, phase 7's GPR: values, launches, all-reduces, the
+   fit's wall time); phase 6's SGPR through
    fit_lbfgs_sharded; phase 7's GPR through the sharded Sobol (its peak
    memory per rank); oak_tpu's
    committed heart fold 0 through oak_model.get_sobol(mesh=) and
@@ -148,46 +148,31 @@ non-zero before the result line:
    route against the same through a per-dim loop written here
    (_per_dim_route), within 1e-4 (forward) or 1e-3 (gradient) of max
    |per-dim| or the drift rule; one _prep and one K_diag launch as many
-   kernels at D 8 as at D 32; then the launches, host ms and device ms of a
-   warm fit_adam step, predict_y of 1 and 8192 rows, a full Sobol and a
-   warm served request of phase 10.2's pumadyn (mean, std) artifact,
-   package and program, and the peak memory of phase 5's Sobol calls.
+   kernels at D 8 as at D 32; then the launches and device ms of a warm
+   predict_y of 1 and 8192 rows and a full Sobol.
 14. a multistart's lanes as one batched program (phase_lanes): K1 and K2
    launched once for 4 lanes at phase 9's pumadyn Kuf and the bench's Kuf,
    each lane against a one-lane launch (bitwise where the tile is the same)
-   and the plain version, timed against four one-lane launches, with the
-   bound and the share; the vmapped loss and gradient of the bench SVGP and
-   the pumadyn SGPR at 4 starts against the lanes one by one (1e-4 / 1e-3),
-   one K1 and K2 launch per gram for all lanes and no vmap fallback, and a
-   warm batched Adam step's launches, host and device ms against one
-   lane's; oak_model.optimise(max_iters=40, restarts=4) at phase 9's
+   and the plain version, timed against four one-lane launches and plain,
+   with the bound and the share; the vmapped loss and gradient of the bench
+   SVGP and the pumadyn SGPR at 4 starts against the lanes one by one (1e-4
+   / 1e-3), one K1 and K2 launch per gram for all lanes and no vmap
+   fallback; oak_model.optimise(max_iters=40, restarts=4) at phase 9's
    configuration batched against the same starts in turn through a loop
    written here (first 5 warm Adam steps within 1e-4, the best loss within
    1e-3 or the same lane, test RMSE below std(y)), both wall times.
 
 Each phase prints its seconds. Then one JSON line about the kernels (K1,
-K2 and the Triton K1), and as
-the last line {"ok": true, "device": {...}}. Imports no JAX.
+K2, the solve and the Triton K1), and as the last line {"ok": true,
+"device": {...}}. Imports no JAX.
 
-    python3 chip_smoke.py --old DIR
-
-also times an earlier tree's kernels in turns with these: DIR's *.cu (the C
-interface before the CUDA kernels' redesign) built and timed in phases 2
-and 2b, DIR's oak_gram_triton.py (an earlier ops/oak_gram_triton.py, loaded
-by file path) timed beside the Triton K1 in phases 2 and 10.4.
-
-    python3 chip_smoke.py --profile
-
-runs phases 0-1 and then, in place of the checks, the breakdown of a warm
-predict_y request, of a warm training step, of a full Sobol decomposition
-and of a warm served request (the compiled package beside the torch.export
-program), and the peak memory of phases 5's and 12's
-Sobol calls (PERF.md "Where the time goes"); it prints no result line.
-
-    python3 chip_smoke.py --profile --package DIR
-
-does the same for the oak_tpu_torch of an earlier tree unpacked in DIR
-(git archive), so that two trees are profiled by one script in one call.
+The launches a phase checks are the counters of utils.profiling
+(k1.launches, k2.launches, solve.launches), read inside a recording session
+each counting phase opens (_recorded). Kernel timings are on one clock, the
+benchmark's: the device's busy time of benchmark/devtrace.py, beside the
+frozen bounds of benchmark/roofline.py. Where the time of a fit, a step or
+an evaluation goes is the benchmark's to say: python3 benchmark/run.py
+--workload <cell> --seed N --trace 1.
 """
 
 from __future__ import annotations
@@ -195,6 +180,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import re
 import subprocess
@@ -206,6 +192,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark import data as bench_data
+from benchmark import devtrace, roofline
+from oak_tpu_torch.testing import counted
+from oak_tpu_torch.utils import profiling
+
 REPO = Path(__file__).resolve().parent
 N, D, M, DEPTH = 8192, 32, 512, 3
 KERNEL_TOL = 1e-4  # the Pallas gate's forward bound, relative to max |plain|
@@ -213,7 +204,6 @@ GRAD_TOL = 1e-3  # the Pallas gate's gradient bound (bench.py:1326-1327)
 E2E_TOL = 1e-3  # f32 on the card against f64 on the CPU, relative to max magnitude
 LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 1e-2  # the training gradient against f64
 BATCHES = (1, 100, 2048, 8192)
-TIMING_ITERS = 20
 # (name, D, N, M, E, depth): the Triton K1's cases beside phase 2's: the bench's
 # Kus at depths 16 and 32 (timed, as every "Kus" case), depth 64 with 8 extra
 # grams, a 1-row request, extra grams at a ragged batch, and a non-batch axis
@@ -236,13 +226,11 @@ PUMA_N, PUMA_D, PUMA_DEPTH, PUMA_M = 8192, 8, 8, 500
 PUMA_ITERS, PUMA_RESTARTS = 40, 2
 
 
-def synth_pumadyn(n=8192, d=32, seed=0):
-    """The bench's synthetic pumadyn-shaped data (bench.py)."""
-    rng = np.random.default_rng(seed)
-    X = rng.normal(size=(n, d))
-    w = rng.normal(size=d) / np.sqrt(d)
-    y = np.tanh(X @ w) + 0.5 * X[:, 0] * X[:, 1] + 0.1 * rng.normal(size=n)
-    return X.astype(np.float32), y.reshape(-1, 1).astype(np.float32)
+def pumadyn(n, d, seed=0):
+    """benchmark/data.py's pumadyn-shaped rows drawn from numpy's seed
+    ``seed`` (bench.py's data at seed 0): (X [n, d], y [n, 1]), float32."""
+    X, y = bench_data.synth_pumadyn(n, d, np.random.default_rng(seed))
+    return X, y[:, None]
 
 
 def bench_kernel(device, dtype, d, depth):
@@ -261,7 +249,7 @@ def build_model(device, dtype=torch.float32):
     q_mu N(0, 1), q_sqrt U(0.1, 0.5)."""
     from oak_tpu_torch.models import SVGP, Gaussian
 
-    X, _ = synth_pumadyn(N, D)
+    X, _ = pumadyn(N, D)
     Z = X[np.random.default_rng(1).choice(N, M, replace=False)]
     kernel = bench_kernel(device, dtype, D, DEPTH)
     model = SVGP.create(kernel, Gaussian.create(0.01, dtype=dtype, device=device), Z,
@@ -283,7 +271,7 @@ def build_bench_model(device, likelihood="gaussian", q_diag=True, dtype=torch.fl
     Returns (model, X, Y) with X, Y on the card."""
     from oak_tpu_torch.models import SVGP, Bernoulli, Gaussian
 
-    X, Y = synth_pumadyn(N, D)
+    X, Y = pumadyn(N, D)
     if likelihood == "bernoulli":
         rng = np.random.default_rng(2)
         p = 1.0 / (1.0 + np.exp(-3.0 * Y[:, 0]))
@@ -305,19 +293,19 @@ def build_sgpr_model(device, dtype=torch.float32):
     0.01."""
     from oak_tpu_torch.models import SGPR
 
-    X, Y = synth_pumadyn(N, D)
+    X, Y = pumadyn(N, D)
     Z = X[np.random.default_rng(1).choice(N, M, replace=False)]
     kernel = bench_kernel(device, dtype, D, DEPTH)
     return SGPR.create(X, Y, kernel, Z, noise_variance=0.01, dtype=dtype, device=device)
 
 
 def build_gpr_model(device, n=None, dtype=torch.float32):
-    """The exact GP of bench.py::run_gpr_scale: synth_pumadyn(n, 8) (n
+    """The exact GP of bench.py::run_gpr_scale: pumadyn(n, 8) (n
     defaults to GPR_N), create defaults, sparsity prior, lengthscale bounds
     [1e-3, 1e3], noise 0.1."""
     from oak_tpu_torch.models import GPR
 
-    X, Y = synth_pumadyn(GPR_N if n is None else n, GPR_D)
+    X, Y = pumadyn(GPR_N if n is None else n, GPR_D)
     kernel = bench_kernel(device, dtype, GPR_D, GPR_DEPTH)
     return GPR.create(X, Y, kernel, noise_variance=0.1, dtype=dtype, device=device)
 
@@ -342,14 +330,15 @@ def rel_err(a, ref):
     return float(np.abs(np.asarray(a, np.float64) - ref).max() / np.abs(ref).max())
 
 
-def _cuda_ms(fn, iters):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _recorded(phase):
+    """Runs ``phase`` in a recording session of its own (utils.profiling),
+    so that the launch counters it reads (``counted``) start at 0."""
+    @functools.wraps(phase)
+    def run(*args):
+        with profiling.recording():
+            return phase(*args)
+
+    return run
 
 
 def phase_device():
@@ -398,139 +387,53 @@ def phase_build():
     return b.seconds
 
 
-# Peak rates of one H100 SXM at its 1.98 GHz boost clock (NVIDIA's data
-# sheet; compute capability 9.0 runs 128 FP32 lanes and 16 ex2 per SM a
-# clock): FP32 lanes (an FFMA counts once), MUFU ex2, HBM bytes.
-PEAK_FP32, PEAK_EX2, PEAK_BYTES = 132 * 128 * 1.98e9, 132 * 16 * 1.98e9, 3.35e12
+def _busy_ms(fn):
+    """Device ms a call of fn: benchmark/devtrace.py's busy time (the union
+    of the device operations' intervals) of a window of calls, over their
+    number; the median of 3 windows. The warm-up call sizes the window: as
+    many calls as its host time fits in 5 ms, 1 to 10 (a plain version's
+    call takes milliseconds, a kernel's tens of microseconds). A window can
+    lose every event and read nothing, so such windows are run again, up to
+    9 windows in all."""
+    rounds = 3
 
+    def calls():
+        for _ in range(iters):
+            fn()
 
-def gram_bound(kind, D, N, M, E, depth):
-    """(ms, bound_by, detail): the least time the card could take for the
-    work of kernel ``kind`` ("K1" or "K2") on these shapes, the larger of its bytes (each input read
-    once, each output written once) over HBM's rate and its operations over
-    their type's peak. Counts per (element, dim), at the clamped depth P:
-    the forward one ex2 and 3 + P FP32 (du, the exponent, g, P orders), plus
-    P per output for the sum over orders; the backward two ex2 and (3 + P) +
-    (8 + P) FP32 (csrc/oak_gram_bwd.cu), plus P (P + 1) / 2 + P + 1 per
-    element for dsig2 and T's coefficients. Extra grams count P FP32 each
-    (and P - 1 more in the backward)."""
-    from oak_tpu_torch.ops import oak_gram as og
-
-    P, nm = og.clamped_depth(depth, D, E), N * M
-    if kind == "K1":
-        fp32, ex2 = nm * (D * (3 + P) + E * P + P), nm * D
-        nbytes = 4 * (2 * D * (N + M) + D + P + 1 + E * nm + nm)
-    else:
-        fp32 = nm * (D * (11 + 2 * P) + E * (2 * P - 1) + P * (P + 1) // 2 + P + 1)
-        ex2 = 2 * nm * D
-        nbytes = 4 * (4 * D * (N + M) + 2 * D + 2 * (P + 1) + 2 * E * nm + nm)
-    t = {"bytes": nbytes / PEAK_BYTES, "FP32": fp32 / PEAK_FP32, "ex2": ex2 / PEAK_EX2}
-    top = max(t, key=t.get)
-    detail = (f"{fp32 / 1e6:.0f} M FP32 {1e6 * t['FP32']:.1f} us, {ex2 / 1e6:.0f} M ex2 "
-              f"{1e6 * t['ex2']:.1f} us, {nbytes / 1e6:.1f} MB {1e6 * t['bytes']:.1f} us")
-    return 1e3 * t[top], "bytes" if top == "bytes" else "operations", f"{top}: {detail}"
-
-
-def _device_ms(fn, iters=10, rounds=3, with_ops=False):
-    """Device time per call of the CUDA operations fn launches, from
-    torch.profiler's durations (no host time in it): per profiled round,
-    each operation's mean duration times its launches per call, summed;
-    the median over ``rounds`` rounds that recorded operations. A round can
-    miss every event and read 0, so such rounds are run again, up to
-    3·``rounds`` rounds in all. ``with_ops``: return (ms, the device
-    operations, kernels and copies, of one call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    per_round, ops = [], 0
+    iters = min(10, max(1, int(0.005 / (time.perf_counter() - t0))))
+    per_window = []
     for _ in range(3 * rounds):
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
-        total = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-                    for e in events)
-        if total > 0:
-            per_round.append(total)
-            ops = round(sum(e.count for e in events) / iters)
-        if len(per_round) == rounds:
-            break
-    if not per_round:
-        raise RuntimeError(f"torch.profiler recorded no kernel in {3 * rounds} rounds")
-    ms = float(np.median(per_round)) / 1e3
-    return (ms, ops) if with_ops else ms
+        _, busy = devtrace.busy(calls)
+        if busy:
+            per_window.append(1e3 * busy / iters)
+        if len(per_window) == rounds:
+            return float(np.median(per_window))
+    raise RuntimeError(f"torch.profiler recorded no device operation in {3 * rounds} windows")
 
 
-def _old_kernels(old_dir):
-    """The fused gram kernels of earlier trees, from ``old_dir``, as
-    {"fwd", "bwd", "triton"} callables on prescaled inputs (None where
-    ``old_dir`` has no such source). Its ``*.cu`` (the C interface before
-    the CUDA redesign: K1 without a tile variant, K2 writing 32 x 64 tile
-    partials that torch sums) are built with the same flags; its
-    ``oak_gram_triton.py`` (an earlier ops/oak_gram_triton.py) is loaded by
-    file path as a module of oak_tpu_torch.ops, its op registered under a
-    name of its own."""
-    import ctypes
-    import importlib.util
+def _traced(fn):
+    """benchmark/devtrace.py's trace of one call of fn after a warm-up call:
+    its device operations, kernel launches and busy time."""
+    fn()
+    torch.cuda.synchronize()
+    return devtrace.traced(fn)
 
-    from oak_tpu_torch import _build
 
-    old = {"fwd": None, "bwd": None, "triton": None}
-    triton_src = Path(old_dir) / "oak_gram_triton.py"
-    if triton_src.exists():
-        source = triton_src.read_text().replace('"oak_tpu_torch::oak_gram_triton"',
-                                                '"oak_tpu_torch::oak_gram_triton_old"')
-        spec = importlib.util.spec_from_loader("oak_tpu_torch.ops._old_triton", loader=None)
-        module = importlib.util.module_from_spec(spec)
-        module.__package__ = "oak_tpu_torch.ops"
-        # compiled under the file's own path, so triton reads the kernel's source there
-        exec(compile(source, str(triton_src.resolve()), "exec"), module.__dict__)
-        old["triton"] = lambda *args: module._launch(args[:-1], args[-1], traced=False)
-    sources = sorted(Path(old_dir).glob("*.cu"))
-    if not sources:
-        return old
-    out = REPO / ".kernel_build" / "old" / "liboak_kernels_old.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
-                    *map(str, sources)], check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(out))
-    ptr, num = ctypes.c_void_p, ctypes.c_int
-    lib.oak_gram_fwd_f32.argtypes = [ptr] * 8 + [num] * 5 + [ptr]
-    lib.oak_gram_bwd_f32.argtypes = [ptr] * 15 + [num] * 5 + [ptr]
+def _gram_work(kind, D, N, M, E, depth, lanes=1):
+    """benchmark/roofline.py's frozen count of the work of kernel ``kind``
+    ("K1" or "K2") on a gram [N, M] of D dims and E extra grams (a lane's,
+    times ``lanes``)."""
+    return (roofline.k1 if kind == "K1" else roofline.k2)(N, M, D, depth, E, lanes)
 
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
 
-    def fwd(u1, u2, c1, c2, extra, logb, sig2, depth):
-        out = torch.empty((u1.shape[1], u2.shape[1]), device=u1.device)
-        rc = lib.oak_gram_fwd_f32(*(t.data_ptr() for t in (u1, u2, c1, c2, extra, logb,
-                                                             sig2, out)),
-                                  u1.shape[0], u1.shape[1], u2.shape[1], extra.shape[0],
-                                  depth, stream())
-        if rc != 0:
-            raise RuntimeError(f"the earlier oak_gram_fwd_f32 failed with cudaError {rc}")
-        return out
-
-    def bwd(u1, u2, c1, c2, extra, logb, sig2, gbar, depth):
-        (D, N), M = u1.shape, u2.shape[1]
-        bn, bm = -(-N // 32), -(-M // 64)
-        kw = dict(device=u1.device)
-        parts = [torch.empty((bm, D, N), **kw), torch.empty((bm, D, N), **kw),
-                 torch.empty((bn, D, M), **kw), torch.empty((bn, D, M), **kw),
-                 torch.empty((bn * bm, D), **kw), torch.empty((bn * bm, depth + 1), **kw)]
-        rc = lib.oak_gram_bwd_f32(*(t.data_ptr() for t in (u1, u2, c1, c2, extra, logb,
-                                                             sig2, gbar, *parts)),
-                                  None, D, N, M, extra.shape[0], depth, stream())
-        if rc != 0:
-            raise RuntimeError(f"the earlier oak_gram_bwd_f32 failed with cudaError {rc}")
-        du1, dc1, du2, dc2, dlogb, dsig2 = (t.sum(0) for t in parts)
-        return du1, du2, dc1, dc2, None, dlogb, dsig2
-
-    return old | {"fwd": fwd, "bwd": bwd}
+def _bound_text(work):
+    """The bound of ``work`` in ms, its limiter and its counts."""
+    return (f"bound {1e3 * work.bound_s():.4f} ms ({work.limiter()}: {work.ops / 1e6:.0f} M "
+            f"FP32, {work.ex2 / 1e6:.0f} M ex2, {work.bytes / 1e6:.1f} MB)")
 
 
 def _timing_cases(model, X, gpr, device):
@@ -576,17 +479,16 @@ def _turns(fns, measure):
     return turns
 
 
-def _table_row(name, kind, args, new_dev, old_dev, ev, plain_ev):
-    D, N, M, E, depth = _shape(args)
-    bound, by, detail = gram_bound(kind, D, N, M, E, depth)
-    share = bound / float(np.mean(new_dev))
-    old = "not measured" if old_dev is None else f"{old_dev} ms"
-    return (f"  {kind} {name}: device {new_dev} ms (before redesign {old}); CUDA events "
-            f"{ev:.4f} ms, plain {plain_ev:.4f} ms; bound {bound:.4f} ms ({detail}); share "
-            f"{share:.2f}"), dict(device_ms=float(np.mean(new_dev)), bound_ms=bound,
-                                  bound_by=by, share=share, event_ms=ev, plain_ms=plain_ev,
-                                  old_device_ms=None if old_dev is None
-                                  else float(np.mean(old_dev)))
+def _table_row(name, kind, args, dev):
+    """A kernel table's row from device ms in turns, ``dev`` ({"kernel":
+    [...], "plain": [...]}): the bound of benchmark/roofline.py and the
+    kernel's share of it."""
+    work = _gram_work(kind, *_shape(args))
+    bound, ms = 1e3 * work.bound_s(), float(np.mean(dev["kernel"]))
+    return (f"  {kind} {name}: device {dev['kernel']} ms, plain {dev['plain']} ms; "
+            f"{_bound_text(work)}; share {bound / ms:.2f}"), dict(
+                device_ms=ms, plain_ms=float(np.mean(dev["plain"])), bound_ms=bound,
+                bound_by=work.limiter(), share=bound / ms)
 
 
 def _triton_checked(name, args, k1, ref, ref64):
@@ -607,43 +509,33 @@ def _triton_checked(name, args, k1, ref, ref64):
     return bool(torch.equal(tri, k1)), text, float((tri - ref).abs().max())
 
 
-def _triton_row(name, args, old_triton=None):
-    """The Triton K1 timed at one shape: device ms (torch.profiler) in turns
-    with the CUDA K1 and, given ``old_triton`` (an earlier tree's, from
-    --old), with that (K1, old, Triton, Triton, old, K1), CUDA-event ms over
-    TIMING_ITERS launches in turns with the plain version, the bound and the
-    share."""
+def _triton_row(name, args):
+    """The Triton K1 timed at one shape: device ms in turns with the CUDA K1
+    and the plain version (plain, K1, Triton, Triton, K1, plain), the bound
+    and the share."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.ops import oak_gram_triton as ogt
 
     with torch.no_grad():
-        fns = {"K1": lambda: og.oak_gram_fused(*args)}
-        if old_triton:
-            fns["old"] = lambda: old_triton(*args)
-        fns["Triton"] = lambda: ogt.oak_gram_triton_op(*args)
-        dev = _turns(fns, _device_ms)
-        ev = _turns({"plain": lambda: og.oak_gram_plain(*args), "kernel": fns["Triton"]},
-                    lambda fn: _cuda_ms(fn, TIMING_ITERS))
-    D_, N_, M_, E_, depth = _shape(args)
-    bound, by, detail = gram_bound("K1", D_, N_, M_, E_, depth)
-    ms, ev_k, ev_p = (float(np.mean(v)) for v in (dev["Triton"], ev["kernel"], ev["plain"]))
-    old = f"{dev['old']} ms" if old_triton else "not measured"
-    text = (f"  K1 Triton {name}, depth {depth}: device {dev['Triton']} ms (before redesign "
-            f"{old}; the CUDA K1 in the same turns {dev['K1']} ms); CUDA events {ev_k:.4f} "
-            f"ms, plain {ev_p:.4f} ms; bound {bound:.4f} ms ({detail}); share {bound / ms:.2f}")
-    return text, dict(device_ms=ms, k1_device_ms=float(np.mean(dev["K1"])), bound_ms=bound,
-                      bound_by=by, share=bound / ms, event_ms=ev_k, plain_ms=ev_p,
-                      old_device_ms=float(np.mean(dev["old"])) if old_triton else None)
+        dev = _turns({"plain": lambda: og.oak_gram_plain(*args),
+                      "K1": lambda: og.oak_gram_fused(*args),
+                      "Triton": lambda: ogt.oak_gram_triton_op(*args)}, _busy_ms)
+    work = _gram_work("K1", *_shape(args))
+    bound, ms = 1e3 * work.bound_s(), float(np.mean(dev["Triton"]))
+    text = (f"  K1 Triton {name}, depth {args[-1]}: device {dev['Triton']} ms (the CUDA K1 in "
+            f"the same turns {dev['K1']} ms), plain {dev['plain']} ms; {_bound_text(work)}; "
+            f"share {bound / ms:.2f}")
+    return text, dict(device_ms=ms, k1_ms=float(np.mean(dev["K1"])),
+                      plain_ms=float(np.mean(dev["plain"])), bound_ms=bound,
+                      bound_by=work.limiter(), share=bound / ms)
 
 
-def phase_kernel(model, X, gpr, device, old):
+def phase_kernel(model, X, gpr, device):
     """K1 against the plain version (f32 and f64) at every case; the square
     gram exactly symmetric; the Triton K1 at every case against the plain
     version and K1 (_triton_checked); then, at the main path's three
-    shapes, device time (profiler) in turns with the earlier tree's kernel
-    (old, new, new, old) when ``old`` is given, CUDA-event times of kernel
-    and plain, the bound and the share; the Triton K1 timed at Kus
-    (_triton_row)."""
+    shapes, the device time of kernel and plain in turns, the bound and the
+    share; the Triton K1 timed at Kus (_triton_row)."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import kernel_error, prescaled_inputs
 
@@ -682,46 +574,35 @@ def phase_kernel(model, X, gpr, device, old):
 
         rows, numbers = [], {}
         for name, args in _timing_cases(model, X, gpr, device).items():
-            iters = TIMING_ITERS if name.startswith("K") else TIMING_ITERS // 4
-            new = lambda a=args: og.oak_gram_fused(*a)  # noqa: E731
-            if old["fwd"]:
-                both = _turns({"old": lambda a=args: old["fwd"](*a), "new": new}, _device_ms)
-                dev, old_dev = both["new"], both["old"]
-            else:
-                dev, old_dev = [_device_ms(new) for _ in range(2)], None
-            ev = _turns({"plain": lambda a=args: og.oak_gram_plain(*a), "kernel": new},
-                        lambda fn: _cuda_ms(fn, iters))
-            text, nums = _table_row(name, "K1", args, dev, old_dev,
-                                    float(np.mean(ev["kernel"])), float(np.mean(ev["plain"])))
+            dev = _turns({"plain": lambda a=args: og.oak_gram_plain(*a),
+                          "kernel": lambda a=args: og.oak_gram_fused(*a)}, _busy_ms)
+            text, nums = _table_row(name, "K1", args, dev)
             rows.append(text)
             numbers[name] = nums | dict(max_abs_err=abs_err[name])
         name = "Kus/Kuf 512x8192"
-        text, nums = _triton_row(name, _timing_cases(model, X, gpr, device)[name],
-                                 old["triton"])
+        text, nums = _triton_row(name, _timing_cases(model, X, gpr, device)[name])
         rows.append(text)
         numbers["Triton"] = nums | dict(max_abs_err=abs_err[f"Triton {name}"])
         for name, args in triton_only.items():
             if name.startswith("Kus"):
-                text, nums = _triton_row(name, args, old["triton"])
+                text, nums = _triton_row(name, args)
                 rows.append(text)
                 numbers[f"Triton {name}"] = nums | dict(max_abs_err=abs_err[f"Triton {name}"])
     print(f"phase 2 K1 vs plain (max err / max |plain|, tol {KERNEL_TOL}; past it, the "
           f"drift rule of oak_tpu_torch.testing.kernel_error against f64): "
           f"{', '.join(findings)}; the Triton K1 (ops.oak_gram_triton) vs plain, and vs K1 "
           f"under the same rule: {', '.join(triton)}; bitwise equal to K1 at {bitwise} of "
-          f"{len(cases) + len(triton_only)}; GPR K(X) exactly symmetric; device ms from "
-          f"torch.profiler (turns old, new, new, old where the earlier kernel is given), "
-          f"CUDA events over {TIMING_ITERS} launches (5 at the square) in turns plain, "
-          f"kernel, kernel, plain:\n" + "\n".join(rows))
+          f"{len(cases) + len(triton_only)}; GPR K(X) exactly symmetric; device ms "
+          f"(benchmark/devtrace.py) in turns plain, kernel, kernel, plain:\n" + "\n".join(rows))
     return numbers
 
 
-def phase_kernel_bwd(model, X, gpr, device, old):
+def phase_kernel_bwd(model, X, gpr, device):
     """K2 against autograd of the plain gram and against the written-out
     plain backward (f32, and f64 for the drift rule), every cotangent, at
-    every case; a repeat launch bitwise equal; then device time, events,
-    bound and share at the main path's three shapes as in phase 2, and
-    forward plus backward against plain autograd."""
+    every case; a repeat launch bitwise equal; then the device time of
+    kernel and plain, bound and share at the main path's three shapes as in
+    phase 2, and forward plus backward against plain autograd."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import kernel_error
 
@@ -765,18 +646,10 @@ def phase_kernel_bwd(model, X, gpr, device, old):
         gbar = torch.as_tensor(np.random.default_rng(99).normal(
             size=(inputs[0].shape[1], inputs[1].shape[1])), dtype=torch.float32,
             device=device)
-        iters = TIMING_ITERS if name.startswith("K") else TIMING_ITERS // 4
-        new = lambda i=inputs, g=gbar, d=depth: og.oak_gram_bwd(*i, g, d)  # noqa: E731
-        if old["bwd"]:
-            both = _turns({"old": lambda i=inputs, g=gbar, d=depth: old["bwd"](*i, g, d),
-                           "new": new}, _device_ms)
-            dev, old_dev = both["new"], both["old"]
-        else:
-            dev, old_dev = [_device_ms(new) for _ in range(2)], None
-        ev = _turns({"plain": lambda i=inputs, g=gbar, d=depth: og.oak_gram_bwd_plain(
-            *i, g, d), "kernel": new}, lambda fn: _cuda_ms(fn, iters))
-        text, nums = _table_row(name, "K2", args, dev, old_dev,
-                                float(np.mean(ev["kernel"])), float(np.mean(ev["plain"])))
+        dev = _turns({"plain": lambda i=inputs, g=gbar, d=depth: og.oak_gram_bwd_plain(*i, g, d),
+                      "kernel": lambda i=inputs, g=gbar, d=depth: og.oak_gram_bwd(*i, g, d)},
+                     _busy_ms)
+        text, nums = _table_row(name, "K2", args, dev)
         rows.append(text)
         numbers[name] = nums | dict(max_abs_err=abs_err[name])
         if not name.startswith("Kuu"):
@@ -787,15 +660,14 @@ def phase_kernel_bwd(model, X, gpr, device, old):
                                                    allow_unused=True)
 
             fb = _turns({"plain": fwd_bwd(og.oak_gram_plain),
-                         "kernel": fwd_bwd(og.oak_gram_fused)},
-                        lambda fn: _cuda_ms(fn, TIMING_ITERS // 4))
+                         "kernel": fwd_bwd(og.oak_gram_fused)}, _busy_ms)
             both_text.append(f"{name} forward+backward: kernels {fb['kernel']} ms, plain "
                              f"autograd {fb['plain']} ms")
     print(f"phase 2b K2 vs plain (max err / max |ref| against autograd and the written-out "
           f"backward, tol {GRAD_TOL}; past it the drift rule against f64; a repeat launch "
           f"bitwise equal at every case): {'; '.join(findings)}; {'; '.join(both_text)} "
-          f"(CUDA events, turns plain, kernel, kernel, plain); device ms, events and bounds "
-          f"as in phase 2:\n" + "\n".join(rows))
+          f"(device ms, turns plain, kernel, kernel, plain); device ms and bounds as in "
+          f"phase 2:\n" + "\n".join(rows))
     return numbers
 
 
@@ -815,15 +687,16 @@ VJP_SHAPES = (("sgpr8 4 lanes 500^2", 500, 4), ("heart 4 lanes 200^2", 200, 4),
               ("svgp32 512^2", 512, 1))
 
 
+@_recorded
 def phase_solve(device):
     """The triangular-solve kernel (csrc/tri_solve.cu) at the cells' shapes,
     both forms: against the float64 solve of the same float32 inputs, within
     4x the library's own float32 error and 1e-5 of max |X|
-    (tests/test_torch_gpu.py::_solve_ok); then device ms (torch.profiler,
-    both of its launches), the bound (M^2 N / 2 FFMAs a lane at PEAK_FP32)
-    and torch.linalg.solve_triangular's device ms (library_ms, cuBLAS's
-    trsm; it is also the plain version), and CUDA-event ms of both in turns
-    library, kernel, kernel, library."""
+    (tests/test_torch_gpu.py::_solve_ok); then device ms (both of its
+    launches) in turns with torch.linalg.solve_triangular's (library_ms,
+    cuBLAS's trsm; it is also the plain version), library, kernel, kernel,
+    library, and the bound: M^2 N / 2 FFMAs a lane at
+    benchmark/roofline.py's FP32 peak (the benchmark counts no solve)."""
     from oak_tpu_torch.ops import tri_solve as ts
 
     rows, numbers = [], {}
@@ -848,24 +721,21 @@ def phase_solve(device):
                 raise RuntimeError(f"solve {name} {form}: error {err:.2e} against float64, "
                                    f"the library's {lib_err:.2e}")
             del X, lib, ref
-            dev = _turns({"library": library, "kernel": kernel}, _device_ms)
-            ev = _turns({"library": library, "kernel": kernel},
-                        lambda fn: _cuda_ms(fn, TIMING_ITERS))
-            bound = 1e3 * lanes * M * M * N / 2 / PEAK_FP32
+            dev = _turns({"library": library, "kernel": kernel}, _busy_ms)
+            bound = 1e3 * lanes * M * M * N / 2 / roofline.PEAK_FP32_OPS
             ms, lib_ms = float(np.mean(dev["kernel"])), float(np.mean(dev["library"]))
             numbers[f"{name} {form}"] = dict(
                 device_ms=ms, library_ms=lib_ms, plain_ms=lib_ms, bound_ms=bound,
-                bound_by="operations", share=bound / ms, event_ms=float(np.mean(ev["kernel"])),
-                library_event_ms=float(np.mean(ev["library"])), err=err, library_err=lib_err,
+                bound_by="FP32", share=bound / ms, err=err, library_err=lib_err,
                 panel=ts._panel(M, N, lanes, device))
             rows.append(f"  solve {name} {form}: device {dev['kernel']} ms, library "
-                        f"{dev['library']} ms; CUDA events {ev['kernel']} / {ev['library']} ms; "
-                        f"bound {bound:.4f} ms (FP32: {lanes * M * M * N / 2e9:.2f} GFMA), share "
+                        f"{dev['library']} ms; bound {bound:.4f} ms (FP32: "
+                        f"{lanes * M * M * N / 2e9:.2f} GFMA), share "
                         f"{bound / ms:.3f}; error {err:.2e} (library {lib_err:.2e}); panel "
                         f"{numbers[f'{name} {form}']['panel']}")
     rows += _chol_vjp_rows(device, numbers)
     print("phase 2c triangular solve vs torch.linalg.solve_triangular, and the Cholesky's "
-          "reverse pass vs autograd's (device ms by torch.profiler in turns library, "
+          "reverse pass vs autograd's (device ms, benchmark/devtrace.py, in turns library, "
           "kernel, kernel, library):\n" + "\n".join(rows))
     return numbers
 
@@ -875,8 +745,8 @@ def _chol_vjp_rows(device, numbers):
     VJP_SHAPES: its gradient of a seeded cotangent against float64 autograd
     of the library's Cholesky, within 4x the library's own float32 error and
     1e-5 (tests/test_torch_gpu.py::_solve_ok), two solve launches for all
-    lanes; then device ms of the backward alone (the factor held), events ms
-    and the share of its bound, M^3 FFMAs a lane (two solves) at PEAK_FP32,
+    lanes; then device ms of the backward alone (the factor held) and the
+    share of its bound, M^3 FFMAs a lane (two solves) at the FP32 peak,
     beside autograd's backward (library_ms: cuBLAS's trsm, a call a lane)."""
     from oak_tpu_torch.ops import psd
     from oak_tpu_torch.ops import tri_solve as ts
@@ -898,12 +768,12 @@ def _chol_vjp_rows(device, numbers):
                           factor(torch.linalg.cholesky_ex, A.double()))
         kernel = lambda f=mine: torch.autograd.grad(f[1], f[0], G, retain_graph=True)[0]  # noqa: E731
         library = lambda f=lib: torch.autograd.grad(f[1], f[0], G, retain_graph=True)[0]  # noqa: E731
-        before = ts.SOLVE_LAUNCHES
+        before = counted("solve.launches")
         gA = kernel()
         torch.cuda.synchronize()
-        if ts.SOLVE_LAUNCHES != before + 2:
-            raise RuntimeError(f"Cholesky VJP {name}: {ts.SOLVE_LAUNCHES - before} solve "
-                               "launches, expected 2")
+        if counted("solve.launches") != before + 2:
+            raise RuntimeError(f"Cholesky VJP {name}: {counted('solve.launches') - before} "
+                               "solve launches, expected 2")
         gref = torch.autograd.grad(ref[1], ref[0], G.double())[0]
         err = float((gA.double() - gref).abs().max() / gref.abs().max())
         lib_err = float((library().double() - gref).abs().max() / gref.abs().max())
@@ -911,29 +781,25 @@ def _chol_vjp_rows(device, numbers):
             raise RuntimeError(f"Cholesky VJP {name}: error {err:.2e} against float64, the "
                                f"library's {lib_err:.2e}")
         del gA, gref, ref
-        dev = _turns({"library": library, "kernel": kernel}, _device_ms)
-        ev = _turns({"library": library, "kernel": kernel}, lambda fn: _cuda_ms(fn, TIMING_ITERS))
-        bound = 1e3 * lanes * M ** 3 / PEAK_FP32
+        dev = _turns({"library": library, "kernel": kernel}, _busy_ms)
+        bound = 1e3 * lanes * M ** 3 / roofline.PEAK_FP32_OPS
         ms, lib_ms = float(np.mean(dev["kernel"])), float(np.mean(dev["library"]))
         numbers[f"chol vjp {name}"] = dict(
             device_ms=ms, library_ms=lib_ms, plain_ms=lib_ms, bound_ms=bound,
-            bound_by="operations", share=bound / ms, event_ms=float(np.mean(ev["kernel"])),
-            library_event_ms=float(np.mean(ev["library"])), err=err, library_err=lib_err,
+            bound_by="FP32", share=bound / ms, err=err, library_err=lib_err,
             panel=ts._panel(M, M, lanes, device))
         rows.append(f"  chol vjp {name}: device {dev['kernel']} ms, library {dev['library']} ms; "
-                    f"CUDA events {ev['kernel']} / {ev['library']} ms; bound {bound:.4f} ms "
-                    f"(FP32: {lanes * M ** 3 / 1e9:.2f} GFMA), share {bound / ms:.3f}; error "
+                    f"bound {bound:.4f} ms (FP32: {lanes * M ** 3 / 1e9:.2f} GFMA), share "
+                    f"{bound / ms:.3f}; error "
                     f"{err:.2e} (library {lib_err:.2e}); panel {numbers[f'chol vjp {name}']['panel']}")
     return rows
 
 
+@_recorded
 def phase_main_path(model, X, device):
-    from oak_tpu_torch.ops import oak_gram as og
-
-    og.LAUNCHES = 0
     cold = serve(model, X, device)
     warm = serve(model, X, device)
-    launches = og.LAUNCHES
+    launches = counted("k1.launches")
     for b, _, mean, var in cold + warm:
         if mean.shape != (b, 1) or var.shape != (b, 1) or \
                 not (np.isfinite(mean).all() and np.isfinite(var).all()):
@@ -971,16 +837,14 @@ def _check_grad_against_f64(name, model, loss_fn, to64=None):
     against the same model in f64 on the card (the plain route, which must
     launch neither kernel), each factoring at its dtype's default jitter.
     ``to64`` maps the loss function's arguments to f64."""
-    from oak_tpu_torch.ops import oak_gram as og
-
-    before = (og.LAUNCHES, og.BWD_LAUNCHES)
+    before = _launches()
     loss32, g32 = _grad_at_start(model, loss_fn)
-    if og.LAUNCHES == before[0] or og.BWD_LAUNCHES == before[1]:
+    launches = _launches()
+    if launches[0] == before[0] or launches[1] == before[1]:
         raise RuntimeError(f"{name}: the training gradient did not launch both kernels")
-    launches = (og.LAUNCHES, og.BWD_LAUNCHES)
     loss64, g64 = _grad_at_start(copy.deepcopy(model).to(dtype=torch.float64),
                                  to64 or loss_fn)
-    if (og.LAUNCHES, og.BWD_LAUNCHES) != launches:
+    if _launches() != launches:
         raise RuntimeError(f"{name}: the float64 model reached the float32 kernels")
     loss_err = abs(loss32 - loss64) / abs(loss64)
     grad_err = float((g32 - g64).abs().max() / g64.abs().max())
@@ -992,35 +856,36 @@ def _check_grad_against_f64(name, model, loss_fn, to64=None):
             f"(tol {TRAIN_GRAD_TOL})")
 
 
-def _check_losses(name, losses, first_launch, first_bwd):
-    from oak_tpu_torch.ops import oak_gram as og
+def _launches():
+    """(K1, K2) launches counted so far in the session that records."""
+    return counted("k1.launches"), counted("k2.launches")
 
+
+def _check_losses(name, losses, first_launch, first_bwd):
     losses = losses.double().cpu().numpy()
     if not np.isfinite(losses).all():
         raise RuntimeError(f"{name}: non-finite loss in {losses}")
     if not losses.min() < losses[0]:
         raise RuntimeError(f"{name}: best loss {losses.min()} not below the first {losses[0]}")
-    if og.LAUNCHES == first_launch or og.BWD_LAUNCHES == first_bwd:
+    k1, k2 = _launches()
+    if k1 == first_launch or k2 == first_bwd:
         raise RuntimeError(f"{name}: the forward or backward kernel was not launched")
     rises = int(np.sum(np.diff(losses) > 0))
     return (f"{name}: first loss {losses[0]:.6g}, best {losses.min():.6g}, last "
             f"{losses[-1]:.6g}, {rises} of {len(losses) - 1} steps raised it")
 
 
+@_recorded
 def phase_training(device):
     """The training path at full width: the gradient against float64, then
     fit_adam, the Bernoulli variant and natural gradients."""
-    from oak_tpu_torch.ops import oak_gram as og
-    from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.optim import fit_adam, fit_natgrad_adam
-
-    og.LAUNCHES = og.BWD_LAUNCHES = ts.SOLVE_LAUNCHES = 0
 
     def solves(name, before, expected=None):
         # the bound's L⁻¹Kuf and its backward L⁻ᵀdA launch the solve kernel,
         # and so does the reverse pass of Kuu's Cholesky (two transposed
         # launches): four a gradient evaluation, one a value-only evaluation
-        n = ts.SOLVE_LAUNCHES - before
+        n = counted("solve.launches") - before
         if n == 0 or (expected is not None and n != expected):
             raise RuntimeError(f"{name}: {n} solve launches, expected "
                                f"{expected if expected is not None else 'some'}")
@@ -1036,37 +901,21 @@ def phase_training(device):
     print(f"phase 4.1 training gradient at the start point, f32 kernels vs f64 per-dim "
           f"route on the card: {line}; solve launches 4")
 
-    # 4.2: fit_adam, with the host clock read at every loss call (fit_adam
-    # does not synchronise between steps, so an interval is one step's issue
-    # time once the host is the bound)
-    stamps = []
-
-    def loss_fn(m):
-        stamps.append(time.perf_counter())
-        return m.training_loss(X, Y)
-
-    first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = fit_adam(model, loss_fn, steps=ADAM_STEPS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    steps_ms = 1e3 * np.diff(stamps[:ADAM_STEPS + 1])  # the last stamp is the final eval
+    # 4.2: fit_adam (the cell svgp32-train times its steps)
+    first, first_solve = _launches(), counted("solve.launches")
+    res = fit_adam(model, lambda m: m.training_loss(X, Y), steps=ADAM_STEPS)
     adam_line = _check_losses(f"fit_adam {ADAM_STEPS} steps", res.losses, *first)
     adam_solves = solves("fit_adam", first_solve, 4 * ADAM_STEPS + 1)
     if not res.fun <= float(res.losses.min()):
         raise RuntimeError(f"fit_adam returned {res.fun}, above its best step loss")
+    k1, k2 = _launches()
     print(f"phase 4.2 {adam_line}, returned {res.fun:.6g}, loss at step {NATGRAD_STEPS} "
-          f"{float(res.losses[NATGRAD_STEPS - 1]):.6g}; host ms per step (between "
-          f"loss calls, no sync): median {np.median(steps_ms):.3f}, mean "
-          f"{steps_ms.mean():.3f}, first {steps_ms[0]:.3f}, max {steps_ms.max():.3f}; "
-          f"whole call {wall:.3f} s incl. the final evaluation and sync; launches over "
-          f"the steps and the final evaluation: K1 {og.LAUNCHES - first[0]}, K2 "
-          f"{og.BWD_LAUNCHES - first[1]}, solve {adam_solves}")
+          f"{float(res.losses[NATGRAD_STEPS - 1]):.6g}; launches over the steps and the final "
+          f"evaluation: K1 {k1 - first[0]}, K2 {k2 - first[1]}, solve {adam_solves}")
 
     # 4.3: the Bernoulli variant with Adam; natural gradients on a full q
     bmodel, bX, bY = build_bench_model(device, likelihood="bernoulli")
-    first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES
+    first, first_solve = _launches(), counted("solve.launches")
     t0 = time.perf_counter()
     bres = fit_adam(bmodel, lambda m: m.training_loss(bX, bY), steps=BERNOULLI_STEPS)
     b_ms = 1e3 * (time.perf_counter() - t0) / BERNOULLI_STEPS
@@ -1074,7 +923,7 @@ def phase_training(device):
     b_solves = solves("Bernoulli fit_adam", first_solve, 4 * BERNOULLI_STEPS + 1)
     del bmodel
     nmodel, nX, nY = build_bench_model(device, q_diag=False)
-    first, first_solve = (og.LAUNCHES, og.BWD_LAUNCHES), ts.SOLVE_LAUNCHES
+    first, first_solve = _launches(), counted("solve.launches")
     t0 = time.perf_counter()
     nres = fit_natgrad_adam(nmodel, lambda m: m.training_loss(nX, nY),
                             steps=NATGRAD_STEPS, gamma=0.1)
@@ -1082,7 +931,7 @@ def phase_training(device):
     n_line = _check_losses(f"fit_natgrad_adam (gamma 0.1, full q) {NATGRAD_STEPS} steps",
                            nres.losses, *first)
     n_solves = solves("fit_natgrad_adam", first_solve)
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES, "solve": ts.SOLVE_LAUNCHES}
+    launches = dict(zip(("fwd", "bwd", "solve"), (*_launches(), counted("solve.launches"))))
     print(f"phase 4.3 {b_line} ({b_ms:.3f} ms per step incl. sync, {b_solves} solve "
           f"launches); {n_line} ({n_ms:.3f} ms per step incl. sync, {n_solves} solve "
           f"launches); training path launches: forward {launches['fwd']}, backward "
@@ -1131,24 +980,21 @@ def _check_sobol(name, model, model64, X=None, by_order=False):
     return line
 
 
+@_recorded
 def phase_sobol(model, X):
-    """Phase 4's trained SVGP: the full decomposition against f64, and
-    timed."""
+    """Phase 4's trained SVGP: the full decomposition against f64, and its
+    peak memory."""
     from oak_tpu_torch import sobol as sb
-    from oak_tpu_torch.ops import oak_gram as og
 
-    og.LAUNCHES = 0
     model64 = copy.deepcopy(model).to(dtype=torch.float64)
     line = _check_sobol("SVGP", model, model64, X[:COMPONENT_ROWS], by_order=True)
-    sobol_ms = _host_ms(lambda: sb.compute_sobol_oak(model), 3)
-    launches = og.LAUNCHES
+    launches = counted("k1.launches")
     if launches == 0:
         raise RuntimeError("Sobol did not launch the forward kernel")
     peak = _peak_gb(lambda: (sb.compute_sobol_oak(model), sb.compute_sobol_by_order(model),
                              sb.get_prediction_component(model, X=X[:COMPONENT_ROWS])))
-    print(f"phase 5 Sobol of the trained bench SVGP: {line}; full Sobol host ms "
-          f"(sync, median of 3) {sobol_ms:.3f}; forward launches {launches}; peak memory of "
-          f"its Sobol calls {peak:.3f} GB")
+    print(f"phase 5 Sobol of the trained bench SVGP: {line}; forward launches {launches}; "
+          f"peak memory of its Sobol calls {peak:.3f} GB")
     return launches
 
 
@@ -1156,10 +1002,9 @@ def _fit_and_compare(name, model, steps, rows, Xnew):
     """fit_adam for ``steps`` steps (best below first, both kernels
     launched), then predict_y on ``rows`` rows and Sobol against the trained
     parameters in f64."""
-    from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.optim import fit_adam
 
-    first = (og.LAUNCHES, og.BWD_LAUNCHES)
+    first = _launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fit_adam(model, lambda m: m.training_loss(), steps=steps)
@@ -1178,40 +1023,36 @@ def _fit_and_compare(name, model, steps, rows, Xnew):
             f"{rows} rows vs f64: mean {mean_err:.2e}, var {var_err:.2e} (tol {E2E_TOL})")
 
 
+@_recorded
 def phase_sgpr(device):
-    from oak_tpu_torch.ops import oak_gram as og
-
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     model = build_sgpr_model(device)
     grad_line = _check_grad_against_f64("SGPR", model, lambda m: m.training_loss())
     model64, fit_line = _fit_and_compare("SGPR", model, SGPR_STEPS, N, model.X)
     sobol_line = _check_sobol("SGPR", model, model64, model.X[:COMPONENT_ROWS])
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    launches = dict(zip(("fwd", "bwd"), _launches()))
     print(f"phase 6 SGPR (N {N}, D {D}, M {M}, depth {DEPTH}, f32): gradient at the "
           f"start vs f64 on the card: {grad_line}; {fit_line}; Sobol: {sobol_line}; "
           f"launches: forward {launches['fwd']}, backward {launches['bwd']}")
     return launches
 
 
+@_recorded
 def phase_gpr(device):
-    from oak_tpu_torch.ops import oak_gram as og
-
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     model = build_gpr_model(device)
     with torch.no_grad():
         model.kernel.K(model.X)  # K(X), X2 = None
     torch.cuda.synchronize()
-    if og.LAUNCHES != 1:
+    if counted("k1.launches") != 1:
         raise RuntimeError("GPR: the square gram K(X) did not launch the kernel once")
     grad_line = _check_grad_against_f64("GPR", model, lambda m: m.training_loss())
-    Xnew = torch.as_tensor(synth_pumadyn(GPR_N, GPR_D, seed=3)[0], device=device)
+    Xnew = torch.as_tensor(pumadyn(GPR_N, GPR_D, seed=3)[0], device=device)
     model64, fit_line = _fit_and_compare("GPR", model, GPR_STEPS, COMPONENT_ROWS, Xnew)
     sobol_line = _check_sobol("GPR", model, model64)
     with torch.no_grad():
         draws = model.predict_f_samples(Xnew[:SAMPLE_ROWS], SAMPLE_DRAWS, 0)
     if draws.shape != (SAMPLE_DRAWS, SAMPLE_ROWS, 1) or not bool(torch.isfinite(draws).all()):
         raise RuntimeError(f"GPR samples: shape {tuple(draws.shape)} or non-finite")
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    launches = dict(zip(("fwd", "bwd"), _launches()))
     print(f"phase 7 GPR (N {GPR_N}, D {GPR_D}, depth {GPR_DEPTH}, noise 0.1, f32): "
           f"gradient at the start vs f64 on the card: {grad_line}; {fit_line}; Sobol: "
           f"{sobol_line}; {SAMPLE_DRAWS} draws at {SAMPLE_ROWS} rows finite; launches: "
@@ -1227,6 +1068,7 @@ def _plain_K(k, X, X2=None):
     return k._combine(newton_girard(k.dim_grams(X, X2), k.max_interaction_depth))
 
 
+@_recorded
 def phase_defaults(device):
     """The entry points' defaults: a kernel and an SVGP built with no dtype
     or device are float32 on the card, and K and the training gradient
@@ -1236,12 +1078,10 @@ def phase_defaults(device):
     under kernel_error's rule (tol 1e-4 and 1e-3)."""
     from oak_tpu_torch.kernels import OAKKernel
     from oak_tpu_torch.models import SVGP, Gaussian
-    from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import kernel_error
 
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     kernel = OAKKernel.create(num_dims=D, max_interaction_depth=DEPTH)
-    Xn, Yn = synth_pumadyn(1024, D)
+    Xn, Yn = pumadyn(1024, D)
     model = SVGP.create(kernel, Gaussian.create(0.01), Xn[:128], num_data=1024)
     kinds = {(t.dtype, t.device.type) for t in model.parameters()}
     if kinds != {(torch.float32, "cuda")}:
@@ -1250,15 +1090,16 @@ def phase_defaults(device):
     with torch.no_grad():
         kernel.K(X[:128], X)
     torch.cuda.synchronize()
-    k_launches = og.LAUNCHES
+    k_launches = counted("k1.launches")
     model.training_loss(X, Y).backward()
     torch.cuda.synchronize()
-    if k_launches != 1 or og.BWD_LAUNCHES == 0:
+    k1, k2 = _launches()
+    if k_launches != 1 or k2 == 0:
         raise RuntimeError(f"defaults: K launched K1 {k_launches} times, the gradient K2 "
-                           f"{og.BWD_LAUNCHES} times")
+                           f"{k2} times")
     lines = [f"OAKKernel.create / SVGP.create / Gaussian.create with no dtype or device: "
              f"{kinds}; K launched K1 once; the training gradient launched K1 "
-             f"{og.LAUNCHES - k_launches} and K2 {og.BWD_LAUNCHES} times"]
+             f"{k1 - k_launches} and K2 {k2} times"]
     rng = np.random.default_rng(8)
     for d, depth in ((10, 9), (D, 32)):
         k = OAKKernel.create(num_dims=d, max_interaction_depth=depth)
@@ -1274,10 +1115,10 @@ def phase_defaults(device):
             return [K.detach()] + list(torch.autograd.grad((K * G.to(K.dtype)).sum(),
                                                            [X] + raws))
 
-        before = (og.LAUNCHES, og.BWD_LAUNCHES)
+        before = _launches()
         ours = value_and_grads(k, lambda kern, A, B: kern.K(A, B), Xd)
         torch.cuda.synchronize()
-        if (og.LAUNCHES, og.BWD_LAUNCHES) != (before[0] + 1, before[1] + 1):
+        if _launches() != (before[0] + 1, before[1] + 1):
             raise RuntimeError(f"depth {depth} over {d} dims did not run through K1 and K2")
         plain = value_and_grads(k, _plain_K, Xd)
         plain64 = value_and_grads(copy.deepcopy(k).double(), _plain_K, Xd.double())
@@ -1324,9 +1165,8 @@ def pumadyn_fold0():
 def _kernels_at(name, args, device):
     """K1 and K2 at one prescaled shape: each against its plain version
     under phase 2's and 2b's rules (a repeat K2 launch bitwise equal), then
-    device ms (two profiled series), CUDA events of kernel and plain in
-    turns, bound and share. Returns ({"K1": numbers, "K2": numbers},
-    findings)."""
+    device ms of kernel and plain in turns, bound and share. Returns ({"K1":
+    numbers, "K2": numbers}, findings)."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import kernel_error
 
@@ -1370,11 +1210,8 @@ def _kernels_at(name, args, device):
                   lambda: og.oak_gram_bwd_plain(*inputs, gbar, depth))}
     for kind, (kernel, plain_fn) in fns.items():
         with torch.no_grad():
-            dev = [_device_ms(kernel) for _ in range(2)]
-            ev = _turns({"plain": plain_fn, "kernel": kernel},
-                        lambda fn: _cuda_ms(fn, TIMING_ITERS))
-        row, nums = _table_row(name, kind, args, dev, None, float(np.mean(ev["kernel"])),
-                               float(np.mean(ev["plain"])))
+            dev = _turns({"plain": plain_fn, "kernel": kernel}, _busy_ms)
+        row, nums = _table_row(name, kind, args, dev)
         numbers[kind] = nums | dict(max_abs_err=k1_err if kind == "K1" else k2_err)
         text.append(row)
     return numbers, text
@@ -1441,6 +1278,7 @@ def b1_gate(name, oak, oak64, X, y):
     return kernels[0], text
 
 
+@_recorded
 def phase_oak_model(device):
     """The oak_model user path at the UCI pumadyn configuration's full width
     (examples/uci/outputs/pumadyn/config.json: depth 8, 500 inducing points,
@@ -1473,7 +1311,6 @@ def phase_oak_model(device):
 
     print(f"phase 9 oak_model, UCI pumadyn configuration (N {len(Xtr)} + {len(Xte)}, D "
           f"{PUMA_D}, depth {PUMA_DEPTH}, M {PUMA_M}, float32)")
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     oak = oak_model(max_interaction_depth=PUMA_DEPTH, num_inducing=PUMA_M,
                     lengthscale_bounds=[1e-3, 1e3], use_sparsity_prior=True,
                     use_normalising_flow=True, optimizer="lbfgs")
@@ -1535,7 +1372,7 @@ def phase_oak_model(device):
     again = part("load_f32", lambda: load_oak_model(path))
     if not np.array_equal(again.predict(Xte, clip=True), pred):
         raise RuntimeError("pumadyn: a float32 save loaded back predicts differently")
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    launches = dict(zip(("fwd", "bwd"), _launches()))
     print(f"phase 9.6 float32 save loaded back in {secs['load_f32']:.3f} s predicts bitwise "
           f"equal; launches over the path: K1 {launches['fwd']}, K2 {launches['bwd']}")
     if launches["fwd"] == 0 or launches["bwd"] == 0:
@@ -1563,7 +1400,6 @@ def phase_oak_model(device):
 COMMITTED = REPO / "examples" / "uci" / "outputs"
 SERVE_ROWS = (1, 100, 1639)
 SERVE_TOL = 1e-4  # served vs live, both float32 through K1, as KERNEL_TOL
-SERVE_REPEATS = 5
 
 
 def _uci_modules():
@@ -1600,14 +1436,12 @@ def _check_served(name, served, live, tol=SERVE_TOL):
 
 
 def _one_launch_per_request(name, f, X):
-    from oak_tpu_torch.ops import oak_gram as og
-
-    before = og.LAUNCHES
+    before = counted("k1.launches")
     f(X)
     torch.cuda.synchronize()
-    if og.LAUNCHES != before + 1:
-        raise RuntimeError(f"{name}: a served request launched K1 {og.LAUNCHES - before} "
-                           f"times, not once")
+    if counted("k1.launches") != before + 1:
+        raise RuntimeError(f"{name}: a served request launched K1 "
+                           f"{counted('k1.launches') - before} times, not once")
 
 
 def _kernel_names(fn, holds=None):
@@ -1639,23 +1473,23 @@ def _kernel_names(fn, holds=None):
 def _package_request(name, f, X, counts):
     """One request of a compiled artifact, under torch.profiler: the package
     launches the Triton K1 once (its kernel name) and the CUDA K1 not at all
-    (neither by name nor in ``og.LAUNCHES``), in a window that recorded a
-    gram kernel (_kernel_names). Adds its Triton K1 launches to
+    (neither by name nor in the counter ``k1.launches``), in a window that
+    recorded a gram kernel (_kernel_names). Adds its Triton K1 launches to
     ``counts["triton"]`` and returns the output."""
-    from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.ops import oak_gram_triton as ogt
 
-    before = og.LAUNCHES
+    before = counted("k1.launches")
     # a window that lost the gram's event among the request's first kernels
     # is run again
     out, names = _kernel_names(lambda: f(X), lambda seen: any(
         ogt.KERNEL_NAME in k or "oak_gram_fwd_kernel" in k for k in seen))
     triton = sum(c for k, c in names.items() if ogt.KERNEL_NAME in k)
     cuda_k1 = sum(c for k, c in names.items() if "oak_gram_fwd_kernel" in k)
-    if triton != 1 or cuda_k1 or og.LAUNCHES != before:
+    if triton != 1 or cuda_k1 or counted("k1.launches") != before:
         raise RuntimeError(f"{name}: a package request launched the Triton K1 {triton} "
                            f"times and the CUDA K1 {cuda_k1} times by name, "
-                           f"{og.LAUNCHES - before} by count; device operations: {names}")
+                           f"{counted('k1.launches') - before} by count; device operations: "
+                           f"{names}")
     counts["triton"] += triton
     return out
 
@@ -1677,8 +1511,8 @@ def _serve_model(name, oak, X, bernoulli, counts, compiled):
     Bernoulli one, each request launching the Triton K1 once and the CUDA
     K1 never (_package_request). The other artifact as an earlier tree
     wrote it (_program_blob), each request launching the CUDA K1 once; for
-    a Gaussian model also its (mean, std) program, the package's like for
-    phase 13. ``compiled``: the package's blob and its compile seconds
+    a Gaussian model also its (mean, std) program, the package's like.
+    ``compiled``: the package's blob and its compile seconds
     (_compile_served). Returns a findings line and {"package": the
     package's callable, its blob, "program": the (mean, std) program's
     callable, "rows": the served rows}."""
@@ -1888,7 +1722,8 @@ def _run_script(name, args):
         sys.argv = argv
 
 
-def phase_committed(device, compiles, old_triton=None):
+@_recorded
+def phase_committed(device, compiles):
     """Phase 10, the committed models and serving on the card.
 
     10.1 examples/uci/outputs/pumadyn/model_oak_0.npz (oak_tpu's fold 0:
@@ -1912,11 +1747,11 @@ def phase_committed(device, compiles, old_triton=None):
     equal (_standalone_start, running beside 10.3); the two other artifacts (pumadyn's mean-only and
     heart's (p, std)) as the torch.export programs an earlier tree wrote,
     against predict or predict_proba, each request launching K1 once; the
-    compile and export seconds, the blobs' bytes, and the host-clock
-    latency of a warm request of pumadyn's (mean, std) package, of its
-    program and of the live predict, with the device operations and
-    device time of one of each (torch.profiler). Only two artifacts are
-    compiled: a compile takes 40-45 s, the first one of a process ~120 s.
+    compile and export seconds, the blobs' bytes, and the device
+    operations, kernel launches and device time of a warm request of
+    pumadyn's (mean, std) package, of its program and of the live predict
+    (benchmark/devtrace.py). Only two artifacts are compiled: a compile
+    takes 40-45 s, the first one of a process ~120 s.
     10.3 the torch UCI scripts end to end on the card, each into a temporary
     --output_dir: uci_regression_train.py --dataset_name autoMPG and
     uci_classification_train.py --dataset_name heart, both with --k 2
@@ -1929,20 +1764,17 @@ def phase_committed(device, compiles, old_triton=None):
     K(X) at depth 7 (_committed_shapes); the Triton K1 against the plain
     version and K1 (_triton_checked) at the served Kus (pumadyn's at 1,
     100 and 1639 rows, heart's at 1639 with 8 extra grams), timed at
-    pumadyn's 1639 rows and heart's (_triton_row; in turns with
-    ``old_triton``, an earlier tree's Triton K1, when given). These
-    launches come after the phase's count is read.
+    pumadyn's 1639 rows and heart's (_triton_row). These launches come
+    after the phase's count is read.
 
-    Returns the K1 and K2 launches of 10.1-10.3, pumadyn's served
-    artifacts (_serve_model's dict) and {"triton": the packages' Triton K1
-    launches in 10.2, "numbers": its timings at pumadyn's and heart's
-    served Kus by name}."""
+    Returns the K1 and K2 launches of 10.1-10.3 and {"triton": the
+    packages' Triton K1 launches in 10.2, "numbers": its timings at
+    pumadyn's and heart's served Kus by name}."""
     from oak_tpu_torch import load_oak_model
     from oak_tpu_torch.models import SGPR, SVGP
     from oak_tpu_torch.ops import oak_gram as og
 
     _, artifact_io, _ = _uci_modules()
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     Xtr, _, Xte, yte = pumadyn_fold0()
     oak = load_oak_model(COMMITTED / "pumadyn" / "model_oak_0.npz")
@@ -1958,7 +1790,7 @@ def phase_committed(device, compiles, old_triton=None):
     with np.load(COMMITTED / "pumadyn" / "out_0.npz") as f:
         committed_rmse, committed_nll = float(f["rmse"]), float(f["nll"])
     nll = -oak.get_loglik(Xte, yte, clip=True)
-    k1 = og.LAUNCHES
+    k1 = counted("k1.launches")
     print(f"phase 10.1 committed pumadyn fold 0 (SGPR, N {len(Xtr)}, D {PUMA_D}, depth "
           f"{PUMA_DEPTH}, M {PUMA_M}; float32 on the card) on its {len(Xte)} seed-4 test rows "
           f"in {time.perf_counter() - t0:.3f} s: rmse {rmse:.6g} (out_0.npz {committed_rmse:.6g}, "
@@ -1993,17 +1825,15 @@ def phase_committed(device, compiles, old_triton=None):
                  "live predict": lambda: oak.predict(Xr, clip=True)}
         parts = []
         for what, fn in calls.items():
-            ms = _host_ms(fn, SERVE_REPEATS)
-            dev, ops = _device_ms(fn, 1, 1, with_ops=True)
-            parts.append(f"{what} {ms:.3f} ms ({ops} device operations, {dev:.3f} ms on "
-                         "the device)")
+            trace = _traced(fn)
+            parts.append(f"{what} {len(trace.ops)} device operations, {trace.launches} kernel "
+                         f"launches, {1e3 * trace.busy_s:.3f} ms on the device")
         latency.append(f"{rows} rows: " + ", ".join(parts))
     print(f"phase 10.2 serving ({time.perf_counter() - t0:.3f} s, of which {wait_s:.1f} s "
           f"waiting for the compile process started after phase 1): {puma_line}; "
-          f"{heart_line}; Triton K1 launches by the packages {counts['triton']}; warm "
-          f"host-clock latency of pumadyn's (mean, std), numpy in and out (median of "
-          f"{SERVE_REPEATS}; the kernels and copies of one more call, and their device time, "
-          f"from torch.profiler): " + "; ".join(latency))
+          f"{heart_line}; Triton K1 launches by the packages {counts['triton']}; a warm "
+          f"request of pumadyn's (mean, std), numpy in and out (benchmark/devtrace.py): "
+          + "; ".join(latency))
 
     t0 = time.perf_counter()
     runs = []
@@ -2028,7 +1858,7 @@ def phase_committed(device, compiles, old_triton=None):
                 if problems:
                     raise RuntimeError(f"{script} fold {fold}: {problems}")
             runs.append(f"{script} --dataset_name {dataset} {time.perf_counter() - t:.1f} s")
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    launches = dict(zip(("fwd", "bwd"), _launches()))
     print(f"phase 10.3 the torch UCI scripts (--k 2 --max_iters 30 --restarts 0) on the card "
           f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(runs)
           + "; each exited 0 and its out_0.npz, out_1.npz pass artifact_io's invariants; "
@@ -2063,13 +1893,13 @@ def phase_committed(device, compiles, old_triton=None):
     timed_rows, triton_numbers = [], {}
     for name in (f"pumadyn Kus {PUMA_M}x{len(Xte)}", next(k for k in served_kus
                                                           if k.startswith("heart Kus"))):
-        row, triton_numbers[name] = _triton_row(name, served_kus[name], old_triton)
+        row, triton_numbers[name] = _triton_row(name, served_kus[name])
         timed_rows.append(row)
     print(f"phase 10.4 K1 and K2 vs plain at phase 10's shapes, the Triton K1 at the served "
           f"Kus ({time.perf_counter() - t0:.1f} s):\n" + "\n".join(text)
           + f"\n  Triton K1 vs plain (and vs K1 under the same rule): {', '.join(findings)}; "
           f"bitwise equal to K1 at {bitwise} of {len(served_kus)}\n" + "\n".join(timed_rows))
-    return launches, served, dict(counts, numbers=triton_numbers)
+    return launches, dict(counts, numbers=triton_numbers)
 
 
 def _served_kus(oak, Xte):
@@ -2217,6 +2047,7 @@ def _plot_gate(name, data, data64):
     return worst, parts
 
 
+@_recorded
 def phase_surface(device):
     """Phase 11, the rest of the user surface on the card.
 
@@ -2247,12 +2078,10 @@ def phase_surface(device):
     import importlib.util
 
     from oak_tpu_torch import compat, load_oak_model, sobol
-    from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.params import trainable_params
     from oak_tpu_torch.utils import (Timer, assert_finite, checked, cholesky_health, profile,
                                      trace_annotation)
 
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     path = COMMITTED / "pumadyn" / "model_oak_0.npz"
     oak = load_oak_model(path)
     oak64 = load_oak_model(path, dtype=torch.float64)
@@ -2260,7 +2089,7 @@ def phase_surface(device):
     data = _plot_data(oak, _plot_components(oak))
     torch.cuda.synchronize()
     plot_s = time.perf_counter() - t0
-    k1_plot = og.LAUNCHES
+    k1_plot = counted("k1.launches")
     data64 = _plot_data(oak64, list(data))
     worst, parts = _plot_gate("pumadyn", data, data64)
     heart_path = COMMITTED / "heart" / "model_oak_0.npz"
@@ -2268,7 +2097,7 @@ def phase_surface(device):
     discrete = [(i,) for i in heart.binary_index + heart.categorical_index]
     hdata = _plot_data(heart, _plot_components(heart, discrete))
     hworst, hparts = _plot_gate("heart", hdata, _plot_data(heart64, list(hdata)))
-    k1 = og.LAUNCHES
+    k1 = counted("k1.launches")
     drawn = ("no figure drawn: matplotlib is not installed here"
              if importlib.util.find_spec("matplotlib") is None
              else "no figure drawn (drawing runs on the CPU)")
@@ -2340,9 +2169,9 @@ def phase_surface(device):
         raws = [p.raw for p in trainable_params(model)]
         return torch.autograd.grad(model.training_loss(), raws)
 
-    before = (og.LAUNCHES, og.BWD_LAUNCHES)
+    before = _launches()
     grads = checked(loss_and_grad)(oak.m)
-    inside = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+    inside = tuple(a - b for a, b in zip(_launches(), before))
     broken = copy.deepcopy(oak.m)
     with torch.no_grad():
         broken.kernel.kernels[3].lengthscale.raw.fill_(float("nan"))
@@ -2401,7 +2230,7 @@ def phase_surface(device):
           f"{L.shape}, finite {bool(np.isfinite(L).all())}")
     if not (all(same) and np.isfinite(L).all()):
         raise RuntimeError(f"compat on the card: bitwise equal {same}")
-    return {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    return dict(zip(("fwd", "bwd"), _launches()))
 
 
 # --------------------------------------------------------------------------- #
@@ -2412,8 +2241,8 @@ def phase_surface(device):
 PAR_JOBS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 PAR_STEPS, PAR_LBFGS_ITERS, PAR_MS_ITERS = 5, 5, 3
 # the data-sharded multistart at worlds 2 and 4: starts, warm Adam steps, the
-# (restart, data) mesh of each world (4 and 2 lanes a rank), timing repeats
-PAR_MS_STARTS, PAR_MS_WARM, PAR_LANE_REPEATS = 4, 5, 5
+# (restart, data) mesh of each world (4 and 2 lanes a rank)
+PAR_MS_STARTS, PAR_MS_WARM = 4, 5
 PAR_MS_MESH = {2: (1, 2), 4: (2, 2)}
 PAR_MB_BATCH, PAR_MB_STEPS = 64, 10
 PAR_LOSS_TOL, PAR_GRAD_TOL, PAR_PRED_TOL, PAR_SOBOL_TOL, PAR_FIT_TOL = (
@@ -2422,7 +2251,7 @@ PAR_JOB_TIMEOUT_S = 240
 
 
 def _bench_y():
-    return synth_pumadyn(N, D)[1]
+    return pumadyn(N, D)[1]
 
 
 def _heart(device):
@@ -2536,10 +2365,8 @@ def _counted(owner, name):
 def _lanes_against_in_turn(model, loss, vecs):
     """One warm evaluation of the lanes ``vecs`` of ``loss`` (a MeshLoss)
     batched (``fit.LaneLoss``, its lanes form), in turn (``_InTurn``) and
-    one lane alone. Returns (the three evaluations, their (values [R],
-    gradients [R, n]), each one's K1 and K2 launches, all-reduces and
-    lanes-form calls)."""
-    from oak_tpu_torch.ops import oak_gram as og
+    one lane alone. Returns (their (values [R], gradients [R, n]), each
+    one's K1 and K2 launches, all-reduces and lanes-form calls)."""
     from oak_tpu_torch.optim import fit
     from oak_tpu_torch.parallel.mesh import Axis
 
@@ -2548,16 +2375,16 @@ def _lanes_against_in_turn(model, loss, vecs):
                    "one lane": lambda: fit.LaneLoss(model, loss).value_and_grad(vecs[:1])}
     counts, got = {}, {}
     with _counted(Axis, "all_reduce") as reduces, \
-            _counted(type(loss), "lanes_value_and_grad") as form:
+            _counted(type(loss), "lanes_value_and_grad") as form, profiling.recording():
         for label, fn in evaluations.items():
             fn()
             torch.cuda.synchronize()
-            before = (og.LAUNCHES, og.BWD_LAUNCHES, reduces["calls"], form["calls"])
+            before = (*_launches(), reduces["calls"], form["calls"])
             got[label] = fn()
             torch.cuda.synchronize()
-            counts[label] = [og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1],
-                             reduces["calls"] - before[2], form["calls"] - before[3]]
-    return evaluations, got, counts
+            after = (*_launches(), reduces["calls"], form["calls"])
+            counts[label] = [a - b for a, b in zip(after, before)]
+    return got, counts
 
 
 def _lane_errors(got, ref):
@@ -2596,10 +2423,9 @@ def _rank_multistart(models, mesh2d, X, Y):
     gated at LANE_LOSS_TOL / LANE_GRAD_TOL; the GPR's f32 loss cancels in
     its [N, N] Cholesky, so its gates follow phase 12's drift rule: at
     least twice the lanes in turn's error against the same lanes of the
-    GPR in float64. For the SVGP each evaluation's kernel launches, host ms and
-    device ms too, then _sharded_multistart warm, batched and with the
-    lanes in turn, wall seconds each. Returns (values for rank<R>.npz,
-    numbers for rank<R>.json)."""
+    GPR in float64. Then the SVGP's _sharded_multistart warm, batched and
+    with the lanes in turn, wall seconds each. Returns (values for
+    rank<R>.npz, numbers for rank<R>.json)."""
     from oak_tpu_torch.optim import fit
     from oak_tpu_torch.optim import multistart as ms
     from oak_tpu_torch.parallel import sharding
@@ -2607,11 +2433,11 @@ def _rank_multistart(models, mesh2d, X, Y):
     from oak_tpu_torch.params import flatten_trainable
 
     data, restarts = Axis.of(mesh2d, "data"), Axis.of(mesh2d, "restart")
-    checks, timing = {}, {}
+    checks = {}
     for name, (model, ext) in models.items():
         vecs = ms._make_starts(flatten_trainable(model).detach(), PAR_MS_STARTS, 0.3, 0,
                                True)[restarts.rows(PAR_MS_STARTS)]
-        evaluations, got, counts = _lanes_against_in_turn(
+        got, counts = _lanes_against_in_turn(
             model, sharding.mesh_loss(model, data, *ext), vecs)
         tols, drift = [LANE_LOSS_TOL, LANE_GRAD_TOL], None
         if name == "gpr":
@@ -2622,10 +2448,6 @@ def _rank_multistart(models, mesh2d, X, Y):
             del gpr64
         checks[name] = {"errors": _lane_errors(got["batched"], got["in turn"]), "tols": tols,
                         "drift": drift, "counts": counts}
-        if name == "svgp":
-            for label, fn in evaluations.items():
-                launches, device_ms = _launches_device_ms(fn)
-                timing[label] = [launches, _host_ms(fn, PAR_LANE_REPEATS), device_ms]
     model = models["svgp"][0]
     _, batched_s = _sharded_multistart(model, mesh2d, X, Y)
     make = sharding.mesh_loss
@@ -2636,7 +2458,7 @@ def _rank_multistart(models, mesh2d, X, Y):
         sharding.mesh_loss = make
     out = {"ms_turn_fun": turn.fun, "ms_turn_lanes": turn.losses.numpy()}
     info = {"lanes": vecs.shape[0], "mesh": list(mesh2d.mesh.shape), "checks": checks,
-            "timing": timing, "fit_s": [batched_s, turn_s]}
+            "fit_s": [batched_s, turn_s]}
     return out, info
 
 
@@ -2647,11 +2469,11 @@ def parallel_rank(rank, world, folder, backend):
     worlds 2 and 4 the bench SVGP's fit_lbfgs_multistart_sharded on a
     (restart, data) mesh of 4 and 2 lanes a rank (_sharded_multistart), the
     GPR's sharded Sobol, oak_model.optimise_minibatch(mesh=) and
-    get_sobol(mesh=) at worlds 1 and 2), with the kernel counts set to 0
-    just before it and read just after; then, uncounted, the multistart's
-    checks (_rank_multistart: the SVGP's, the SGPR's and at world 2 the
-    GPR's lanes batched against in turn, the fit timed batched and in
-    turn). Writes rank<R>.npz (values) and rank<R>.json (times, launches,
+    get_sobol(mesh=) at worlds 1 and 2), its kernel launches counted in a
+    recording session of its own (utils.profiling) around it; then the
+    multistart's checks (_rank_multistart: the SVGP's, the SGPR's and at
+    world 2 the GPR's lanes batched against in turn, the fit timed batched
+    and in turn). Writes rank<R>.npz (values) and rank<R>.json (times, launches,
     memory, the build)."""
     import os
 
@@ -2675,7 +2497,6 @@ def parallel_rank(rank, world, folder, backend):
         info["build"] = {"path": str(b.path), "compiled_s": b.seconds,
                          "wall_s": time.perf_counter() - t0}
     from oak_tpu_torch import sobol as sb
-    from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.optim.fit import value_and_grad
     from oak_tpu_torch.parallel import (data_parallel_elbo_step, fit_lbfgs_sharded, make_mesh,
                                         shard_batch, sharded_predict_f)
@@ -2697,55 +2518,56 @@ def parallel_rank(rank, world, folder, backend):
         dist.barrier()
 
     sync()
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
-    t_path = time.perf_counter()
-    out["loss"], out["grad"] = value_and_grad(
-        model, mesh_loss(model, Axis.of(mesh, "data"), X, Y), flatten_trainable(model).detach())
-    step, (vec, opt_state, _) = data_parallel_elbo_step(model, mesh, learning_rate=1e-2)
-    Xs, Ys = shard_batch(mesh, X, Y)
-    vec, opt_state, _ = step(vec, opt_state, Xs, Ys)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(PAR_STEPS):
-        vec, opt_state, loss = step(vec, opt_state, Xs, Ys)
-    sync()
-    ms["step"] = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
-    predict = sharded_predict_f(model, mesh)
-    predict(Xh)
-    sync()
-    t0 = time.perf_counter()
-    out["mean"], out["var"] = (t.cpu() for t in predict(Xh))
-    ms["predict"] = 1e3 * (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    out["svgp_sobol"] = _normalised(sb.compute_sobol_oak(model, mesh=mesh)[1])
-    ms["sobol"] = 1e3 * (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    out["lbfgs_fun"] = fit_lbfgs_sharded(sgpr, mesh, max_iters=PAR_LBFGS_ITERS).fun
-    ms["lbfgs"] = 1e3 * (time.perf_counter() - t0)
-    if mesh2d is not None:
-        res, seconds = _sharded_multistart(model, mesh2d, X, Y)
-        out["ms_fun"], out["ms_lanes"] = res.fun, res.losses.numpy()
-        ms["multistart"] = 1e3 * seconds
-    sync()
-    t0 = time.perf_counter()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out["gpr_sobol"] = _normalised(sb.compute_sobol_oak(gpr, mesh=mesh)[1])
-    info["gpr_sobol_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    out["gpr_by_order"] = _normalised(sb.compute_sobol_by_order(gpr, mesh=mesh))
-    info["gpr_by_order_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    ms["gpr_sobol"] = 1e3 * (time.perf_counter() - t0)
-    if heart is not None:
+    with profiling.recording():
+        t_path = time.perf_counter()
+        out["loss"], out["grad"] = value_and_grad(
+            model, mesh_loss(model, Axis.of(mesh, "data"), X, Y),
+            flatten_trainable(model).detach())
+        step, (vec, opt_state, _) = data_parallel_elbo_step(model, mesh, learning_rate=1e-2)
+        Xs, Ys = shard_batch(mesh, X, Y)
+        vec, opt_state, _ = step(vec, opt_state, Xs, Ys)
+        sync()
         t0 = time.perf_counter()
-        out["heart_sobol"] = heart.get_sobol(mesh=mesh)
-        out["heart_fun"] = heart.optimise_minibatch(batch_size=PAR_MB_BATCH,
-                                                    steps=PAR_MB_STEPS, seed=0, mesh=mesh).fun
-        out["heart_trained_sobol"] = heart.get_sobol(mesh=mesh)
-        ms["heart"] = 1e3 * (time.perf_counter() - t0)
-    sync()
-    info["path_s"] = time.perf_counter() - t_path
-    info["launches"] = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+        for _ in range(PAR_STEPS):
+            vec, opt_state, loss = step(vec, opt_state, Xs, Ys)
+        sync()
+        ms["step"] = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
+        predict = sharded_predict_f(model, mesh)
+        predict(Xh)
+        sync()
+        t0 = time.perf_counter()
+        out["mean"], out["var"] = (t.cpu() for t in predict(Xh))
+        ms["predict"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out["svgp_sobol"] = _normalised(sb.compute_sobol_oak(model, mesh=mesh)[1])
+        ms["sobol"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out["lbfgs_fun"] = fit_lbfgs_sharded(sgpr, mesh, max_iters=PAR_LBFGS_ITERS).fun
+        ms["lbfgs"] = 1e3 * (time.perf_counter() - t0)
+        if mesh2d is not None:
+            res, seconds = _sharded_multistart(model, mesh2d, X, Y)
+            out["ms_fun"], out["ms_lanes"] = res.fun, res.losses.numpy()
+            ms["multistart"] = 1e3 * seconds
+        sync()
+        t0 = time.perf_counter()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["gpr_sobol"] = _normalised(sb.compute_sobol_oak(gpr, mesh=mesh)[1])
+        info["gpr_sobol_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out["gpr_by_order"] = _normalised(sb.compute_sobol_by_order(gpr, mesh=mesh))
+        info["gpr_by_order_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms["gpr_sobol"] = 1e3 * (time.perf_counter() - t0)
+        if heart is not None:
+            t0 = time.perf_counter()
+            out["heart_sobol"] = heart.get_sobol(mesh=mesh)
+            out["heart_fun"] = heart.optimise_minibatch(batch_size=PAR_MB_BATCH,
+                                                        steps=PAR_MB_STEPS, seed=0, mesh=mesh).fun
+            out["heart_trained_sobol"] = heart.get_sobol(mesh=mesh)
+            ms["heart"] = 1e3 * (time.perf_counter() - t0)
+        sync()
+        info["path_s"] = time.perf_counter() - t_path
+        info["launches"] = dict(zip(("fwd", "bwd"), _launches()))
     info["ms"] = ms
     if mesh2d is not None:  # checks of the main path's multistart, uncounted
         models = {"svgp": (model, (X, Y)), "sgpr": (sgpr, ())}
@@ -2865,7 +2687,6 @@ def _multistart_line(job, world, res, infos, card):
     lanes = res[0]["ms_lanes"]
     turn = res[0]["ms_turn_lanes"]
     fit_s = np.array([m["fit_s"] for m in ranks])
-    t = {k: m0["timing"][k] for k in ("batched", "in turn", "one lane")}
 
     def check_text(name):
         counts, tols, drift = (m0["checks"][name][k] for k in ("counts", "tols", "drift"))
@@ -2888,11 +2709,7 @@ def _multistart_line(job, world, res, infos, card):
         f"bench SVGP (N {N}, D {D}, M {M}) "
         + check_text("svgp") + "; phase 6's SGPR " + check_text("sgpr")
         + ("; phase 7's GPR " + check_text("gpr") if "gpr" in m0["checks"] else "")
-        + "; the SVGP's warm evaluation, rank 0: "
-        + ", ".join(f"{k} {n} kernel launches, host {h:.3f} ms (sync, median of "
-                    f"{PAR_LANE_REPEATS}), device {d:.3f} ms" for k, (n, h, d) in t.items())
-        + f" (host batched / one lane {t['batched'][1] / t['one lane'][1]:.2f}x, in turn "
-        f"{t['in turn'][1] / t['one lane'][1]:.2f}x); fit_lbfgs_multistart_sharded("
+        + "; fit_lbfgs_multistart_sharded("
         f"n_starts={PAR_MS_STARTS}, warm_adam_steps={PAR_MS_WARM}, max_iters={PAR_MS_ITERS}) "
         f"warm, batched {fit_s[0, 0]:.3f} s rank 0 / {fit_s[:, 0].max():.3f} s max over "
         f"ranks, in turn {fit_s[0, 1]:.3f} / {fit_s[:, 1].max():.3f} s "
@@ -3018,9 +2835,6 @@ def phase_parallel(device):
 # --------------------------------------------------------------------------- #
 # Phase 13: the grouped per-dim evaluation
 # --------------------------------------------------------------------------- #
-GROUPED_REPEATS = 5
-
-
 def _per_dim_prep(oak, X, X2):
     """ops.oak_gram._prep as a per-dim loop: each constituent kernel's
     closed forms on its own column, one call per dim (shared variances)."""
@@ -3074,32 +2888,6 @@ def _per_dim_route():
         og._prep, ok.per_group, sb.per_group = saved
 
 
-def _launches_and_device_ms(events):
-    """(kernel launches, device ms) in torch.profiler's key_averages():
-    cudaLaunchKernel / cuLaunchKernel calls, and the CUDA operations'
-    time."""
-    from torch.autograd import DeviceType
-
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
-    return launches, device_ms
-
-
-def _launches_device_ms(fn):
-    """(kernel launches, device ms) of one call of fn after a warm-up."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _launches_and_device_ms(prof.key_averages())
-
-
 def _peak_gb(fn):
     """Peak device memory fn allocates above what was allocated before, GB."""
     torch.cuda.synchronize()
@@ -3134,7 +2922,8 @@ def _held(name, grouped, per_dim, f64, tols):
     return worst
 
 
-def phase_grouped(device, served):
+@_recorded
+def phase_grouped(device):
     """Phase 13, the grouped evaluation of the per-dim forms at the bench
     SVGP's full width (N 8192, D 32, M 512, depth 3, float32, one group of
     32 OrthogonalRBF dims; phase 3's seeded parameters).
@@ -3144,20 +2933,15 @@ def phase_grouped(device, served):
     within KERNEL_TOL (forward) or GRAD_TOL (gradient) of max |per-dim|, or
     twice the per-dim loop's own error against float64; the launches of
     one _prep and one K_diag at D 8 and D 32, which must be equal.
-    13.2 launches, host ms (synchronised, median of GROUPED_REPEATS) and
-    device ms of a warm fit_adam step, predict_y of 1 and 8192 rows, a full
-    Sobol, and a warm served request of phase 10.2's pumadyn (mean, std)
-    artifact, its compiled package beside its torch.export program
-    (``served``: _serve_model's dict; numpy in, the mean on the host), and
-    the peak memory of phase 5's Sobol calls. Returns the phase's K1 and K2
-    launches."""
+    13.2 kernel launches and device ms (benchmark/devtrace.py) of a warm
+    predict_y of 1 and 8192 rows and a full Sobol, paths no cell of the
+    benchmark times. Returns the phase's K1 and K2 launches."""
     from oak_tpu_torch import sobol as sb
     from oak_tpu_torch.kernels import stackable_groups
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.optim import fit
     from oak_tpu_torch.params import flatten_trainable
 
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
     model, Xh = build_model(device)
     X, Y = (torch.as_tensor(a, device=device) for a in (Xh, _bench_y()))
     if stackable_groups(model.kernel.kernels) != [list(range(D))]:
@@ -3197,8 +2981,8 @@ def phase_grouped(device, served):
         kern = bench_kernel(device, torch.float32, d, DEPTH)
         Xd, Zd = X[:, :d].contiguous(), model.Z.value.detach()[:, :d].contiguous()
         with torch.no_grad():
-            counts[d] = (_launches_device_ms(lambda: og._prep(kern, Zd, Xd))[0],
-                         _launches_device_ms(lambda: kern.K_diag(Xd))[0])
+            counts[d] = (_traced(lambda: og._prep(kern, Zd, Xd)).launches,
+                         _traced(lambda: kern.K_diag(Xd)).launches)
     if counts[8] != counts[D]:
         raise RuntimeError(f"launches of one _prep, K_diag: {counts[8]} at D 8, "
                            f"{counts[D]} at D {D}")
@@ -3209,33 +2993,17 @@ def phase_grouped(device, served):
           f"_prep / K_diag: D 8 {counts[8][0]} / {counts[8][1]}, D {D} {counts[D][0]} / "
           f"{counts[D][1]}")
 
-    t0 = time.perf_counter()
-    bmodel, bX, bY = build_bench_model(device)
-    vec = fit._leaf(bmodel)
-    opt = fit.adam(vec)
-    Xr = {b: X[:b] for b in (1, N)}
-    calls = {"fit_adam step": lambda: fit._adam_step(
-                 bmodel, lambda m: m.training_loss(bX, bY), vec, opt),
-             "predict_y 1 row": lambda: model.predict_y(Xr[1]),
-             f"predict_y {N} rows": lambda: model.predict_y(Xr[N]),
+    calls = {"predict_y 1 row": lambda: model.predict_y(X[:1]),
+             f"predict_y {N} rows": lambda: model.predict_y(X),
              "full Sobol": lambda: sb.compute_sobol_oak(model)}
-    rows = served["rows"]
-    for what in ("package", "program"):
-        calls.update({f"served request, (mean, std) {what}, {r} rows":
-                      (lambda r=r, f=served[what]: f(rows[:r])[0].cpu()) for r in (1, 1639)})
     lines = []
     for name, fn in calls.items():
-        with contextlib.nullcontext() if name == "fit_adam step" else torch.no_grad():
-            launches, device_ms = _launches_device_ms(fn)
-            host_ms = _host_ms(fn, GROUPED_REPEATS)
-        lines.append(f"phase 13.2 {name}: {launches} kernel launches, host {host_ms:.3f} ms "
-                     f"(sync, median of {GROUPED_REPEATS}), device {device_ms:.3f} ms")
-    peak = _peak_gb(lambda: (sb.compute_sobol_oak(model), sb.compute_sobol_by_order(model),
-                             sb.get_prediction_component(model, X=X[:COMPONENT_ROWS])))
-    print("\n".join(lines) + f"\nphase 13.2 phase 5's Sobol calls (compute_sobol_oak, "
-          f"compute_sobol_by_order, {COMPONENT_ROWS} rows' components) peak memory "
-          f"{peak:.3f} GB ({time.perf_counter() - t0:.1f} s)")
-    return {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+        with torch.no_grad():
+            trace = _traced(fn)
+        lines.append(f"phase 13.2 {name}: {trace.launches} kernel launches, device "
+                     f"{1e3 * trace.busy_s:.3f} ms")
+    print("\n".join(lines))
+    return dict(zip(("fwd", "bwd"), _launches()))
 
 
 LANES = 4  # phase 14's lanes, as every UCI configuration's restarts
@@ -3250,9 +3018,9 @@ def _lane_kernels(name, D_, N_, M_, E_, depth, device, seed):
     """14.1 at one shape: K1 and K2 launched once for LANES lanes (through
     the ops' vmap rules) against a one-lane launch of each lane (bitwise
     where the lane-batched launch picks the same tile, else the kernel
-    gates) and against the plain version; device ms of the batched launch
-    and of the LANES one-lane launches, the bound (LANES times one lane's)
-    and the share."""
+    gates) and against the plain version; device ms of the batched launch,
+    of the LANES one-lane launches and of the plain version over the lanes,
+    the bound (LANES times one lane's) and the share."""
     from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.testing import kernel_error, lane_inputs
 
@@ -3263,14 +3031,15 @@ def _lane_kernels(name, D_, N_, M_, E_, depth, device, seed):
     P = og.clamped_depth(depth, D_, E_)
     fwd = torch.vmap(og.oak_gram_fwd_op, in_dims=(0,) * 7 + (None,))
     bwd = torch.vmap(lambda *a: og.oak_gram_bwd_op(*a, depth, True), in_dims=(0,) * 8)
-    launches = (og.LAUNCHES, og.BWD_LAUNCHES)
+    before = _launches()
     with torch.no_grad():
         out = fwd(*inputs, depth)
         grads = bwd(*inputs, gbar)
     torch.cuda.synchronize()
-    if (og.LAUNCHES - launches[0], og.BWD_LAUNCHES - launches[1]) != (1, 1):
-        raise RuntimeError(f"14.1 {name}: {og.LAUNCHES - launches[0]} K1 and "
-                           f"{og.BWD_LAUNCHES - launches[1]} K2 launches for {LANES} lanes")
+    launched = tuple(a - b for a, b in zip(_launches(), before))
+    if launched != (1, 1):
+        raise RuntimeError(f"14.1 {name}: {launched[0]} K1 and {launched[1]} K2 launches for "
+                           f"{LANES} lanes")
     numbers, text = {}, []
     for kind, entry in (("K1", "oak_gram_fwd_tile"), ("K2", "oak_gram_bwd_tile")):
         same = og._variant(entry, P, N_, M_, device, LANES) == og._variant(entry, P, N_, M_,
@@ -3312,24 +3081,22 @@ def _lane_kernels(name, D_, N_, M_, E_, depth, device, seed):
         with torch.no_grad():
             # the one-lane launches' sum, each timed alone (the profiler has
             # dropped events of a call that launches several)
-            dev = {"lanes in turn": [], "batched": []}
-            for which in ("lanes in turn", "batched", "batched", "lanes in turn"):
-                dev[which].append(sum(_device_ms(f) for f in one_lane)
-                                  if which == "lanes in turn" else _device_ms(batched))
-            ev = _turns({"plain": plain_fn, "batched": batched},
-                        lambda fn: _cuda_ms(fn, TIMING_ITERS // 4))
-        bound, by, detail = gram_bound(kind, D_, N_, M_, E_, depth)
-        bound *= LANES
+            dev = {"plain": [], "lanes in turn": [], "batched": []}
+            for which in list(dev) + list(dev)[::-1]:
+                dev[which].append(sum(_busy_ms(f) for f in one_lane)
+                                  if which == "lanes in turn"
+                                  else _busy_ms(batched if which == "batched" else plain_fn))
+        work = _gram_work(kind, D_, N_, M_, E_, depth, LANES)
+        bound = 1e3 * work.bound_s()
         ms, singles_ms = float(np.mean(dev["batched"])), float(np.mean(dev["lanes in turn"]))
         numbers[kind] = dict(max_abs_err=err, device_ms=ms, lanes_in_turn_ms=singles_ms,
-                             ms=float(np.mean(ev["batched"])),
-                             plain_ms=float(np.mean(ev["plain"])), bound_ms=bound,
-                             bound_by=by, share=bound / ms, same_tile=same, lanes=LANES)
+                             plain_ms=float(np.mean(dev["plain"])), bound_ms=bound,
+                             bound_by=work.limiter(), share=bound / ms, same_tile=same,
+                             lanes=LANES)
         text.append(f"  {kind} {name} x{LANES} lanes: device {dev['batched']} ms batched vs "
-                    f"{dev['lanes in turn']} ms for {LANES} one-lane launches; CUDA events "
-                    f"{numbers[kind]['ms']:.4f} ms, plain over the lanes "
-                    f"{numbers[kind]['plain_ms']:.4f} ms; bound {bound:.4f} ms ({LANES} x "
-                    f"{detail}); share {bound / ms:.2f}; max abs err vs plain {err:.2e}; "
+                    f"{dev['lanes in turn']} ms for {LANES} one-lane launches, plain over the "
+                    f"lanes {dev['plain']} ms; {_bound_text(work)}; share {bound / ms:.2f}; "
+                    f"max abs err vs plain {err:.2e}; "
                     + ("each lane bitwise equal to a one-lane launch" if bitwise else
                        "the one-lane launch takes another tile: lanes held to it by the gates"))
     return numbers, text
@@ -3359,6 +3126,7 @@ def _in_turn_best(model, loss_fn, starts):
     return torch.stack(vecs), torch.stack(adam_losses, 1), values, its, gnorms
 
 
+@_recorded
 def phase_lanes(device):
     """Phase 14, a multistart's lanes as one batched program.
 
@@ -3371,8 +3139,7 @@ def phase_lanes(device):
     of the bench SVGP (create defaults) and of the pumadyn SGPR at LANES
     starts from ``_make_starts``, against the lanes one by one (value within
     1e-4 relative, gradient within 1e-3 of max |g|); one K1 and K2 launch
-    per gram for all lanes, and no vmap fallback warning; launches, host ms
-    and device ms of a warm batched Adam step against one lane's.
+    per gram for all lanes, and no vmap fallback warning.
     14.3 ``oak_model.optimise(max_iters=PUMA_ITERS, restarts=LANES)`` at
     phase 9's configuration, batched, against the same starts in turn
     (``_in_turn_best``): the first 5 warm Adam steps equal lane by lane
@@ -3384,7 +3151,6 @@ def phase_lanes(device):
     import warnings
 
     from oak_tpu_torch import oak_model
-    from oak_tpu_torch.ops import oak_gram as og
     from oak_tpu_torch.optim import fit
     from oak_tpu_torch.optim import multistart as ms
     from oak_tpu_torch.params import flatten_trainable
@@ -3395,8 +3161,8 @@ def phase_lanes(device):
         kernels[shape[0]], text = _lane_kernels(*shape, device, seed)
         rows.extend(text)
     print(f"phase 14.1 K1 and K2 over {LANES} lanes in one launch "
-          f"({time.perf_counter() - t0:.1f} s; device ms from torch.profiler, turns one-lane, "
-          f"batched, batched, one-lane):\n" + "\n".join(rows))
+          f"({time.perf_counter() - t0:.1f} s; device ms, benchmark/devtrace.py, in turns "
+          f"plain, one-lane, batched, batched, one-lane, plain):\n" + "\n".join(rows))
 
     t0 = time.perf_counter()
     Xtr, ytr, Xte, yte = pumadyn_fold0()
@@ -3414,15 +3180,15 @@ def phase_lanes(device):
             starts = ms._make_starts(flatten_trainable(model).detach(), LANES, 0.3, 0, True)
             lane_loss = fit.LaneLoss(model, loss_fn)
             lane_loss.value_and_grad(starts)  # warm
-            before = (og.LAUNCHES, og.BWD_LAUNCHES)
+            before = _launches()
             fit.value_and_grad(model, loss_fn, starts[0])
-            one = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
-            before = (og.LAUNCHES, og.BWD_LAUNCHES)
+            middle = _launches()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 values, grads = lane_loss.value_and_grad(starts)
                 torch.cuda.synchronize()
-            batched = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+            one = tuple(a - b for a, b in zip(middle, before))
+            batched = tuple(a - b for a, b in zip(_launches(), middle))
             fallback = [str(w.message) for w in caught if "allback" in str(w.message)]
             if batched != one or 0 in one or fallback:
                 raise RuntimeError(f"14.2 {name}: K1, K2 launches {batched} for {LANES} lanes "
@@ -3436,29 +3202,11 @@ def phase_lanes(device):
                 raise RuntimeError(f"14.2 {name}: batched vs in turn, value {v_err:.2e} "
                                    f"(tol {LANE_LOSS_TOL}), gradient {g_err:.2e} (tol "
                                    f"{LANE_GRAD_TOL})")
-            vecs = starts.clone().requires_grad_(True)
-            opt = fit.adam(vecs)
-            vec = starts[0].clone().requires_grad_(True)
-            opt1 = fit.adam(vec)
-
-            def batched_step():
-                vecs.grad = fit.finite_or_zero(lane_loss.value_and_grad(vecs)[1])
-                opt.step()
-
-            steps = {"batched": batched_step,
-                     "one lane": lambda: fit._adam_step(model, loss_fn, vec, opt1)}
-            timing = {}
-            for label, fn in steps.items():
-                launches, device_ms = _launches_device_ms(fn)
-                timing[label] = (launches, _host_ms(fn, GROUPED_REPEATS), device_ms)
             lines.append(
                 f"phase 14.2 {name}: {LANES} lanes batched vs one by one: value {v_err:.2e} "
                 f"(tol {LANE_LOSS_TOL}), gradient {g_err:.2e} of max |g| (tol "
                 f"{LANE_GRAD_TOL}); K1, K2 launches {batched} per value_and_grad for all "
-                f"lanes ({one} for one); no vmap fallback warning; a warm Adam step of "
-                + ", ".join(f"{k}: {n} kernel launches, host {h:.3f} ms (sync, median of "
-                            f"{GROUPED_REPEATS}), device {d:.3f} ms"
-                            for k, (n, h, d) in timing.items()))
+                f"lanes ({one} for one); no vmap fallback warning")
     finally:
         torch._C._functorch._set_vmap_fallback_warning_enabled(False)
     print("\n".join(lines) + f"\nphase 14.2 took {time.perf_counter() - t0:.1f} s")
@@ -3484,7 +3232,7 @@ def phase_lanes(device):
 
     ms.adam_best, fit._evaluate, fit.lbfgs_step = (recording_adam_best, recording_evaluate,
                                                    recording_step)
-    og.LAUNCHES = og.BWD_LAUNCHES = 0
+    before = _launches()
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3493,7 +3241,7 @@ def phase_lanes(device):
         batched_s = time.perf_counter() - t
     finally:
         ms.adam_best, fit._evaluate, fit.lbfgs_step = adam_best, evaluate, lbfgs_step
-    launches = {"fwd": og.LAUNCHES, "bwd": og.BWD_LAUNCHES}
+    launches = dict(zip(("fwd", "bwd"), (a - b for a, b in zip(_launches(), before))))
     lanes = res.losses.numpy()
     rmse = float(np.sqrt(np.mean((oak.predict(Xte, clip=True) - yte[:, 0]) ** 2)))
     std = float(yte.std())
@@ -3542,259 +3290,8 @@ def phase_lanes(device):
     return launches, kernels, dict(batched_s=batched_s, in_turn_s=turn_s)
 
 
-# prefixed "package_" to the names of --profile's tables under --package
-PROFILE_PREFIX = ""
-
-
-def _host_ms(fn, repeats):
-    """Median host-clock ms of fn() with the card synchronized on both ends."""
-    times = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times))
-
-
-def profile(model, X, device, rows=(1, 8192), repeats=7):
-    """Where a warm predict_y request's time goes, rows already on the card:
-    the host clock (median of ``repeats``) over the request and its parts,
-    then torch.profiler over one request for its kernel launches and the
-    device time. The profiler's tables go to chiprun_out/."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    from oak_tpu_torch.ops import oak_gram as og
-    from oak_tpu_torch.ops.psd import safe_cholesky, solve_lower
-
-    out_dir = REPO / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    kern = model.kernel
-    with torch.no_grad():
-        Z = model.Z.value
-        Kuu = kern.K(Z)
-        Luu, jitter = safe_cholesky(Kuu)
-        print(f"profile: safe_cholesky(Kuu) settles at jitter {jitter:g}; linalg "
-              f"library {torch.backends.cuda.preferred_linalg_library()}")
-        for b in rows:
-            Xb = torch.from_numpy(X[:b]).to(device)
-            Kus = kern.K(Z, Xb)
-            parts = {"predict_y": lambda: model.predict_y(Xb),
-                     "K(Z) (Kuu, fused)": lambda: kern.K(Z),
-                     "K(Z, X) (Kus, fused)": lambda: kern.K(Z, Xb),
-                     "_prep(Z, X)": lambda: og._prep(kern, Z, Xb),
-                     "K_diag(X)": lambda: kern.K_diag(Xb),
-                     "safe_cholesky(Kuu)": lambda: safe_cholesky(Kuu),
-                     "solve_lower(Luu, Kus)": lambda: solve_lower(Luu, Kus)}
-            for fn in parts.values():  # warm-up
-                fn()
-            ms = {name: _host_ms(fn, repeats) for name, fn in parts.items()}
-            with torch_profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as prof:
-                model.predict_y(Xb)
-                torch.cuda.synchronize()
-            events = prof.key_averages()
-            launches, device_ms = _launches_and_device_ms(events)
-            table = events.table(sort_by="count", row_limit=60)
-            (out_dir / f"{PROFILE_PREFIX}profile_predict_{b}.txt").write_text(table)
-            print(f"profile {b} rows (host ms, median of {repeats}): "
-                  + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
-                  + f"; profiled request: {launches} kernel launches, device time "
-                  f"{device_ms:.3f} ms; table in {out_dir.name}/{PROFILE_PREFIX}profile_predict_{b}.txt")
-
-
-def profile_training(device, repeats=7):
-    """Where a warm fit_adam step's time goes, on the bench model as
-    bench.py builds it: the host clock (median of ``repeats``, synchronised)
-    over the step and its parts, then torch.profiler over one step. The
-    profiler's table goes to chiprun_out/profile_train_step.txt."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    from oak_tpu_torch import params as tp
-    from oak_tpu_torch.ops import oak_gram as og
-    from oak_tpu_torch.optim import fit
-
-    model, X, Y = build_bench_model(device)
-    vec = fit._leaf(model)
-    opt = fit.adam(vec)
-
-    def loss_fn(m):
-        return m.training_loss(X, Y)
-
-    Z = model.Z.value.detach()
-    kern = model.kernel
-    kuf_leaves = [t.detach().requires_grad_(True) for t in og._prep(kern, Z, X)]
-    g_kuf = torch.ones((M, N), device=device)
-    parts = {
-        "fit_adam step": lambda: fit._adam_step(model, loss_fn, vec, opt),
-        "loss forward (graph built)": lambda: tp.call_with(
-            model, tp.unflatten_trainable(model, vec.detach().requires_grad_(True)), loss_fn),
-        "loss + gradient": lambda: fit.value_and_grad(model, loss_fn, vec),
-        "_prep(Z, X) forward": lambda: og._prep(kern, Z, X),
-        "Kuf gram forward+backward (kernels)": lambda: torch.autograd.grad(
-            og.oak_gram_fused(*kuf_leaves, DEPTH), kuf_leaves, g_kuf, allow_unused=True),
-        "K_diag(X) forward": lambda: kern.K_diag(X),
-    }
-    for fn in parts.values():  # warm-up
-        fn()
-    ms = {name: _host_ms(fn, repeats) for name, fn in parts.items()}
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fit._adam_step(model, loss_fn, vec, opt)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    launches, device_ms = _launches_and_device_ms(events)
-    ours = {e.key: e.self_device_time_total / 1e3 for e in events
-            if e.device_type == DeviceType.CUDA and "oak_gram" in e.key}
-    out_dir = REPO / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / f"{PROFILE_PREFIX}profile_train_step.txt").write_text(
-        events.table(sort_by="count", row_limit=80))
-    print(f"profile training step (host ms, median of {repeats}): "
-          + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
-          + f"; profiled step: {launches} kernel launches, device time {device_ms:.3f} ms, "
-          + "of which " + ", ".join(f"{k.split('<')[0]} {v:.3f} ms" for k, v in ours.items())
-          + f"; table in {out_dir.name}/{PROFILE_PREFIX}profile_train_step.txt")
-
-
-def profile_sobol(model, device, repeats=5):
-    """Where a full Sobol decomposition's time goes, on the predict phase's
-    model (all dims on the factor route, so orders 1-2 take the factor forms
-    and order 3 the ladder): the host clock (median of ``repeats``,
-    synchronised) over the whole and its parts, then torch.profiler over one
-    decomposition. The profiler's table goes to chiprun_out/profile_sobol.txt."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    from oak_tpu_torch import sobol as sb
-    from oak_tpu_torch.kernels import component_index_tuples
-
-    oak = model.kernel
-    with torch.no_grad():
-        Z = model.Z.value
-        a = model.posterior_alpha()[:, 0]
-        tuples = component_index_tuples(D, DEPTH)[1:]
-        pairs = [t for t in tuples if len(t) == 2]
-        Fs, Ws = sb._factor_stack(oak, Z)
-        Lstack = sb._dim_L_stack(oak, Z)
-        parts = sb._factor_quadforms(sb._factor_sums(Fs, a, pairs), Ws, pairs)
-        parts["RH"] = sb._ladder_quadforms(Lstack, a, D, DEPTH)[3]
-        steps = {"compute_sobol_oak": lambda: sb.compute_sobol_oak(model),
-                 "posterior_alpha": lambda: model.posterior_alpha(),
-                 "routing (one host read)": lambda: sb._factor_routing(oak),
-                 "factor forms build (_factor_stack)": lambda: sb._factor_stack(oak, Z),
-                 "orders 1-2 factor quadratic forms": lambda: sb._factor_quadforms(
-                     sb._factor_sums(Fs, a, pairs), Ws, pairs),
-                 "L stack build (_dim_L_stack)": lambda: sb._dim_L_stack(oak, Z),
-                 "order 3, prefix ladder": lambda: sb._ladder_quadforms(
-                     Lstack, a, D, DEPTH),
-                 "assembly (_assemble)": lambda: sb._assemble(parts, tuples, True, oak,
-                                                              device)}
-        for fn in steps.values():  # warm-up
-            fn()
-        ms = {name: _host_ms(fn, repeats) for name, fn in steps.items()}
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sb.compute_sobol_oak(model)
-            torch.cuda.synchronize()
-    events = prof.key_averages()
-    launches, device_ms = _launches_and_device_ms(events)
-    out_dir = REPO / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / f"{PROFILE_PREFIX}profile_sobol.txt").write_text(
-        events.table(sort_by="self_cuda_time_total", row_limit=60))
-    print(f"profile Sobol, {len(tuples)} components (host ms, median of {repeats}): "
-          + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
-          + f"; profiled decomposition: {launches} kernel launches, device time "
-          f"{device_ms:.3f} ms; table in {out_dir.name}/{PROFILE_PREFIX}profile_sobol.txt")
-
-
-def profile_serving(repeats=7):
-    """Where a warm served request's time goes: phase 10.2's (mean, std)
-    artifact of oak_tpu's committed pumadyn fold 0, its compiled package
-    beside its torch.export program, at 1 and 1639 of its test rows, numpy
-    in, the mean on the host: host ms (synchronised, median of
-    ``repeats``), kernel launches and device ms of one request
-    (torch.profiler)."""
-    from oak_tpu_torch import deserialize_predict, load_oak_model, serialize_predict
-
-    oak = load_oak_model(COMMITTED / "pumadyn" / "model_oak_0.npz")
-    _, _, Xte, _ = pumadyn_fold0()
-    t0 = time.perf_counter()
-    package = deserialize_predict(serialize_predict(oak, include_var=True))
-    print(f"profile served request: the package compiled in {time.perf_counter() - t0:.1f} s")
-    program = deserialize_predict(_program_blob(oak, include_var=True))
-    for rows in (1, len(Xte)):
-        for what, served in (("package", package), ("program", program)):
-            def request():
-                return served(Xte[:rows])[0].cpu()
-
-            launches, device_ms = _launches_device_ms(request)
-            print(f"profile served request, (mean, std) {what}, {rows} rows: host "
-                  f"{_host_ms(request, repeats):.3f} ms (sync, median of {repeats}); "
-                  f"{launches} kernel launches, device time {device_ms:.3f} ms")
-
-
-class _RankRows:
-    """Rank 0 of a world of ``size`` in one process: its block of rows
-    (parallel.mesh.Axis.rows) and an all-reduce that returns its input, so
-    the sharded Sobol allocates what one rank of phase 12 allocates."""
-
-    def __init__(self, size):
-        self.size = size
-
-    def rows(self, n):
-        q, r = divmod(n, self.size)
-        return slice(0, q + (r > 0))
-
-    def all_reduce(self, t):
-        return t.detach().clone()
-
-
-def profile_sobol_memory(model, X, device):
-    """Peak device memory of phase 5's Sobol calls (compute_sobol_oak,
-    compute_sobol_by_order and COMPONENT_ROWS rows' components, on the
-    predict phase's model) and of phase 12's GPR Sobol and per-order totals
-    per rank at worlds 1, 2 and 4 (rank 0's share, _RankRows)."""
-    from oak_tpu_torch import sobol as sb
-
-    Xd = torch.as_tensor(X[:COMPONENT_ROWS], device=device)
-    p5 = _peak_gb(lambda: (sb.compute_sobol_oak(model), sb.compute_sobol_by_order(model),
-                           sb.get_prediction_component(model, X=Xd)))
-    gpr = build_gpr_model(device)
-    axis, parts = sb._axis, []
-    try:
-        sb._axis = lambda world: None if world is None else _RankRows(world)
-        for world in (None, 2, 4):
-            full = _peak_gb(lambda: sb.compute_sobol_oak(gpr, mesh=world))
-            by_order = _peak_gb(lambda: sb.compute_sobol_by_order(gpr, mesh=world))
-            parts.append(f"world {world or 1} Sobol {full:.3f} GB, per-order totals "
-                         f"{by_order:.3f} GB")
-    finally:
-        sb._axis = axis
-    print(f"profile Sobol peak memory: phase 5's calls {p5:.3f} GB; phase 12's GPR per rank: "
-          + "; ".join(parts))
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="instead of phases 2-14, print where a warm predict_y "
-                             "request's, a warm training step's, a full Sobol "
-                             "decomposition's and a served request's time goes (host "
-                             "clock and torch.profiler), and the Sobol calls' peak memory")
-    parser.add_argument("--old", metavar="DIR",
-                        help="a directory holding an earlier tree's csrc/*.cu with the C "
-                             "interface before the redesign (git show "
-                             "ef6e3b3:oak_tpu_torch/csrc/oak_gram_fwd.cu, and _bwd.cu), "
-                             "an earlier ops/oak_gram_triton.py (git show "
-                             "4328220:oak_tpu_torch/ops/oak_gram_triton.py), or both: "
-                             "phases 2, 2b and 10.4 time them in turns with these")
-    parser.add_argument("--package", metavar="DIR",
-                        help="with --profile: import oak_tpu_torch from DIR (an earlier "
-                             "tree unpacked there), to profile it with this script")
     parser.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD", "DIR", "BACKEND"),
                         help="run one rank of a phase-12 job (phase_parallel starts them)")
     parser.add_argument("--compile-served", metavar="DIR",
@@ -3807,27 +3304,11 @@ def main():
     if args.compile_served:
         compile_served(args.compile_served)
         return
-    if args.package:
-        if not args.profile:
-            parser.error("--package goes with --profile")
-        sys.path.insert(0, str(Path(args.package).resolve()))
-        global PROFILE_PREFIX
-        PROFILE_PREFIX = "package_"
     t0 = time.perf_counter()
     phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     model, X = build_model(device)
-    if args.profile:
-        import oak_tpu_torch
-
-        print(f"profile of {Path(oak_tpu_torch.__file__).parent}")
-        profile(model, X, device)
-        profile_training(device)
-        profile_sobol(model, device)
-        profile_serving()
-        profile_sobol_memory(model, X, device)
-        return
     seconds = {"0-1": time.perf_counter() - t0}
 
     def timed(name, fn, *fn_args):
@@ -3841,9 +3322,8 @@ def main():
     compiles = _CompileServed()
     try:
         gpr = build_gpr_model(device)
-        old = _old_kernels(args.old) if args.old else dict(fwd=None, bwd=None, triton=None)
-        kernel = timed("2", phase_kernel, model, X, gpr, device, old)
-        kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device, old)
+        kernel = timed("2", phase_kernel, model, X, gpr, device)
+        kernel_bwd = timed("2b", phase_kernel_bwd, model, X, gpr, device)
         solve = timed("2c", phase_solve, device)
         del gpr
         predict_launches = timed("3", phase_main_path, model, X, device)
@@ -3854,11 +3334,10 @@ def main():
         gpr_launches = timed("7", phase_gpr, device)
         timed("8", phase_defaults, device)
         oak_launches, oak_kernels = timed("9", phase_oak_model, device)
-        committed_launches, served, triton = timed("10", phase_committed, device, compiles,
-                                                     old["triton"])
+        committed_launches, triton = timed("10", phase_committed, device, compiles)
         surface_launches = timed("11", phase_surface, device)
         parallel_launches = timed("12", phase_parallel, device)
-        grouped_launches = timed("13", phase_grouped, device, served)
+        grouped_launches = timed("13", phase_grouped, device)
         lanes_launches, lanes_kernels, _ = timed("14", phase_lanes, device)
     finally:
         compiles.close()
@@ -3866,39 +3345,35 @@ def main():
           f"total {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, launches, numbers, depth8, kind):
-        # at Kus / Kuf: ms is the CUDA-event time over 20 launches, device_ms
-        # torch.profiler's kernel time per launch, plain_ms the plain version's
-        # CUDA-event time; no PyTorch call computes the fused gram. The same
-        # numbers at phase 9's depth-8 Kuf under "kuf_depth8", and one launch
-        # for phase 14's LANES lanes at its two Kuf shapes under "lanes"
+        # at Kus / Kuf: device_ms the kernel's device time per launch,
+        # plain_ms the plain version's, bound_ms benchmark/roofline.py's; no
+        # PyTorch call computes the fused gram. The same numbers at phase 9's
+        # depth-8 Kuf under "kuf_depth8", and one launch for phase 14's LANES
+        # lanes at its two Kuf shapes under "lanes"
         n = numbers["Kus/Kuf 512x8192"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": n["max_abs_err"], "ms": n["event_ms"],
+                "launches": launches, "max_abs_err": n["max_abs_err"],
                 "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
-                "library_ms": None, "old_device_ms": n["old_device_ms"],
-                "kuf_depth8": {k: depth8[k] for k in ("max_abs_err", "event_ms", "device_ms",
-                                                      "plain_ms", "bound_ms", "bound_by",
-                                                      "share")},
+                "library_ms": None,
+                "kuf_depth8": {k: depth8[k] for k in ("max_abs_err", "device_ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "share")},
                 "lanes": {shape: lanes_kernels[shape][kind] for shape in lanes_kernels}}
 
     def triton_entry(launches, n, shapes):
         # the Triton K1 in the compiled packages: launches counted by name in
         # phase 10.2's profiled package requests (the package launches it
-        # from C++); ms, device_ms, plain_ms at the bench's Kus as above,
-        # old_device_ms the earlier tree's (--old; else null), and the same
-        # at the other timed shapes (the bench's Kus at depths 16 and 32,
-        # pumadyn's and heart's served Kus) under "shapes"
-        keys = ("event_ms", "device_ms", "k1_device_ms", "old_device_ms", "plain_ms",
-                "bound_ms", "bound_by", "share")
+        # from C++); device_ms, plain_ms at the bench's Kus as above, and the
+        # same at the other timed shapes (the bench's Kus at depths 16 and
+        # 32, pumadyn's and heart's served Kus) under "shapes"
+        keys = ("device_ms", "k1_ms", "plain_ms", "bound_ms", "bound_by", "share")
         return {"name": "oak_gram_fwd_triton_kernel", "route": "triton",
                 "source": "oak_tpu_torch/ops/oak_gram_triton.py",
                 "replaces": "oak_tpu/ops/oak_gram_pallas.py:63", "launches": launches,
-                "max_abs_err": n["max_abs_err"], "ms": n["event_ms"],
+                "max_abs_err": n["max_abs_err"],
                 "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
-                "library_ms": None, "k1_device_ms": n["k1_device_ms"],
-                "old_device_ms": n["old_device_ms"],
+                "library_ms": None, "k1_ms": n["k1_ms"],
                 "shapes": {name: {k: v[k] for k in keys} for name, v in shapes.items()}}
 
     def solve_entry(numbers, launches):
@@ -3909,7 +3384,7 @@ def main():
         n = numbers["svgp32 512x8192 forward"]
         return {"name": "tri_solve_f32", "route": "cuda",
                 "source": "oak_tpu_torch/csrc/tri_solve.cu", "replaces": None,
-                "launches": launches, "max_abs_err": None, "ms": n["event_ms"],
+                "launches": launches, "max_abs_err": None,
                 "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
                 "library_ms": n["library_ms"], "shapes": numbers}

@@ -48,13 +48,6 @@ from .. import _build
 from ..utils import profiling
 from .newton_girard import newton_girard
 
-# Launches of the forward and the backward CUDA kernel in this process; a run
-# resets them to 0 and reads them afterwards to show that its path went
-# through the kernels. The same launches count as ``k1.launches`` and
-# ``k2.launches`` in ``utils.profiling``'s counters while a session records.
-LAUNCHES = 0
-BWD_LAUNCHES = 0
-
 # Deepest clamped depth min(depth, D + E) the kernels take
 # (csrc/oak_gram_common.cuh kMaxDepth): e_n of D + E grams is 0 for
 # n > D + E, so a deeper model loses nothing by the clamp.
@@ -343,7 +336,6 @@ def _launch_fwd(inputs: Sequence[torch.Tensor], depth: int, lanes: int = 0,
     """``oak_gram_fwd_f32`` at the clamped depth and the tile ``pick_tile``
     chooses, after ``_check_cuda_inputs``: the gram [N, M], or with
     ``lanes`` > 0 the lane-batched grams [lanes, N, M] in one launch."""
-    global LAUNCHES
     strides = _check_cuda_inputs(inputs, depth, lanes, batched)
     u1, u2, c1, c2, extra, logb, sig2 = inputs
     (D, N), M = u1.shape[-2:], u2.shape[-1]
@@ -363,7 +355,6 @@ def _launch_fwd(inputs: Sequence[torch.Tensor], depth: int, lanes: int = 0,
             D, N, M, E, P, variant, L, _strides(strides), _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_fwd_f32 launch failed with cudaError {rc}")
-    LAUNCHES += 1
     profiling.count("k1.launches")
     _count_extra(E * L)
     return out
@@ -382,10 +373,10 @@ def oak_gram_fwd_op(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor,
                     c2: torch.Tensor, extra: torch.Tensor, logb: torch.Tensor,
                     sig2: torch.Tensor, depth: int) -> torch.Tensor:
     """The gram [N, M] as a registered op: on CUDA tensors the forward
-    kernel (checked, then launched; ``LAUNCHES`` counts it), on CPU tensors
-    ``oak_gram_plain``. No autograd of its own: ``FusedGram`` gives it one.
-    Under ``torch.func.vmap`` its rule launches the kernel once for every
-    lane."""
+    kernel (checked, then launched; the counter ``k1.launches`` counts it),
+    on CPU tensors ``oak_gram_plain``. No autograd of its own: ``FusedGram``
+    gives it one. Under ``torch.func.vmap`` its rule launches the kernel
+    once for every lane."""
     return _launch_fwd((u1, u2, c1, c2, extra, logb, sig2), depth)
 
 
@@ -428,7 +419,6 @@ def _launch_bwd(inputs: Sequence[torch.Tensor], depth: int, with_dextra: bool,
     reports, and its second kernel sums them in a fixed order. With
     ``lanes`` > 0 every cotangent carries a leading lane axis, all lanes in
     one launch. dextra is an empty placeholder without ``with_dextra``."""
-    global BWD_LAUNCHES
     strides = _check_cuda_inputs(inputs, depth, lanes, batched)
     u1, u2, c1, c2, extra, logb, sig2, gbar = inputs
     (D, N), M = u1.shape[-2:], u2.shape[-1]
@@ -464,7 +454,6 @@ def _launch_bwd(inputs: Sequence[torch.Tensor], depth: int, with_dextra: bool,
             D, N, M, E, P, variant, L, _strides(strides), _stream(u1))
     if rc != 0:
         raise RuntimeError(f"oak_gram_bwd_f32 launch failed with cudaError {rc}")
-    BWD_LAUNCHES += 1
     profiling.count("k2.launches")
     if P < depth:
         # orders above the clamped depth have e_n = 0, so their cotangent is 0
@@ -482,9 +471,10 @@ def oak_gram_bwd_op(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor,
                                                 torch.Tensor]:
     """The cotangents (du1, du2, dc1, dc2, dextra, dlogb, dsig2) of the gram
     for ``gbar`` as a registered op: on CUDA tensors the backward kernel
-    (``BWD_LAUNCHES`` counts it), on CPU tensors ``oak_gram_bwd_plain``;
-    dextra is an empty placeholder without ``with_dextra``. Under
-    ``torch.func.vmap`` its rule launches the kernel once for every lane."""
+    (the counter ``k2.launches`` counts it), on CPU tensors
+    ``oak_gram_bwd_plain``; dextra is an empty placeholder without
+    ``with_dextra``. Under ``torch.func.vmap`` its rule launches the kernel
+    once for every lane."""
     return _launch_bwd((u1, u2, c1, c2, extra, logb, sig2, gbar), depth, with_dextra)
 
 

@@ -23,7 +23,7 @@ kernel remains the gram of every live path.
 What bounds it on this card: as csrc/oak_gram_fwd.cu, per (element, dim)
 one ex2 and 3 + P FP32 operations while only O((N + M) D + (E + 1) N M)
 bytes move, so the ex2 units bound it at depth <= 4 and the FP32 lanes
-deeper (``chip_smoke.gram_bound``). With no shared memory of its own, a
+deeper (``benchmark/roofline.py``'s ``k1``). With no shared memory of its own, a
 program also issues each thread's loads and prescales of its rows' and
 columns' u and c every dim, which the tiles keep to about one instruction
 an output.
@@ -71,12 +71,6 @@ import torch
 
 from ..utils import profiling
 from . import oak_gram as og
-
-# Launches of the Triton kernel by the eager op in this process, also
-# ``k1_triton.launches`` in ``utils.profiling``'s counters while a session
-# records. The compiled package launches its copy from C++, which no counter
-# here sees: torch.profiler's kernel names count those.
-LAUNCHES = 0
 
 # Its name, as it shows in torch.profiler's kernel names.
 KERNEL_NAME = "oak_gram_fwd_triton_kernel"
@@ -394,21 +388,20 @@ def _traced(u1: torch.Tensor, u2: torch.Tensor, c1: torch.Tensor, c2: torch.Tens
 oak_gram_triton_op = _register()
 oak_gram_triton_op.__doc__ = """The gram [N, M] from prescaled inputs as the
 registered op ``oak_tpu_torch::oak_gram_triton``: on CUDA tensors the Triton
-kernel (checked, then launched; ``LAUNCHES`` counts it), on CPU tensors
-``oak_gram.oak_gram_plain``. Same inputs and contract as
+kernel (checked, then launched; the counter ``k1_triton.launches`` counts
+it; the compiled package launches its copy from C++, which torch.profiler's
+kernel names count), on CPU tensors ``oak_gram.oak_gram_plain``. Same inputs and contract as
 ``oak_gram.oak_gram_fwd_op``; no autograd (serving takes no gradient)."""
 
 
 @oak_gram_triton_op.register_kernel("cuda")
 def _cuda(u1, u2, c1, c2, extra, logb, sig2, depth):
-    global LAUNCHES
     inputs = (u1, u2, c1, c2, extra, logb, sig2)
     if u1.shape[1] == 0 or u2.shape[1] == 0:
         og._check_cuda_inputs(inputs, depth)
         return u1.new_empty((u1.shape[1], u2.shape[1]))
     with torch.cuda.device(u1.device):
         out = _launch(inputs, depth, traced=False)
-    LAUNCHES += 1
     profiling.count("k1_triton.launches")
     return out
 

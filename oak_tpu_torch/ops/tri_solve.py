@@ -27,11 +27,6 @@ import torch
 from .. import _build
 from ..utils import profiling
 
-# Solves the CUDA kernel ran in this process (its diagonal blocks' inversion
-# and its panel kernel count once); also the counter ``solve.launches`` in
-# ``utils.profiling`` while a session records.
-SOLVE_LAUNCHES = 0
-
 
 def tri_solve_plain(L: torch.Tensor, B: torch.Tensor, transpose: bool = False) -> torch.Tensor:
     """L⁻¹B, or L⁻ᵀB with ``transpose``, for lower-triangular L, in any
@@ -94,7 +89,6 @@ def _launch(L: torch.Tensor, B: torch.Tensor, transpose: bool, lanes: int = 0,
     leading lane axis where ``batched`` says so and shared by every lane
     otherwise. An L too tall for the kernel's shared memory is split in
     two, the off-diagonal block's product by ``torch.matmul``."""
-    global SOLVE_LAUNCHES
     _check(L, B, lanes, batched)
     M, N = L.shape[-1], B.shape[-1]
     lanes_L = lanes if lanes and batched[0] else 1
@@ -116,7 +110,6 @@ def _launch(L: torch.Tensor, B: torch.Tensor, transpose: bool, lanes: int = 0,
             torch.cuda.current_stream(B.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"oak_tri_solve_f32 launch failed with cudaError {rc}")
-    SOLVE_LAUNCHES += 1
     profiling.count("solve.launches")
     return out
 
@@ -163,7 +156,8 @@ def tri_solve_op(L: torch.Tensor, B: torch.Tensor, transpose: bool) -> torch.Ten
     """L⁻¹B, or L⁻ᵀB with ``transpose``, for lower-triangular L [..., M, M]
     and B [..., M, N] whose leading dims broadcast, as a registered op: on
     CUDA tensors the kernel, one launch for every matrix of the leading dims
-    (float32, or raise; ``SOLVE_LAUNCHES`` counts it), on CPU tensors
+    (float32, or raise; the counter ``solve.launches`` counts it, its
+    diagonal blocks' inversion and its panel kernel once), on CPU tensors
     ``tri_solve_plain``. No autograd of its own: ``TriSolve`` gives it one.
     Under ``torch.func.vmap`` its rule folds the lanes into that launch."""
     return _folded(L, B, transpose)

@@ -1,6 +1,7 @@
 """Inputs for checking the fused gram kernels, forward and backward, against
-their plain versions on the card: one generator, one list of cases and one
-acceptance rule, shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``."""
+their plain versions on the card: one generator, one list of cases, one
+acceptance rule and the reading of the launch counters, shared by
+``chip_smoke.py`` and the tests."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .utils import profiling
+
 # (name, D, N, M, E, depth): a ragged shape, a mixed case with two extra
 # grams, every depth with its own kernel template (1..8), and the deep
 # variants' buckets (9..16, 17..32) at D = 32
@@ -16,6 +19,14 @@ KERNEL_CASES = [("ragged 1000x77", 32, 1000, 77, 0, 3),
                 ("mixed E=2", 30, 300, 200, 2, 3)] + \
     [(f"P={p}", 32, 300, 200, 0, p) for p in range(1, 9)] + \
     [(f"P={p}", 32, 300, 200, 0, p) for p in (9, 12, 16, 32)]
+
+
+def counted(name: str) -> int:
+    """The counter ``name`` (``k1.launches``, ``k2.launches``,
+    ``solve.launches``, ``k1_triton.launches``, ...) of the session that
+    records (``utils.profiling.recording()``), so far; 0 where nothing
+    counted it."""
+    return profiling.record().counters.get(name, 0)
 
 
 def kernel_error(out: torch.Tensor, plain: torch.Tensor,

@@ -18,8 +18,9 @@ from oak_tpu_torch.kernels import OAKKernel
 from oak_tpu_torch.models import SVGP, Gaussian
 from oak_tpu_torch.ops import oak_gram as og
 from oak_tpu_torch.ops import oak_gram_triton as ogt
-from oak_tpu_torch.testing import (KERNEL_CASES, SQUARE_CASE, kernel_error, prescaled_inputs,
-                                   square_inputs)
+from oak_tpu_torch.testing import (KERNEL_CASES, SQUARE_CASE, counted, kernel_error,
+                                   prescaled_inputs, square_inputs)
+from oak_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -46,10 +47,10 @@ CASES = [("Kus 512x8192", 32, 512, 8192, 0, 3),
 @pytest.mark.parametrize("name,D,N,M,E,depth", CASES, ids=[c[0] for c in CASES])
 def test_kernel_matches_plain(cuda, name, D, N, M, E, depth):
     args = prescaled_inputs(61, D, N, M, E, depth, cuda)
-    before = og.LAUNCHES
-    out = og.oak_gram_fused(*args, depth)
-    torch.cuda.synchronize()
-    assert og.LAUNCHES == before + 1
+    with profiling.recording():
+        out = og.oak_gram_fused(*args, depth)
+        torch.cuda.synchronize()
+    assert counted("k1.launches") == 1
     ref = og.oak_gram_plain(*args, depth)
     ref64 = og.oak_gram_plain(*[a.double() for a in args], depth)
     assert out.shape == (N, M) and torch.isfinite(out).all()
@@ -65,11 +66,11 @@ def test_bwd_kernel_matches_plain(cuda, name, D, N, M, E, depth):
     args = prescaled_inputs(65, D, N, M, E, depth, cuda)
     gbar = torch.as_tensor(np.random.default_rng(66).normal(size=(N, M)),
                            dtype=torch.float32, device=cuda)
-    before = og.BWD_LAUNCHES
-    ours = og.oak_gram_bwd(*args, gbar, depth)
-    again = og.oak_gram_bwd(*args, gbar, depth)
-    torch.cuda.synchronize()
-    assert og.BWD_LAUNCHES == before + 2
+    with profiling.recording():
+        ours = og.oak_gram_bwd(*args, gbar, depth)
+        again = og.oak_gram_bwd(*args, gbar, depth)
+        torch.cuda.synchronize()
+    assert counted("k2.launches") == 2
     assert all(torch.equal(o, a) for o, a in zip(ours, again))
     leaves = [a.clone().requires_grad_(True) for a in args]
     auto = torch.autograd.grad(og.oak_gram_plain(*leaves, depth), leaves, gbar,
@@ -110,13 +111,12 @@ def test_oak_kernel_K_routes_through_kernel(cuda):
                          device=cuda)
     X = torch.as_tensor(np.random.default_rng(63).normal(size=(300, 6)),
                         dtype=torch.float32, device=cuda)
-    with torch.no_grad():
-        before = og.LAUNCHES
+    with torch.no_grad(), profiling.recording():
         K = k.K(X[:100], X)
         torch.cuda.synchronize()
-        assert og.LAUNCHES == before + 1
+        assert counted("k1.launches") == 1
         K64 = k.double().K(X[:100].double(), X.double())
-        assert og.LAUNCHES == before + 1
+        assert counted("k1.launches") == 1
     err = float((K.double() - K64).abs().max() / K64.abs().max())
     assert err < TOL, err
 
@@ -130,11 +130,10 @@ def test_oak_kernel_K_deeper_than_8_runs_the_kernel(cuda):
     X = torch.as_tensor(np.random.default_rng(64).normal(size=(200, 10)),
                         dtype=torch.float32, device=cuda)
     assert og.supports_fused(k)
-    with torch.no_grad():
-        before = og.LAUNCHES
+    with torch.no_grad(), profiling.recording():
         K = k.K(X[:50], X)
         torch.cuda.synchronize()
-        assert og.LAUNCHES == before + 1
+        assert counted("k1.launches") == 1
         K64 = k.double().K(X[:50].double(), X.double())
     err = float((K.double() - K64).abs().max() / K64.abs().max())
     assert err < TOL, err
@@ -147,11 +146,10 @@ def test_defaults_build_on_the_card_in_float32(cuda):
     assert {(p.dtype, p.device.type) for p in k.parameters()} == {(torch.float32, "cuda")}
     X = torch.as_tensor(np.random.default_rng(72).normal(size=(64, 32)),
                         dtype=torch.float32, device=cuda)
-    with torch.no_grad():
-        before = og.LAUNCHES
+    with torch.no_grad(), profiling.recording():
         K = k.K(X)
         torch.cuda.synchronize()
-    assert og.LAUNCHES == before + 1 and torch.isfinite(K).all()
+    assert counted("k1.launches") == 1 and torch.isfinite(K).all()
 
 
 def test_oak_kernel_K_gradient_through_kernels(cuda):
@@ -173,12 +171,12 @@ def test_oak_kernel_K_gradient_through_kernels(cuda):
         raws = [p for p in kern.parameters() if p.requires_grad]
         return K, torch.autograd.grad((K * G.to(dtype)).sum(), [Xt] + raws)
 
-    before, bwd_before = og.LAUNCHES, og.BWD_LAUNCHES
-    K, g32 = grads(k, torch.float32)
-    torch.cuda.synchronize()
-    assert og.LAUNCHES == before + 1 and og.BWD_LAUNCHES == bwd_before + 1
-    K64, g64 = grads(k.double(), torch.float64)
-    assert og.LAUNCHES == before + 1 and og.BWD_LAUNCHES == bwd_before + 1
+    with profiling.recording():
+        K, g32 = grads(k, torch.float32)
+        torch.cuda.synchronize()
+        assert counted("k1.launches") == 1 and counted("k2.launches") == 1
+        K64, g64 = grads(k.double(), torch.float64)
+    assert counted("k1.launches") == 1 and counted("k2.launches") == 1
     for a, b in zip((K,) + g32, (K64,) + g64):
         a, b = a.detach().double(), b.detach()
         err = float((a - b).abs().max() / b.abs().max())
@@ -198,10 +196,10 @@ def test_square_gram_kernels_match_plain(cuda):
     del out, ref
     gbar = torch.as_tensor(np.random.default_rng(69).normal(size=(N, N)),
                            dtype=torch.float32, device=cuda)
-    before = og.BWD_LAUNCHES
-    ours = og.oak_gram_bwd(*args, gbar, depth)
-    torch.cuda.synchronize()
-    assert og.BWD_LAUNCHES == before + 1
+    with profiling.recording():
+        ours = og.oak_gram_bwd(*args, gbar, depth)
+        torch.cuda.synchronize()
+    assert counted("k2.launches") == 1
     leaves = [a.clone().requires_grad_(True) for a in args]
     auto = torch.autograd.grad(og.oak_gram_plain(*leaves, depth), leaves, gbar,
                                allow_unused=True, materialize_grads=True)
@@ -218,11 +216,10 @@ def test_oak_kernel_square_K_through_kernel(cuda):
                          device=cuda)
     X = torch.as_tensor(np.random.default_rng(70).normal(size=(1000, 8)),
                         dtype=torch.float32, device=cuda)
-    with torch.no_grad():
-        before = og.LAUNCHES
+    with torch.no_grad(), profiling.recording():
         K = k.K(X)
         torch.cuda.synchronize()
-        assert og.LAUNCHES == before + 1
+        assert counted("k1.launches") == 1
         K64 = k.double().K(X.double())
     assert torch.equal(K, K.T)
     err = float((K.double() - K64).abs().max() / K64.abs().max())
@@ -242,9 +239,9 @@ def test_sobol_f32_on_card_matches_f64_cpu(cuda):
     for kk in m.kernel.kernels:
         kk.lengthscale.assign(rng.uniform(1.0, 3.0))
     m.q_mu.assign(rng.normal(size=(64, 1)))
-    before = og.LAUNCHES
-    tuples, v32 = sb.compute_sobol_oak(m)
-    assert og.LAUNCHES > before and len(tuples) == 41
+    with profiling.recording():
+        tuples, v32 = sb.compute_sobol_oak(m)
+    assert counted("k1.launches") > 0 and len(tuples) == 41
     Xs = torch.as_tensor(X[:128], dtype=torch.float32, device=cuda)
     comps = sb.get_prediction_component(m, X=Xs)
     with torch.no_grad():
@@ -275,13 +272,13 @@ def oak_on_card():
     from oak_tpu_torch import oak_model
 
     X, y = _oak_data()
-    before = (og.LAUNCHES, og.BWD_LAUNCHES)
-    oak = oak_model(max_interaction_depth=2).fit(X, y, optimise=False)
-    with torch.no_grad():
-        start = float(oak.m.training_loss())
-    res = oak.optimise(max_iters=40)
-    torch.cuda.synchronize()
-    launches = (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1])
+    with profiling.recording():
+        oak = oak_model(max_interaction_depth=2).fit(X, y, optimise=False)
+        with torch.no_grad():
+            start = float(oak.m.training_loss())
+        res = oak.optimise(max_iters=40)
+        torch.cuda.synchronize()
+    launches = (counted("k1.launches"), counted("k2.launches"))
     return oak, X, y, start, res, launches
 
 
@@ -392,15 +389,15 @@ def test_exported_predict_on_the_card_matches_live_and_launches_k1(cuda, tmp_pat
     program, program_v = _card_program(blob), _card_program(blob_v)
     live = oak.predict(X, clip=True)
     for rows in (1, 2, 37, 200):
-        before = og.LAUNCHES
-        traced = program(X[:rows])
-        torch.cuda.synchronize()
-        assert og.LAUNCHES == before + 1, rows
+        with profiling.recording():
+            traced = program(X[:rows])
+            torch.cuda.synchronize()
+        assert counted("k1.launches") == 1, rows
         err = np.abs(traced.cpu().numpy() - live[:rows]).max() / np.abs(live).max()
         assert err < 1e-5, (rows, err)
-        before = og.LAUNCHES
-        served, triton, cuda_k1 = _package_request(f, X[:rows])
-        assert og.LAUNCHES == before and (triton, cuda_k1) == (1, 0), rows
+        with profiling.recording():
+            served, triton, cuda_k1 = _package_request(f, X[:rows])
+        assert counted("k1.launches") == 0 and (triton, cuda_k1) == (1, 0), rows
         assert served.is_cuda and served.shape == (rows,)
         err = np.abs(served.cpu().numpy() - live[:rows]).max() / np.abs(live).max()
         assert err < 1e-4, (rows, err)
@@ -413,9 +410,9 @@ def test_exported_predict_on_the_card_matches_live_and_launches_k1(cuda, tmp_pat
     # chip_smoke.py (1e-3 of max |live|)
     for cpu in (deserialize_predict(tmp_path / "predict.pt2", device="cpu"),
                 deserialize_predict(serialize_predict(oak, device="cpu"))):
-        before = og.LAUNCHES
-        on_cpu = cpu(X).numpy()
-        assert og.LAUNCHES == before
+        with profiling.recording():
+            on_cpu = cpu(X).numpy()
+        assert counted("k1.launches") == 0
         assert np.abs(on_cpu - live).max() < 1e-3 * np.abs(live).max()
 
 
@@ -436,9 +433,9 @@ def test_cpu_model_serialized_for_the_card_traces_k1(cuda):
     ep = torch.export.load(io.BytesIO(serving._program(blob)))
     assert torch.ops.oak_tpu_torch.oak_gram_fwd.default in {n.target for n in ep.graph.nodes}
     f = deserialize_predict(blob)
-    before = og.LAUNCHES
-    served, triton, cuda_k1 = _package_request(f, X)
-    assert served.is_cuda and og.LAUNCHES == before and (triton, cuda_k1) == (1, 0)
+    with profiling.recording():
+        served, triton, cuda_k1 = _package_request(f, X)
+    assert served.is_cuda and counted("k1.launches") == 0 and (triton, cuda_k1) == (1, 0)
     live = oak.predict(X, clip=True)
     assert np.abs(served.cpu().numpy() - live).max() < 1e-3 * np.abs(live).max()
 
@@ -497,10 +494,10 @@ def test_triton_kernel_matches_plain(cuda, name, D, N, M, E, depth):
     """The Triton K1 (the compiled artifact's gram) against the plain
     version under the kernels' rule, and bitwise equal to the CUDA K1."""
     args = prescaled_inputs(62, D, N, M, E, depth, cuda)
-    before = ogt.LAUNCHES
-    out = ogt.oak_gram_triton_op(*args, depth)
-    torch.cuda.synchronize()
-    assert ogt.LAUNCHES == before + 1
+    with profiling.recording():
+        out = ogt.oak_gram_triton_op(*args, depth)
+        torch.cuda.synchronize()
+    assert counted("k1_triton.launches") == 1
     ref = og.oak_gram_plain(*args, depth)
     ref64 = og.oak_gram_plain(*[a.double() for a in args], depth)
     assert out.shape == (N, M) and torch.isfinite(out).all()
@@ -532,10 +529,10 @@ def test_checked_reaches_the_cuda_backward_and_passes_both_kernels(cuda):
         g = og.oak_gram_fused(*args, 3)
         return g, torch.autograd.grad(g.sum(), args)
 
-    before = (og.LAUNCHES, og.BWD_LAUNCHES)
-    out, grads = checked(gram_and_grads)()
-    torch.cuda.synchronize()
-    assert og.LAUNCHES > before[0] and og.BWD_LAUNCHES > before[1]
+    with profiling.recording():
+        out, grads = checked(gram_and_grads)()
+        torch.cuda.synchronize()
+    assert counted("k1.launches") > 0 and counted("k2.launches") > 0
     assert bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all()) for g in grads)
 
 
@@ -701,12 +698,12 @@ def test_lane_batched_kernels_match_one_lane_launches(cuda, name, D, N, M, E, de
     dims = tuple(None if n in shared else 0 for n in LANE_NAMES)
     gbar = torch.as_tensor(np.random.default_rng(72).normal(size=(lanes, N, M)),
                            dtype=torch.float32, device=cuda)
-    before = og.LAUNCHES, og.BWD_LAUNCHES
-    out = torch.vmap(og.oak_gram_fwd_op, in_dims=dims + (None,))(*inputs, depth)
-    grads = torch.vmap(lambda *a: og.oak_gram_bwd_op(*a, depth, True),
-                       in_dims=dims + (0,))(*inputs, gbar)
-    torch.cuda.synchronize()
-    assert (og.LAUNCHES, og.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    with profiling.recording():
+        out = torch.vmap(og.oak_gram_fwd_op, in_dims=dims + (None,))(*inputs, depth)
+        grads = torch.vmap(lambda *a: og.oak_gram_bwd_op(*a, depth, True),
+                           in_dims=dims + (0,))(*inputs, gbar)
+        torch.cuda.synchronize()
+    assert (counted("k1.launches"), counted("k2.launches")) == (1, 1)
     P = og.clamped_depth(depth, D, E)
     same = [og._variant(e, P, N, M, cuda, lanes) == og._variant(e, P, N, M, cuda)
             for e in ("oak_gram_fwd_tile", "oak_gram_bwd_tile")]
@@ -747,13 +744,13 @@ def test_vmapped_gradient_launches_each_kernel_once_per_gram(cuda):
                         num_data=600)
     loss_fn = lambda m: m.training_loss(X, Y)  # noqa: E731
     starts = _make_starts(flatten_trainable(model).detach(), 4, 0.3, 0, True)
-    before = og.LAUNCHES, og.BWD_LAUNCHES
-    fit.value_and_grad(model, loss_fn, starts[0])
-    one = og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1]
-    before = og.LAUNCHES, og.BWD_LAUNCHES
-    values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
-    torch.cuda.synchronize()
-    assert (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1]) == one and 0 not in one
+    with profiling.recording():
+        fit.value_and_grad(model, loss_fn, starts[0])
+    one = counted("k1.launches"), counted("k2.launches")
+    with profiling.recording():
+        values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
+        torch.cuda.synchronize()
+    assert (counted("k1.launches"), counted("k2.launches")) == one and 0 not in one
     for r in range(4):
         v, g = fit.value_and_grad(model, loss_fn, starts[r])
         assert abs(float(values[r] - v)) <= 1e-4 * abs(float(v))
@@ -761,13 +758,15 @@ def test_vmapped_gradient_launches_each_kernel_once_per_gram(cuda):
 
 
 def test_launch_counters_agree_over_a_step(cuda):
-    """One SVGP Adam step on the card, recorded (``utils.profiling``): the
-    launch globals and the counters ``k1.launches`` and ``k2.launches`` move
-    alike (Kuu and Kuf), every span of the step is recorded with the step's
-    one evaluation, and K2's spans, opened on autograd's device thread, have
-    no parent there and count inside the evaluation's self time."""
+    """One SVGP Adam step on the card, recorded (``utils.profiling``): each
+    launch site counts its counter once a launch, so the counters read the
+    step's launches, ``k1.launches`` and ``k2.launches`` 2 (Kuu and Kuf)
+    and ``solve.launches`` 4 (the wide solve forward and transposed, and
+    the two transposed solves of Kuu's Cholesky's reverse pass); every span
+    of the step is recorded with the step's one evaluation, and K2's spans,
+    opened on autograd's device thread, have no parent there and count
+    inside the evaluation's self time."""
     from oak_tpu_torch.optim import fit
-    from oak_tpu_torch.utils import profiling
 
     rng = np.random.default_rng(71)
     X = torch.as_tensor(rng.normal(size=(600, 6)), dtype=torch.float32, device=cuda)
@@ -780,14 +779,12 @@ def test_launch_counters_agree_over_a_step(cuda):
     opt = fit.adam(vec)
     loss_fn = lambda mm: mm.training_loss(X, Y)  # noqa: E731
     fit._adam_step(m, loss_fn, vec, opt)  # warm
-    before = og.LAUNCHES, og.BWD_LAUNCHES
     with profiling.recording():
         fit._adam_step(m, loss_fn, vec, opt)
         torch.cuda.synchronize()
     rec = profiling.record()
     c = rec.counters
-    assert (c["k1.launches"], c["k2.launches"]) == (og.LAUNCHES - before[0],
-                                                    og.BWD_LAUNCHES - before[1]) == (2, 2)
+    assert (c["k1.launches"], c["k2.launches"], c["solve.launches"]) == (2, 2, 4)
     assert {s.name for s in rec.spans} == {"oak.eval", "oak.bound", "oak.prep",
                                            "oak.gram.fwd", "oak.gram.bwd", "oak.linalg",
                                            "oak.update"}
@@ -842,11 +839,11 @@ def test_tri_solve_kernel_matches_float64(cuda, M, N, lanes, transpose):
     from oak_tpu_torch.ops import tri_solve as ts
 
     L, B = _solve_inputs(M, N, lanes, M + N + lanes, cuda)
-    before = ts.SOLVE_LAUNCHES
-    X = ts._launch(L, B, transpose, lanes, (True, True)) if lanes > 1 else \
-        ts._launch(L[0], B[0], transpose)[None]
-    torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES > before
+    with profiling.recording():
+        X = ts._launch(L, B, transpose, lanes, (True, True)) if lanes > 1 else \
+            ts._launch(L[0], B[0], transpose)[None]
+        torch.cuda.synchronize()
+    assert counted("solve.launches") > 0
     ok, text = _solve_ok(X, ts.tri_solve_plain(L, B, transpose),
                          ts.tri_solve_plain(L.double(), B.double(), transpose))
     assert ok, text
@@ -875,7 +872,6 @@ def test_tri_solve_gradient_through_the_kernel(cuda):
     float64 autograd of the library solve, as close as the library's own
     float32 gradients are: one forward and one transposed launch."""
     from oak_tpu_torch.ops import psd
-    from oak_tpu_torch.ops import tri_solve as ts
 
     L, B = _solve_inputs(500, 2049, 1, 9, cuda)
     L, B = L[0], B[0]
@@ -886,10 +882,10 @@ def test_tri_solve_gradient_through_the_kernel(cuda):
         Lr, Br = L_.clone().requires_grad_(True), B_.clone().requires_grad_(True)
         return torch.autograd.grad(fn(Lr, Br), (Lr, Br), G.to(L_.dtype))
 
-    before = ts.SOLVE_LAUNCHES
-    ours = grads(psd.solve_lower_wide, L, B)
-    torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before + 2
+    with profiling.recording():
+        ours = grads(psd.solve_lower_wide, L, B)
+        torch.cuda.synchronize()
+    assert counted("solve.launches") == 2
     lib = grads(lambda a, b: torch.linalg.solve_triangular(a, b, upper=False), L, B)
     ref = grads(lambda a, b: torch.linalg.solve_triangular(a, b, upper=False),
                 L.double(), B.double())
@@ -903,15 +899,14 @@ def test_tri_solve_routes_by_dtype(cuda):
     """float32 launches the kernel, float64 on the card takes the library's
     solve (no launch) and agrees, float16 raises."""
     from oak_tpu_torch.ops import psd
-    from oak_tpu_torch.ops import tri_solve as ts
 
     L, B = _solve_inputs(64, 300, 1, 11, cuda)
     L, B = L[0], B[0]
-    before = ts.SOLVE_LAUNCHES
-    X = psd.solve_lower_wide(L, B)
-    X64 = psd.solve_lower_wide(L.double(), B.double())
-    torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before + 1
+    with profiling.recording():
+        X = psd.solve_lower_wide(L, B)
+        X64 = psd.solve_lower_wide(L.double(), B.double())
+        torch.cuda.synchronize()
+    assert counted("solve.launches") == 1
     assert _rel(X, X64) < 1e-5
     with pytest.raises(TypeError, match="float32"):
         psd.solve_lower_wide(L.half(), B.half())
@@ -924,7 +919,6 @@ def test_vmapped_lanes_launch_each_solve_once(cuda):
     two Choleskys' reverse passes (6); they agree with the lanes one by one;
     predict_f launches none."""
     from oak_tpu_torch.models import SGPR
-    from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.optim import fit
     from oak_tpu_torch.optim.multistart import _make_starts
     from oak_tpu_torch.params import flatten_trainable
@@ -937,20 +931,19 @@ def test_vmapped_lanes_launch_each_solve_once(cuda):
                         X[:100], noise_variance=0.1, **kw)
     loss_fn = lambda m: m.training_loss()  # noqa: E731
     starts = _make_starts(flatten_trainable(model).detach(), 4, 0.3, 0, True)
-    before = ts.SOLVE_LAUNCHES
-    fit.value_and_grad(model, loss_fn, starts[0])
-    assert ts.SOLVE_LAUNCHES == before + 6
-    values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
-    torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before + 12
+    with profiling.recording():
+        fit.value_and_grad(model, loss_fn, starts[0])
+        assert counted("solve.launches") == 6
+        values, grads = fit.LaneLoss(model, loss_fn).value_and_grad(starts)
+        torch.cuda.synchronize()
+    assert counted("solve.launches") == 12
     for r in range(4):
         v, g = fit.value_and_grad(model, loss_fn, starts[r])
         assert abs(float(values[r] - v)) <= 1e-4 * abs(float(v))
         assert float((grads[r] - g).abs().max()) <= GRAD_TOL * float(g.abs().max())
-    before = ts.SOLVE_LAUNCHES
-    with torch.no_grad():
+    with torch.no_grad(), profiling.recording():
         model.predict_f(torch.as_tensor(X[:500], **kw))
-    assert ts.SOLVE_LAUNCHES == before
+    assert counted("solve.launches") == 0
 
 
 # ---------------------------------------------------------------------------
@@ -968,8 +961,6 @@ def test_cholesky_vjp_through_the_kernel(cuda, M, lanes):
     (``_solve_ok``): two launches of the solve for all lanes, one
     ``chol.vjp``, and a factor bitwise the library's."""
     from oak_tpu_torch.ops import psd
-    from oak_tpu_torch.ops import tri_solve as ts
-    from oak_tpu_torch.utils import profiling
 
     L0, _ = _solve_inputs(M, 1, lanes, 3 * M + lanes, cuda)
     A = (L0 @ L0.mT).contiguous()
@@ -979,20 +970,19 @@ def test_cholesky_vjp_through_the_kernel(cuda, M, lanes):
         L, pull = torch.func.vjp(psd.cholesky_lower, a)
         return L, pull(g)[0]
 
-    before = ts.SOLVE_LAUNCHES
     with profiling.recording():
         L, ours = torch.func.vmap(vjp)(A, G)
         torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before + 2
-    assert profiling.record().counters["chol.vjp"] == 1
+    assert counted("solve.launches") == 2 and counted("chol.vjp") == 1
     assert torch.equal(L, torch.linalg.cholesky(A))
 
     def library(a):
         a = a.clone().requires_grad_(True)
         return torch.autograd.grad(torch.linalg.cholesky_ex(a)[0], a, G.tril().to(a.dtype))[0]
 
-    lib, ref = library(A), library(A.double())
-    assert ts.SOLVE_LAUNCHES == before + 2
+    with profiling.recording():
+        lib, ref = library(A), library(A.double())
+    assert counted("solve.launches") == 0
     ok, text = _solve_ok(ours, lib, ref)
     assert ok, text
 
@@ -1007,7 +997,6 @@ def test_cholesky_vjp_keeps_the_library_past_one_panel_and_in_float64(cuda):
     from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.optim import fit
     from oak_tpu_torch.params import flatten_trainable
-    from oak_tpu_torch.utils import profiling
 
     assert ts._panel(1600, 1600, 1, cuda) == 0 and ts._panel(1504, 1504, 1, cuda) > 0
     rng = np.random.default_rng(75)
@@ -1017,14 +1006,12 @@ def test_cholesky_vjp_keeps_the_library_past_one_panel_and_in_float64(cuda):
     model = GPR.create(X, Y, OAKKernel.create(num_dims=4, max_interaction_depth=2, **kw),
                        noise_variance=0.1, **kw)
     loss_fn = lambda m: m.training_loss()  # noqa: E731
-    before = ts.SOLVE_LAUNCHES
     with profiling.recording():
         _, g = fit.value_and_grad(model, loss_fn, flatten_trainable(model).detach())
         A = torch.eye(300, dtype=torch.float64, device=cuda).requires_grad_(True)
         torch.autograd.grad(psd.cholesky_lower(A).sum(), A)
         torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before
-    assert "chol.vjp" not in profiling.record().counters
+    assert counted("solve.launches") == 0 and counted("chol.vjp") == 0
     model64 = model.to(dtype=torch.float64)
     _, g64 = fit.value_and_grad(model64, loss_fn, flatten_trainable(model64).detach())
     assert float((g.double() - g64).abs().max()) <= 1e-2 * float(g64.abs().max())
@@ -1041,7 +1028,6 @@ def test_natural_gradient_lanes_launch_each_solve_once(cuda):
     ``fit_natgrad_multistart`` runs to a finite loss."""
     import copy
 
-    from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.optim import fit, natgrad
     from oak_tpu_torch.optim.multistart import _make_starts, fit_natgrad_multistart
     from oak_tpu_torch.params import flatten_trainable
@@ -1063,10 +1049,10 @@ def test_natural_gradient_lanes_launch_each_solve_once(cuda):
     vecs = _make_starts(flatten_trainable(model).detach(), 3, 0.3, 1, True)
     leaf = vecs.clone().requires_grad_(True)
     step = natgrad.natgrad_lanes_step(fit.adam(leaf, 1e-2), leaf, model, loss_fn, 0.2)
-    before = ts.SOLVE_LAUNCHES
-    losses = torch.stack([step() for _ in range(2)])
-    torch.cuda.synchronize()
-    assert ts.SOLVE_LAUNCHES == before + 12
+    with profiling.recording():
+        losses = torch.stack([step() for _ in range(2)])
+        torch.cuda.synchronize()
+    assert counted("solve.launches") == 12
 
     def alone(m, lf, v):
         one = v.clone().requires_grad_(True)
@@ -1075,10 +1061,10 @@ def test_natural_gradient_lanes_launch_each_solve_once(cuda):
 
     err_lanes, err_alone = [], []
     for r in range(3):
-        before = ts.SOLVE_LAUNCHES
-        v, one = alone(model, loss_fn, vecs[r])
-        torch.cuda.synchronize()
-        assert ts.SOLVE_LAUNCHES == before + 12
+        with profiling.recording():
+            v, one = alone(model, loss_fn, vecs[r])
+            torch.cuda.synchronize()
+        assert counted("solve.launches") == 12
         assert float((losses[:, r] - v).abs().max()) <= 1e-4 * float(v.abs().max()), r
         _, one64 = alone(model64, loss_in(torch.float64), vecs[r].double())
         err_lanes.append(_rel(leaf[r].detach(), one64))

@@ -24,6 +24,8 @@ from oak_tpu_torch import measures as tmeas
 from oak_tpu_torch.checkpoint import load_params
 from oak_tpu_torch.kernels import OAKKernel
 from oak_tpu_torch.ops import oak_gram as og
+from oak_tpu_torch.testing import counted
+from oak_tpu_torch.utils import profiling
 
 REL = 1e-10
 
@@ -163,10 +165,10 @@ def test_fused_wrapper_takes_plain_route_on_cpu_with_autograd():
     args = _torch_args(a)
     for t in args:
         t.requires_grad_(True)
-    launches = og.LAUNCHES
-    out = og.oak_gram_fused(*args, 3)
-    assert og.LAUNCHES == launches  # no kernel on the CPU
-    grads = torch.autograd.grad(out.sum(), args)
+    with profiling.recording():
+        out = og.oak_gram_fused(*args, 3)
+        grads = torch.autograd.grad(out.sum(), args)
+    assert counted("k1.launches") == counted("k2.launches") == 0  # no kernel on the CPU
     ref_args = [t.detach().clone().requires_grad_(True) for t in args]
     ref = og.oak_gram_plain(*ref_args, 3)
     ref_grads = torch.autograd.grad(ref.sum(), ref_args)
@@ -179,9 +181,9 @@ def test_cpu_float32_K_takes_per_dim_route():
     tk = OAKKernel.create(num_dims=3, max_interaction_depth=2, dtype=torch.float32,
                           device="cpu")
     X = torch.as_tensor(np.random.default_rng(48).normal(size=(6, 3)), dtype=torch.float32)
-    launches = og.LAUNCHES
-    K = tk.K(X)
-    assert K.dtype == torch.float32 and og.LAUNCHES == launches
+    with profiling.recording():
+        K = tk.K(X)
+    assert K.dtype == torch.float32 and counted("k1.launches") == 0
 
 
 def test_supports_fused():
@@ -407,10 +409,10 @@ class _Ctx:
 def test_bwd_wrapper_takes_plain_route_on_cpu():
     a = _prescaled(np.random.default_rng(76), D=3, N=6, M=5, E=1, depth=2)
     gbar = torch.as_tensor(np.random.default_rng(77).normal(size=(6, 5)))
-    launches = og.BWD_LAUNCHES
-    full = og.oak_gram_bwd(*_torch_args(a), gbar, 2)
-    without = og.oak_gram_bwd(*_torch_args(a), gbar, 2, with_dextra=False)
-    assert og.BWD_LAUNCHES == launches
+    with profiling.recording():
+        full = og.oak_gram_bwd(*_torch_args(a), gbar, 2)
+        without = og.oak_gram_bwd(*_torch_args(a), gbar, 2, with_dextra=False)
+    assert counted("k2.launches") == 0
     assert without[4] is None and full[4].shape == (1, 6, 5)
     for f, w in zip(full[:4] + full[5:], without[:4] + without[5:]):
         _close(w, f.numpy())

@@ -31,6 +31,8 @@ from oak_tpu_torch.kernels.oak_kernel import OAKKernel
 from oak_tpu_torch.model import oak_model
 from oak_tpu_torch.ops import oak_gram as og
 from oak_tpu_torch.ops import oak_gram_triton as ogt
+from oak_tpu_torch.testing import counted
+from oak_tpu_torch.utils import profiling
 from tests.test_torch_oak_gram import REL, _close, _jax_args, _prescaled, _torch_args
 
 REPO = Path(__file__).resolve().parents[1]
@@ -76,9 +78,9 @@ def test_cpu_kernel_matches_xla_reference(E, depth):
     gram; 30 RBF dims plus E extra grams, so depth 32 is clamped only at E
     0 (the XLA reference runs every order; those above the grams are 0)."""
     a = _prescaled(np.random.default_rng(100 + depth + E), D=30, N=11, M=9, E=E, depth=depth)
-    before = ogt.LAUNCHES
-    out = ogt.oak_gram_triton_op(*_torch_args(a), depth)
-    assert ogt.LAUNCHES == before and out.dtype == torch.float64
+    with profiling.recording():
+        out = ogt.oak_gram_triton_op(*_torch_args(a), depth)
+    assert counted("k1_triton.launches") == 0 and out.dtype == torch.float64
     _close(out, ogp._xla_gram_from_prep(*_jax_args(a), depth), rel=REL)
 
 

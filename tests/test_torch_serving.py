@@ -16,7 +16,8 @@ from oak_tpu_torch import load_oak_model
 from oak_tpu_torch.model import oak_model
 from oak_tpu_torch.ops import oak_gram as og
 from oak_tpu_torch.serving import deserialize_predict, serialize_predict
-from oak_tpu_torch.testing import prescaled_inputs
+from oak_tpu_torch.testing import counted, prescaled_inputs
+from oak_tpu_torch.utils import profiling
 from tests.test_torch_uci_artifacts import CASES, committed_pair, compiled_jax_predict  # noqa: F401
 
 KW = dict(dtype=torch.float64, device="cpu")
@@ -197,10 +198,10 @@ def test_torch_registered_forward_op_passes_opcheck_on_cpu():
     against the CPU implementation (the plain version), AOT dispatch with
     dynamic shapes; and it launches nothing."""
     args = prescaled_inputs(77, 4, 12, 9, 1, 3, torch.device("cpu"))
-    before = og.LAUNCHES
-    torch.library.opcheck(og.oak_gram_fwd_op, (*args, 3))
-    out = og.oak_gram_fwd_op(*args, 3)
-    assert torch.equal(out, og.oak_gram_plain(*args, 3)) and og.LAUNCHES == before
+    with profiling.recording():
+        torch.library.opcheck(og.oak_gram_fwd_op, (*args, 3))
+        out = og.oak_gram_fwd_op(*args, 3)
+    assert torch.equal(out, og.oak_gram_plain(*args, 3)) and counted("k1.launches") == 0
 
 
 def _graph_ops(blob):
@@ -248,9 +249,9 @@ def test_torch_card_route_traces_the_registered_op(monkeypatch, float32_cpu):
     blob = serialize_predict(oak)
     assert node in _graph_ops(blob)
     live = oak.predict(X, clip=True)
-    before = og.LAUNCHES
-    served = _np(deserialize_predict(blob)(X))
-    assert og.LAUNCHES == before
+    with profiling.recording():
+        served = _np(deserialize_predict(blob)(X))
+    assert counted("k1.launches") == 0
     np.testing.assert_allclose(served, live, rtol=1e-5, atol=1e-5 * np.abs(live).max())
 
 

@@ -13,9 +13,9 @@ the CPU at float64 and small sizes:
 - a 2-lane ``fit_lbfgs_multistart`` counts the loss's own gradient
   evaluations, at least one linesearch trial an iteration, every host read's
   site and the linesearch's host spans;
-- at each launch site (the card's calls stubbed), ``LAUNCHES``,
-  ``BWD_LAUNCHES`` and the Triton op's ``LAUNCHES`` move with the counters
-  ``k1.launches``, ``k2.launches`` and ``k1_triton.launches``;
+- at each launch site (the card's calls stubbed) a launch counts its own
+  counter, ``k1.launches``, ``k2.launches``, ``solve.launches`` or
+  ``k1_triton.launches``, once;
 - the record's sessions, self time across threads, the cap, the decorator
   and the optimizer's step hooks; an export while recording stays free of
   spans.
@@ -196,15 +196,25 @@ class _Library:
     def oak_gram_bwd_workspace(self, *args):
         return 1
 
+    def oak_tri_solve_workspace(self, *args):
+        return 1
+
+    def oak_tri_solve_f32(self, *args):
+        return 0
+
 
 def test_launch_globals_and_counters_agree_at_each_launch_site(monkeypatch):
-    """``_launch_fwd``, ``_launch_bwd`` and the Triton op's launch, run on
-    CPU tensors with the card's calls stubbed: each launch moves its global
-    and its counter by one. On the card a whole step does
+    """``_launch_fwd``, ``_launch_bwd``, the solve's ``_launch`` and the
+    Triton op's launch, run on CPU tensors with the card's calls stubbed:
+    each launch counts its own counter (``k1.launches``, ``k2.launches``,
+    ``solve.launches``, ``k1_triton.launches``) once and no other, the one
+    count of the launch. On the card a whole step does
     (``test_torch_gpu.py::test_launch_counters_agree_over_a_step``)."""
     import contextlib
+    import types
 
     from oak_tpu_torch.ops import oak_gram_triton as ogt
+    from oak_tpu_torch.ops import tri_solve as ts
     from oak_tpu_torch.testing import prescaled_inputs
 
     monkeypatch.setattr(og, "_check_cuda_inputs", lambda inputs, *a, **k: [0] * len(inputs))
@@ -212,19 +222,23 @@ def test_launch_globals_and_counters_agree_at_each_launch_site(monkeypatch):
     monkeypatch.setattr(og, "_stream", lambda t: 0)
     monkeypatch.setattr(og._build, "library", lambda: _Library())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(ts, "_check", lambda *a: None)
+    monkeypatch.setattr(ts, "_panel", lambda *a: 64)
     monkeypatch.setattr(ogt, "_launch", lambda inputs, depth, traced: inputs[0])
     args = prescaled_inputs(5, 3, 6, 5, 0, DEPTH, "cpu")
     gbar = torch.ones(6, 5)
-    before = og.LAUNCHES, og.BWD_LAUNCHES, ogt.LAUNCHES
-    with profiling.recording():
-        for _ in range(2):
-            og._launch_fwd(args, DEPTH)
-        og._launch_bwd((*args, gbar), DEPTH, with_dextra=False)
-        ogt._cuda(*args, DEPTH)
-    c = profiling.record().counters
-    assert c == {"k1.launches": 2, "k2.launches": 1, "k1_triton.launches": 1}
-    assert (og.LAUNCHES - before[0], og.BWD_LAUNCHES - before[1],
-            ogt.LAUNCHES - before[2]) == (2, 1, 1)
+    L, B = torch.eye(4), torch.ones(4, 3)
+    sites = {"k1.launches": lambda: og._launch_fwd(args, DEPTH),
+             "k2.launches": lambda: og._launch_bwd((*args, gbar), DEPTH, with_dextra=False),
+             "solve.launches": lambda: ts._launch(L, B, False),
+             "k1_triton.launches": lambda: ogt._cuda(*args, DEPTH)}
+    for name, launch in sites.items():
+        with profiling.recording():
+            for _ in range(2):
+                launch()
+        assert profiling.record().counters == {name: 2}
 
 
 def test_sessions_start_empty_and_counts_stop_outside_them():
