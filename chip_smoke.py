@@ -38,7 +38,12 @@ non-zero before the result line:
    reverse pass (ops/psd.py CholeskyVjp: two transposed solves, one launch
    each for all lanes) at the cells' 4 x 500^2, 4 x 200^2 and 1 x 512^2
    against float64 autograd of the library's Cholesky, then timed alone
-   beside its bound and autograd's own backward (cuBLAS's trsm);
+   beside its bound and autograd's own backward (cuBLAS's trsm); the
+   lower-triangle product (csrc/gemmt.cu: the SGPR bound's A A^T and the
+   wide solve's dL = -tril(dB X^T)) at the three cells' shapes against
+   float64, a repeat bitwise equal, the symmetric form exactly symmetric,
+   then timed beside its bound (M (M + 1) / 2 K FFMAs a lane), torch's
+   full product P Q^T and the port's plain route before the kernel;
 3. predict path: the bench's SVGP (N = 8192, D = 32, M = 512, depth 3,
    q_diag, whitened, float32) on the card answers predict_y requests of 1,
    100, 2048 and 8192 rows; the outputs are finite, the kernel was launched,
@@ -685,6 +690,12 @@ SOLVE_SHAPES = (("svgp32 512x8192", 512, 8192, 1), ("sgpr8 4 lanes 500x6553", 50
 # I + AAᵀ over 4 lanes, heart-fit4's Kuu over 4 lanes, svgp32-train's Kuu.
 VJP_SHAPES = (("sgpr8 4 lanes 500^2", 500, 4), ("heart 4 lanes 200^2", 200, 4),
               ("svgp32 512^2", 512, 1))
+# The lower-triangle product, (name, lanes, M, K, symmetric): sgpr8-fit4's
+# A A^T and its wide solve's dL, svgp32-train's dL, heart-fit4's dL.
+GEMMT_SHAPES = (("sgpr8 4x500x6553 symmetric", 4, 500, 6553, True),
+                ("sgpr8 4x500x6553 tril", 4, 500, 6553, False),
+                ("svgp32 512x8192 tril", 1, 512, 8192, False),
+                ("heart 4x200x237 tril", 4, 200, 237, False))
 
 
 @_recorded
@@ -734,9 +745,12 @@ def phase_solve(device):
                         f"{bound / ms:.3f}; error {err:.2e} (library {lib_err:.2e}); panel "
                         f"{numbers[f'{name} {form}']['panel']}")
     rows += _chol_vjp_rows(device, numbers)
-    print("phase 2c triangular solve vs torch.linalg.solve_triangular, and the Cholesky's "
-          "reverse pass vs autograd's (device ms, benchmark/devtrace.py, in turns library, "
-          "kernel, kernel, library):\n" + "\n".join(rows))
+    rows += _gemmt_rows(device, numbers)
+    print("phase 2c triangular solve vs torch.linalg.solve_triangular, the Cholesky's "
+          "reverse pass vs autograd's, and the lower-triangle product vs torch's full product "
+          "(device ms, benchmark/devtrace.py, in turns library, kernel, kernel, library; the "
+          "product's plain route between them):\n"
+          + "\n".join(rows))
     return numbers
 
 
@@ -792,6 +806,66 @@ def _chol_vjp_rows(device, numbers):
                     f"bound {bound:.4f} ms (FP32: {lanes * M ** 3 / 1e9:.2f} GFMA), share "
                     f"{bound / ms:.3f}; error "
                     f"{err:.2e} (library {lib_err:.2e}); panel {numbers[f'chol vjp {name}']['panel']}")
+    return rows
+
+
+def _gemmt_rows(device, numbers):
+    """The lower-triangle product (ops/gemmt.py, csrc/gemmt.cu) at
+    GEMMT_SHAPES: one launch for all lanes, a repeat bitwise equal, the
+    symmetric form exactly symmetric, and against the float64 product of the
+    same float32 inputs within 4x the library's own float32 error
+    (tests/test_torch_gpu.py::_gemmt_ok); then device ms in turns with
+    torch's full product P Q^T (library_ms, cuBLAS) and the route the port
+    took before the kernel (plain_ms: A A^T as that product,
+    -tril(dB X^T) as the product, a negation and a tril), library, plain,
+    kernel, kernel, plain, library, beside the bound: M (M + 1) / 2 K FFMAs a lane at
+    benchmark/roofline.py's FP32 peak, or the bytes, 4 (2 M K + M^2) a lane
+    (M K + M^2 symmetric), at its HBM peak, whichever is longer (the
+    benchmark counts no such product)."""
+    from oak_tpu_torch.ops import gemmt as gm
+
+    rows = []
+    for name, lanes, M, K, sym in GEMMT_SHAPES:
+        g = torch.Generator().manual_seed(M + K)
+        P = torch.randn(lanes, M, K, generator=g).squeeze(0).to(device)
+        Q = P if sym else torch.randn(lanes, M, K, generator=g).squeeze(0).to(device)
+        alpha = 1.0 if sym else -1.0
+        kernel = lambda P=P, Q=Q, a=alpha, s=sym: gm.gemmt_op(P, Q, a, s)  # noqa: E731
+        library = lambda P=P, Q=Q: P @ Q.mT  # noqa: E731
+        plain = library if sym else lambda P=P, Q=Q, a=alpha: a * torch.tril(P @ Q.mT)  # noqa: E731
+        before = counted("gemmt.launches")
+        C, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if counted("gemmt.launches") != before + 2:
+            raise RuntimeError(f"gemmt {name}: {counted('gemmt.launches') - before} launches "
+                               "for two calls, expected 2")
+        if not torch.equal(C, again) or (sym and not torch.equal(C, C.mT)):
+            raise RuntimeError(f"gemmt {name}: a repeat differs, or the symmetric form is not "
+                               "symmetric")
+        ref = gm.gemmt_plain(P.double(), Q.double(), alpha, sym)
+        err = float((C.double() - ref).abs().max() / ref.abs().max())
+        lib_err = float((gm.gemmt_plain(P, Q, alpha, sym).double() - ref).abs().max()
+                        / ref.abs().max())
+        if not err <= 4 * lib_err + 1e-7:
+            raise RuntimeError(f"gemmt {name}: error {err:.2e} against float64, the library's "
+                               f"{lib_err:.2e}")
+        del C, again, ref
+        dev = _turns({"library": library, "plain": plain, "kernel": kernel}, _busy_ms)
+        fma = lanes * M * (M + 1) / 2 * K
+        nbytes = 4 * lanes * ((1 if sym else 2) * M * K + M * M)
+        bound = 1e3 * max(fma / roofline.PEAK_FP32_OPS, nbytes / roofline.PEAK_HBM_BYTES)
+        limiter = "FP32" if fma / roofline.PEAK_FP32_OPS >= nbytes / roofline.PEAK_HBM_BYTES \
+            else "bytes"
+        ms, lib_ms, plain_ms = (float(np.mean(dev[k])) for k in ("kernel", "library", "plain"))
+        split = gm._split(M, K, lanes, device)
+        numbers[f"gemmt {name}"] = dict(
+            device_ms=ms, library_ms=lib_ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=limiter, share=bound / ms, err=err, library_err=lib_err, split=split)
+        rows.append(f"  gemmt {name}: device {dev['kernel']} ms, torch's full product "
+                    f"{dev['library']} ms (ratio {ms / lib_ms:.3f}), plain route "
+                    f"{dev['plain']} ms; bound {bound:.4f} ms "
+                    f"({limiter}: {fma / 1e9:.2f} GFMA, {nbytes / 1e6:.1f} MB), share "
+                    f"{bound / ms:.3f}; error {err:.2e} (library {lib_err:.2e}); split {split}")
     return rows
 
 
@@ -931,7 +1005,8 @@ def phase_training(device):
     n_line = _check_losses(f"fit_natgrad_adam (gamma 0.1, full q) {NATGRAD_STEPS} steps",
                            nres.losses, *first)
     n_solves = solves("fit_natgrad_adam", first_solve)
-    launches = dict(zip(("fwd", "bwd", "solve"), (*_launches(), counted("solve.launches"))))
+    launches = dict(zip(("fwd", "bwd", "solve", "gemmt"),
+                        (*_launches(), counted("solve.launches"), counted("gemmt.launches"))))
     print(f"phase 4.3 {b_line} ({b_ms:.3f} ms per step incl. sync, {b_solves} solve "
           f"launches); {n_line} ({n_ms:.3f} ms per step incl. sync, {n_solves} solve "
           f"launches); training path launches: forward {launches['fwd']}, backward "
@@ -3387,7 +3462,21 @@ def main():
                 "launches": launches, "max_abs_err": None,
                 "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
-                "library_ms": n["library_ms"], "shapes": numbers}
+                "library_ms": n["library_ms"],
+                "shapes": {k: v for k, v in numbers.items() if not k.startswith("gemmt ")}}
+
+    def gemmt_entry(numbers, launches):
+        # the bounds' lower-triangle product, which replaces no TPU kernel:
+        # its launches on phase 4's training path (one a gradient evaluation,
+        # the wide solve's dL), the numbers of phase 2c at SGPR's A A^T, and
+        # every timed shape under "shapes"
+        shapes = {k: v for k, v in numbers.items() if k.startswith("gemmt ")}
+        n = shapes["gemmt sgpr8 4x500x6553 symmetric"]
+        return {"name": "gemmt_f32", "route": "cuda", "source": "oak_tpu_torch/csrc/gemmt.cu",
+                "replaces": None, "launches": launches, "max_abs_err": None,
+                "device_ms": n["device_ms"], "plain_ms": n["plain_ms"],
+                "bound_ms": n["bound_ms"], "bound_by": n["bound_by"], "share": n["share"],
+                "library_ms": n["library_ms"], "shapes": shapes}
 
     print(json.dumps({"kernels": [
         entry("oak_gram_fwd_f32", "oak_tpu_torch/csrc/oak_gram_fwd.cu",
@@ -3405,6 +3494,7 @@ def main():
               kernel_bwd,
               oak_kernels["K2"], "K2"),
         solve_entry(solve, train_launches["solve"]),
+        gemmt_entry(solve, train_launches["gemmt"]),
         triton_entry(triton["triton"], kernel["Triton"],
                      {name.removeprefix("Triton "): v for name, v in kernel.items()
                       if name.startswith("Triton ")} | triton["numbers"])]}))

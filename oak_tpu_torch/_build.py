@@ -64,6 +64,13 @@ SIGNATURES = {
     "oak_tri_solve_panel": ([ctypes.c_int] * 3 + [_INT_P], ctypes.c_int),
     # M, lanes_L -> floats of workspace
     "oak_tri_solve_workspace": ([ctypes.c_int] * 2, ctypes.c_longlong),
+    # P, Q, C; M, K, lanes; alpha; symmetric, split; lane strides of P and Q;
+    # stream
+    "oak_gemmt_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                      + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+                      ctypes.c_int),
+    # M, K, lanes -> the split of K
+    "oak_gemmt_plan": ([ctypes.c_int] * 3 + [_INT_P], ctypes.c_int),
 }
 
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..config import like
 from ..kernels.oak_kernel import OAKKernel
+from ..ops.gemmt import SymProduct
 from ..ops.psd import cholesky, solve_lower, solve_lower_wide, solve_upper
 from ..params import Param, fixed, log_prior_density, param
 from ..utils.profiling import spanned
@@ -75,16 +76,20 @@ class SGPR(nn.Module):
     def elbo_terms(self, X: torch.Tensor, Y: torch.Tensor,
                    sigma: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
         """The bound's sums over the rows of (X, Y), with A = L⁻¹Kuf/σ
-        [M, n]: (AAᵀ, AY, Σ y², Σ K_diag, Σ A²). The shards of a
-        data-sharded fit add their terms (``parallel``); LB, c and the
-        clamps come from the sums (``elbo_from_terms``), never per shard."""
+        [M, n]: (AAᵀ, AY, Σ y², Σ K_diag, Σ A²). AAᵀ is one symmetric
+        product (``SymProduct``: one triangle computed, a one-product
+        backward), and Σ A² its trace, with no pass over A of its own. The
+        shards of a data-sharded fit add their terms (``parallel``); LB, c
+        and the clamps come from the sums (``elbo_from_terms``), never per
+        shard."""
         if sigma is None:
             sigma = torch.sqrt(self.likelihood.variance.value)
         Z = self.Z.value
         L = cholesky(self.kernel.K(Z))
         A = solve_lower_wide(L, self.kernel.K(Z, X)) / sigma  # [M, n]
-        return (A @ A.T, A @ Y, torch.sum(Y * Y), torch.sum(self.kernel.K_diag(X)),
-                torch.sum(A * A))
+        AAT = SymProduct.apply(A)
+        return (AAT, A @ Y, torch.sum(Y * Y), torch.sum(self.kernel.K_diag(X)),
+                torch.diagonal(AAT, dim1=-2, dim2=-1).sum(-1))
 
     def elbo_from_terms(self, terms, num_rows: int, sigma2: Optional[torch.Tensor] = None,
                         sigma: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -22,7 +22,7 @@ import torch
 from ..config import default_jitter
 from ..utils import profiling
 from ..utils.profiling import spanned
-from . import tri_solve
+from . import routes, tri_solve
 from .tri_solve import TriSolve
 
 # Each public call below is the span oak.linalg, one however they nest.
@@ -122,7 +122,7 @@ class CholeskyVjp(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, L, gL):
-        return CholeskyVjp.apply(*tri_solve.lanes_first(in_dims, L, gL)), 0
+        return CholeskyVjp.apply(*routes.lanes_first(in_dims, L, gL)), 0
 
 
 def _own_vjp(A: torch.Tensor) -> bool:

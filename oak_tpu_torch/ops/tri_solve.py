@@ -7,7 +7,8 @@ with a square right-hand side.
 ``TriSolve`` is a ``torch.autograd.Function``, differentiable to any
 order: its forward is the registered op ``torch.ops.oak_tpu_torch.tri_solve``,
 its backward dB = L⁻ᵀdA the op's other form, through ``TriSolve`` again, and
-dL = −tril(dB Aᵀ) a matrix product; ``ops.psd.solve_lower_wide`` applies it.
+dL = −tril(dB Aᵀ) the lower triangle of a long product alone, through
+``ops.gemmt.Gemmt``; ``ops.psd.solve_lower_wide`` applies it.
 The op launches the kernel for float32 CUDA tensors, at any width, and raises
 for any other CUDA dtype; its CPU implementation is the plain version,
 ``torch.linalg.solve_triangular``. Its ``torch.func.vmap`` rule runs all
@@ -26,6 +27,8 @@ import torch
 
 from .. import _build
 from ..utils import profiling
+from . import gemmt
+from .routes import lanes_first, own_route
 
 
 def tri_solve_plain(L: torch.Tensor, B: torch.Tensor, transpose: bool = False) -> torch.Tensor:
@@ -50,17 +53,13 @@ def _panel(M: int, N: int, lanes: int, device: torch.device) -> int:
 
 
 def takes(L: torch.Tensor, one_panel: bool = False) -> bool:
-    """Whether the op's own routes take L: on the CPU the plain route; on
-    CUDA anything but float64, which its callers leave to the library
-    (float32 launches the kernel, any other dtype raises in the op). With
+    """Whether the op's own routes take L (``routes.own_route``). With
     ``one_panel`` a CUDA L must also fit one panel of the kernel's shared
     memory (M ≤ 1,504 on an H100), which a taller L would only reach by
     ``_split``'s products."""
-    if not L.is_cuda:
-        return True
-    if L.dtype == torch.float64:
+    if not own_route(L):
         return False
-    return not one_panel or _panel(L.shape[-1], L.shape[-1], 1, L.device) != 0
+    return not L.is_cuda or not one_panel or _panel(L.shape[-1], L.shape[-1], 1, L.device) != 0
 
 
 def _check(L: torch.Tensor, B: torch.Tensor, lanes: int, batched: Sequence[bool]) -> None:
@@ -174,20 +173,6 @@ def _tri_solve_fake(L, B, transpose):
     return B.new_empty(torch.broadcast_shapes(L.shape[:-2], B.shape[:-2]) + B.shape[-2:])
 
 
-def lanes_first(in_dims, *ts: torch.Tensor):
-    """The tensors a ``torch.func.vmap`` rule is handed, as the physical
-    operands of one lane-batched call: the lane axis first (a 1 where a
-    tensor has none), and each tensor's own leading dims aligned right
-    behind it (1s where it has fewer), so that they broadcast against each
-    other as the logical tensors do."""
-    own = [t.dim() - 2 - (d is not None) for t, d in zip(ts, in_dims)]
-    out = []
-    for t, d, k in zip(ts, in_dims, own):
-        t = t.unsqueeze(0) if d is None else t.movedim(d, 0)
-        out.append(t.reshape(t.shape[:1] + (1,) * (max(own) - k) + t.shape[1:]))
-    return out
-
-
 @tri_solve_op.register_vmap
 def _tri_solve_vmap(info, in_dims, L, B, transpose):
     """The lanes' X [lanes, ..., M, N]: on CUDA one launch for the lanes and
@@ -199,8 +184,9 @@ def _tri_solve_vmap(info, in_dims, L, B, transpose):
 class TriSolve(torch.autograd.Function):
     """X = L⁻¹B, or L⁻ᵀB with ``transpose``, through the registered op,
     differentiable to any order: the backward is the other form,
-    dB = L⁻ᵀdX (L⁻¹dX), and dL = −tril(dB Xᵀ) (−tril(X dBᵀ)), itself
-    through ``TriSolve``.
+    dB = L⁻ᵀdX (L⁻¹dX) through ``TriSolve`` itself, and dL = −tril(dB Xᵀ)
+    (−tril(X dBᵀ)) through ``gemmt.Gemmt``, which computes that triangle
+    alone.
 
     It composes with ``torch.func``: ``setup_context`` lets ``grad`` take
     it, and its ``vmap`` rule applies it once to the lane-batched tensors,
@@ -223,7 +209,7 @@ class TriSolve(torch.autograd.Function):
             dB = TriSolve.apply(L, dX.contiguous(), not ctx.transpose)
             dL = None
             if need_L:
-                dL = -torch.tril(X @ dB.mT if ctx.transpose else dB @ X.mT)
+                dL = gemmt.Gemmt.apply(*((X, dB) if ctx.transpose else (dB, X)), -1.0)
         return dL, dB if need_B else None, None
 
     @staticmethod

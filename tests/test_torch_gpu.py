@@ -1072,3 +1072,144 @@ def test_natural_gradient_lanes_launch_each_solve_once(cuda):
     assert max(err_lanes) <= 2 * max(err_alone) + 1e-4, (err_lanes, err_alone)
     res = fit_natgrad_multistart(model, loss_fn, n_starts=3, steps=2, gamma=0.2)
     assert np.isfinite(res.fun)
+
+
+# ---------------------------------------------------------------------------
+# The lower-triangle product (csrc/gemmt.cu, ops/gemmt.py)
+# ---------------------------------------------------------------------------
+# (lanes, M, K): the three cells' shapes (sgpr8-fit4's AAᵀ and dL,
+# svgp32-train's dL, heart-fit4's dL), then ragged M and K: M 37 and 129 (not
+# multiples of a tile), K 1 (one product a term) and 1000 (not a multiple of
+# the staged 16)
+GEMMT_CASES = [(4, 500, 6553), (1, 512, 8192), (4, 200, 237), (2, 37, 1000), (1, 129, 1),
+               (3, 129, 1000), (1, 37, 1)]
+
+
+def _gemmt_inputs(lanes, M, K, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    P, Q = (torch.randn(lanes, M, K, generator=g, dtype=torch.float64) for _ in range(2))
+    return P.float().to(device), Q.float().to(device)
+
+
+# A float32 sum of K products, in any order (the kernel splits K across a
+# cluster's blocks, the library tiles it otherwise), is within γ_K = K u /
+# (1 − K u) of Σ|p q| of the exact sum (u = 2^-24): that bound, entry by
+# entry, holds for every order. Against the float64 product of the same
+# float32 inputs the kernel is also as close as the library's own float32
+# product, to 4 times its error (a wrong index reads O(1)).
+def _gemmt_ok(C, P, Q, alpha, symmetric):
+    from oak_tpu_torch.ops import gemmt as gm
+
+    P64, Q64 = P.double(), (P if symmetric else Q).double()
+    ref = gm.gemmt_plain(P64, Q64, alpha, symmetric)
+    lib = gm.gemmt_plain(P, P if symmetric else Q, alpha, symmetric)
+    K, u = P.shape[-1], 2.0 ** -24
+    bound = K * u / (1 - K * u) * abs(alpha) * (P64.abs() @ Q64.abs().mT)
+    bound = gm._mirrored(bound) if symmetric else torch.tril(bound)
+    within = bool(((C.double() - ref).abs() <= bound + 1e-30).all())
+    err, lib_err = _rel(C, ref), _rel(lib, ref)
+    return within and err <= 4 * lib_err + 1e-7, f"kernel {err:.2e}, library {lib_err:.2e}"
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["symmetric", "tril"])
+@pytest.mark.parametrize("lanes,M,K", GEMMT_CASES, ids=[f"{r}x{m}x{k}" for r, m, k in GEMMT_CASES])
+def test_gemmt_kernel_matches_float64(cuda, lanes, M, K, symmetric):
+    """Both forms, one launch for all lanes, against the float64 product of
+    the same float32 inputs; a second call gives the same bits (no atomics),
+    the symmetric form is exactly symmetric and the tril form 0 above the
+    diagonal."""
+    from oak_tpu_torch.ops import gemmt as gm
+
+    P, Q = _gemmt_inputs(lanes, M, K, lanes + M + K, cuda)
+    Q = P if symmetric else Q
+    with profiling.recording():
+        C = gm.gemmt_op(P, Q, -0.5, symmetric)
+        again = gm.gemmt_op(P, Q, -0.5, symmetric)
+        torch.cuda.synchronize()
+    assert counted("gemmt.launches") == 2
+    assert torch.equal(C, again)
+    if symmetric:
+        assert torch.equal(C, C.mT)
+    else:
+        assert torch.equal(C.triu(1), torch.zeros_like(C))
+    ok, text = _gemmt_ok(C, P, Q, -0.5, symmetric)
+    assert ok, text
+
+
+def test_gemmt_kernel_passes_nan(cuda):
+    """A NaN in P reaches its row and, through the product, its column in
+    both forms (the tril form's zeros above the diagonal stay 0); the lanes
+    without it stay finite."""
+    from oak_tpu_torch.ops import gemmt as gm
+
+    P, Q = _gemmt_inputs(2, 70, 300, 5, cuda)
+    P[1, 5, 17] = float("nan")
+    S = gm.gemmt_op(P, P, 1.0, True)
+    assert torch.isnan(S[1, 5]).all() and torch.isnan(S[1, :, 5]).all()
+    assert torch.isfinite(S[0]).all() and torch.isfinite(S[1, 6:, 6:]).all()
+    T = gm.gemmt_op(P, Q, 1.0, False)
+    assert torch.isnan(T[1, 5, :6]).all() and not torch.isnan(T[1, 5, 6:]).any()
+
+
+def test_gemmt_routes_by_dtype(cuda):
+    """float32 launches the kernel, float64 on the card takes the library's
+    product (no launch) and agrees, float16 raises."""
+    from oak_tpu_torch.ops import gemmt as gm
+
+    P, Q = _gemmt_inputs(1, 64, 300, 11, cuda)
+    with profiling.recording():
+        C = gm.gemmt(P[0], Q[0], 2.0)
+        C64 = gm.gemmt(P[0].double(), Q[0].double(), 2.0)
+        torch.cuda.synchronize()
+    assert counted("gemmt.launches") == 1
+    assert _rel(C, C64) < 1e-5
+    with pytest.raises(TypeError, match="float32"):
+        gm.gemmt(P[0].half(), Q[0].half())
+
+
+def test_sym_product_gradient_through_the_kernel(cuda):
+    """SymProduct vmapped over sgpr8-fit4's 4 lanes of 500 x 6553: one
+    launch for the forward of all lanes, equal to the kernel's symmetric
+    form; its gradient (G + Gᵀ)A against float64 autograd of A Aᵀ."""
+    from oak_tpu_torch.ops import gemmt as gm
+
+    A, _ = _gemmt_inputs(4, 500, 6553, 13, cuda)
+    G = torch.randn(4, 500, 500, generator=torch.Generator().manual_seed(14)).to(cuda)
+    with profiling.recording():
+        S, pull = torch.func.vjp(torch.func.vmap(gm.SymProduct.apply), A)
+        dA = pull(G)[0]
+        torch.cuda.synchronize()
+    assert counted("gemmt.launches") == 1
+    assert torch.equal(S, gm.gemmt_op(A, A, 1.0, True))
+    A64 = A.double().requires_grad_(True)
+    ref = torch.autograd.grad(A64 @ A64.mT, A64, G.double())[0]
+    Af = A.clone().requires_grad_(True)
+    lib = torch.autograd.grad(Af @ Af.mT, Af, G)[0]
+    ok, text = _solve_ok(dA, lib, ref)
+    assert ok, text
+
+
+def test_tri_solve_dL_through_the_kernel(cuda):
+    """The wide solve's dL = −tril(dB Xᵀ) at svgp32-train's 512 x 8192 and,
+    vmapped, sgpr8-fit4's 4 lanes of 500 x 6553: one gemmt launch for all
+    lanes, dL lower-triangular, as close to float64 autograd of the library
+    solve as the library's own float32 gradient is (``_solve_ok``)."""
+    from oak_tpu_torch.ops import psd
+
+    for lanes, M, N in ((1, 512, 8192), (4, 500, 6553)):
+        L, B = _solve_inputs(M, N, lanes, M + lanes, cuda)
+        G = torch.randn(lanes, M, N, generator=torch.Generator().manual_seed(M)).to(cuda)
+
+        def grad_L(solve, dtype):
+            Lr = L.to(dtype).requires_grad_(True)
+            f = torch.func.vmap(solve) if solve is psd.solve_lower_wide else solve
+            return torch.autograd.grad(f(Lr, B.to(dtype)), Lr, G.to(dtype))[0]
+
+        library = lambda a, b: torch.linalg.solve_triangular(a, b, upper=False)  # noqa: E731
+        with profiling.recording():
+            ours = grad_L(psd.solve_lower_wide, torch.float32)
+            torch.cuda.synchronize()
+        assert counted("gemmt.launches") == 1 and counted("solve.launches") == 2
+        assert torch.equal(ours.triu(1), torch.zeros_like(ours))
+        ok, text = _solve_ok(ours, grad_L(library, torch.float32), grad_L(library, torch.float64))
+        assert ok, (lanes, M, N, text)

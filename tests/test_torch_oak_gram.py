@@ -237,9 +237,9 @@ def test_ctypes_signature_matches_kernel_source():
     source, against the argtypes the loader sets (nvcc cannot be asked
     here); and the kernels' depth limit, which the wrapper checks before a
     launch. The tile sizes and the workspace come from the library."""
-    assert [p.name for p in _build._sources()] == ["oak_gram_bwd.cu", "oak_gram_bwd_lanes.cu",
-                                                   "oak_gram_fwd.cu", "oak_gram_fwd_lanes.cu",
-                                                   "tri_solve.cu"]
+    assert [p.name for p in _build._sources()] == ["gemmt.cu", "oak_gram_bwd.cu",
+                                                   "oak_gram_bwd_lanes.cu", "oak_gram_fwd.cu",
+                                                   "oak_gram_fwd_lanes.cu", "tri_solve.cu"]
     src = "".join(p.read_text() for p in _build._sources())
     ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
     for name, (argtypes, restype) in _build.SIGNATURES.items():
@@ -248,7 +248,8 @@ def test_ctypes_signature_matches_kernel_source():
         params = [p.strip() for p in m.group(2).split(",")]
         want = [ctypes.POINTER(ctypes.c_int) if p.startswith("int*") else
                 ctypes.c_void_p if "*" in p else
-                ctypes.c_longlong if p.startswith("long long") else ctypes.c_int for p in params]
+                ctypes.c_longlong if p.startswith("long long") else
+                ctypes.c_float if p.startswith("float ") else ctypes.c_int for p in params]
         assert argtypes == want, name
         assert restype is ctype[m.group(1)], name
     assert set(_build.SIGNATURES) == set(re.findall(r'extern "C" (?:int|long long) (\w+)\(', src))
